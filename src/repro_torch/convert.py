@@ -1,0 +1,72 @@
+"""Carry state and requests between the reference and the port.
+
+The port's state is a tree of NamedTuples with the reference's field names
+and nesting (`SystemState(alloc=PimMallocState(buddy=BuddyState(...), ...),
+cache=BuddyCacheState(...), telem=HeapTelemetry(...))`), so flattening both
+in field order pairs every leaf. The reference side is read by attribute
+name and `numpy.asarray` alone: this module imports nothing of it.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import device as _device
+from .core.buddy import BuddyState
+from .core.buddy_cache import BuddyCacheState
+from .core.heap import AllocRequest
+from .core.pim_malloc import PimMallocState, Stats
+from .core.system import HeapTelemetry, SystemState
+
+
+def _tensor(x, dev, core_axis: bool) -> torch.Tensor:
+    a = np.array(x, dtype=np.int32)  # a writable copy
+    return torch.from_numpy(a if core_axis else a[None]).to(dev)
+
+
+def state_from_reference(st, device="cuda", core_axis: bool = True
+                         ) -> SystemState:
+    """A reference ``SystemState`` (``pim_malloc`` + buddy-cache layout)
+    as the port's. ``core_axis=False`` marks a single-core state, whose
+    leaves gain a leading ``[1]`` axis; otherwise they already carry
+    ``[C]``."""
+    dev = _device.resolve(device)
+
+    def t(x):
+        return _tensor(x, dev, core_axis)
+
+    al, ca, te = st.alloc, st.cache, st.telem
+    return SystemState(
+        alloc=PimMallocState(
+            buddy=BuddyState(longest=t(al.buddy.longest)),
+            counts=t(al.counts), stacks=t(al.stacks),
+            block_cls=t(al.block_cls), block_free=t(al.block_free),
+            big_log2=t(al.big_log2),
+            stats=Stats(*(t(getattr(al.stats, f)) for f in Stats._fields))),
+        cache=BuddyCacheState(tags=t(ca.tags), last_used=t(ca.last_used),
+                              clock=t(ca.clock)),
+        telem=HeapTelemetry(live_bytes=t(te.live_bytes),
+                            hwm_bytes=t(te.hwm_bytes)))
+
+
+def request_from_reference(req, device="cuda", core_axis: bool = True
+                           ) -> AllocRequest:
+    """A reference ``AllocRequest`` ([C, T] leaves, or [T] with
+    ``core_axis=False``) as the port's int32 ``[C, T]`` tensors."""
+    dev = _device.resolve(device)
+    return AllocRequest(*(_tensor(x, dev, core_axis)
+                          for x in (req.op, req.size, req.ptr)))
+
+
+def to_numpy(tree):
+    """The same NamedTuple tree with every tensor copied to a NumPy array."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    return type(tree)(*(to_numpy(x) for x in tree))
+
+
+def leaves(tree) -> list:
+    """Leaves in field order, the order of the reference's tree flatten."""
+    if isinstance(tree, tuple):
+        return [leaf for x in tree for leaf in leaves(x)]
+    return [tree]

@@ -1,0 +1,227 @@
+"""The CUDA kernel against its plain PyTorch version, on the card.
+
+This file imports nothing of JAX or of the reference, so that it runs on a
+GPU machine that has neither; on a machine without a GPU its card tests
+skip with a reason. It also holds the seeded mixed-op stream that the
+CPU differential test (test_torch_heap_step.py) shares.
+
+The tolerance is exact equality: all 31 outputs of a round are int32.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import heap, pim_malloc, system
+from repro_torch.kernels import heap_step as ths
+
+HEAP = 1 << 18
+BLOCK = 4096
+T = 4
+C = 3
+CAP = 256
+CLASSES = (16, 32, 64, 128, 256, 512, 1024, 2048)
+INT32_MAX = 2 ** 31 - 1
+GEOM = dict(heap_bytes=HEAP, block_bytes=BLOCK, size_classes=CLASSES)
+
+pytestmark = pytest.mark.cuda  # every test here runs on the card
+
+SIZES = (16, 48, 100, 256, 2048, 3000, 4096, 8192, 65536, HEAP + 1)
+RE_SIZES = (0, 16, 100, 128, 2048, 3000, 8192, INT32_MAX)
+GARBAGE = (-1, -7, HEAP, HEAP + BLOCK, INT32_MAX)
+
+
+def small_cfg(threads=T, heap_bytes=HEAP):
+    return system.SystemConfig(
+        kind="fused", heap_bytes=heap_bytes, num_threads=threads,
+        pm=pim_malloc.PimMallocConfig(heap_bytes=heap_bytes,
+                                      num_threads=threads, cap=CAP))
+
+
+def initial_state(num_cores=C, threads=T, heap_bytes=HEAP):
+    """The prepopulated state as [C]-stacked NumPy leaves, in
+    `ths.FusedRoundOut` state order."""
+    st = heap.init(small_cfg(threads, heap_bytes), num_cores=num_cores,
+                   device="cpu")
+    al, ca = st.alloc, st.cache
+    return [x.numpy() for x in (al.buddy.longest, al.counts, al.stacks,
+                                al.block_cls, al.block_free, al.big_log2,
+                                ca.tags, ca.last_used, ca.clock)]
+
+
+def mixed_round(rng, live, threads=T, heap_bytes=HEAP):
+    """One [C, T] round of raw protocol ops reaching every path: allocs of
+    every size regime (hit, refill, bypass, too big, exhaustion), calloc
+    with an overflowed size, frees of live, NULL and garbage pointers to
+    any thread of the core (so freelists overflow), reallocs of every
+    kind. `live[c]` is the core's pool of live pointers; a popped pointer
+    is never used twice in one round."""
+    cores = len(live)
+    op = np.zeros((cores, threads), np.int32)
+    size = np.zeros((cores, threads), np.int32)
+    ptr = np.full((cores, threads), -1, np.int32)
+    block_round = rng.random() < 0.15  # all-block rounds: batched fast path
+    for c in range(cores):
+        pool = live[c]
+        for t in range(threads):
+            r = rng.random()
+
+            def take():
+                if pool and rng.random() < 0.85:
+                    return pool.pop(rng.integers(len(pool)))
+                return int(rng.choice(GARBAGE))
+
+            if block_round:
+                op[c, t], size[c, t] = 1, BLOCK
+            elif r < 0.35:
+                op[c, t], size[c, t] = 1, min(rng.choice(SIZES),
+                                              heap_bytes + 1)
+            elif r < 0.45:
+                op[c, t], size[c, t] = 4, rng.choice((48, 100, INT32_MAX))
+            elif r < 0.7:
+                op[c, t], ptr[c, t] = 2, take()
+            elif r < 0.92:
+                op[c, t], ptr[c, t] = 3, take()
+                size[c, t] = rng.choice(RE_SIZES)
+    return op, size, ptr
+
+
+def track_live(live, op, size, ptr, out):
+    """Update the per-core live pools from one round's records."""
+    m_ptr, in_place, moved = (np.asarray(getattr(out, f)) for f in
+                              ("m_ptr", "in_place", "moved_raw"))
+    for c, t in np.ndindex(op.shape):
+        o = op[c, t]
+        if o in (1, 4) and m_ptr[c, t] >= 0:
+            live[c].append(int(m_ptr[c, t]))
+        elif o == 3 and size[c, t] > 0:
+            if in_place[c, t]:
+                live[c].append(int(ptr[c, t]))
+            elif moved[c, t] and m_ptr[c, t] >= 0:
+                live[c].append(int(m_ptr[c, t]))
+            elif ptr[c, t] >= 0:
+                live[c].append(int(ptr[c, t]))  # failed realloc: old intact
+
+
+def assert_outputs_equal(got, want, msg):
+    for f, g, w in zip(ths.FusedRoundOut._fields, got, want):
+        g = g.cpu().numpy() if isinstance(g, torch.Tensor) else np.asarray(g)
+        w = w.cpu().numpy() if isinstance(w, torch.Tensor) else np.asarray(w)
+        np.testing.assert_array_equal(g, w, err_msg=f"{msg} field={f}")
+
+
+def coverage(tally, op, size, ptr, out, heap_bytes=HEAP):
+    o = {f: np.asarray(getattr(out, f)) for f in ths.FusedRoundOut._fields}
+    need = (o["m_refill"] | o["m_bypass"]).astype(bool)
+    for key, hits in {
+        "hit": o["m_hit"], "refill": o["m_refill"], "bypass": o["m_bypass"],
+        "fail_exhausted": need & (o["m_okb"] == 0),
+        "fail_too_big": ((op == 1) | (op == 4)) & (size > heap_bytes),
+        "free_small": o["f_push"], "free_big": o["f_big"],
+        "free_dropped_full": o["f_over"],
+        "realloc_in_place": o["in_place"],
+        "realloc_moved": o["moved_raw"].astype(bool) & (o["m_ptr"] >= 0)
+        & o["valid_old"].astype(bool),
+        "realloc_size0": (op == 3) & (size == 0) & (ptr >= 0),
+        "realloc_int32_max": (op == 3) & (size == INT32_MAX),
+        "calloc_overflow": (op == 4) & (size == INT32_MAX),
+        "free_null": (op == 2) & (ptr == -1),
+        "free_garbage": (op == 2) & ((ptr < -1) | (ptr >= heap_bytes)),
+    }.items():
+        tally[key] = tally.get(key, 0) + int(np.sum(hits))
+
+
+def drive(run_ref, run_new, rounds, seed, threads=T, heap_bytes=HEAP):
+    """Feed both rounds the same NumPy inputs for `rounds` rounds; the state
+    carried forward is `run_new`'s. Returns the path coverage tally."""
+    rng = np.random.default_rng(seed)
+    state = initial_state(threads=threads, heap_bytes=heap_bytes)
+    live = [[] for _ in range(C)]
+    tally = {}
+    for r in range(rounds):
+        op, size, ptr = mixed_round(rng, live, threads, heap_bytes)
+        args = [op, size, ptr] + state
+        want = run_ref(*args)
+        got = run_new(args)
+        assert_outputs_equal(got, want, f"seed={seed} round={r}")
+        out = ths.FusedRoundOut(*(x.cpu().numpy() for x in got))
+        coverage(tally, op, size, ptr, out, heap_bytes)
+        track_live(live, op, size, ptr, out)
+        state = [np.ascontiguousarray(x) for x in out[:ths.N_STATE]]
+    return tally
+
+
+def geom(heap_bytes):
+    return dict(GEOM, heap_bytes=heap_bytes)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (run on the card; see README)")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("threads,heap_bytes", [(T, HEAP), (16, 1 << 20)])
+def test_kernel_matches_plain_on_card(cuda, threads, heap_bytes):
+    """The kernel against the plain version on the card, bit for bit, on
+    the mixed stream; every path of the round is reached."""
+    def run_kernel(args):
+        ts = [torch.from_numpy(np.array(a)).to(cuda) for a in args]
+        return ths.fused_heap_step(*ts, **geom(heap_bytes))
+
+    def run_plain(*args):
+        ts = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+              for a in args]
+        return ths.protocol_round(*ts, **geom(heap_bytes))
+
+    launches = ths.fused_heap_step.launches
+    tally = drive(run_plain, run_kernel, rounds=30, seed=5, threads=threads,
+                  heap_bytes=heap_bytes)
+    assert ths.fused_heap_step.launches == launches + 30
+    assert tally["free_big"] and tally["refill"] and tally["realloc_moved"]
+
+
+def test_kernel_updates_state_in_place(cuda):
+    """On the card the returned state leaves are the tensors passed in."""
+    rng = np.random.default_rng(0)
+    args = [torch.from_numpy(a).to(cuda) for a in
+            list(mixed_round(rng, [[] for _ in range(C)])) + initial_state()]
+    out = ths.fused_heap_step(*args, **GEOM)
+    for a, b in zip(out[:ths.N_STATE], args[3:]):
+        assert a.data_ptr() == b.data_ptr()
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    args = [torch.from_numpy(a).to(cuda) for a in
+            list(mixed_round(np.random.default_rng(0), [[] for _ in range(C)]))
+            + initial_state()]
+    bad = list(args)
+    bad[4] = bad[4].to(torch.int64)  # counts of the wrong dtype
+    with pytest.raises(ValueError, match="counts"):
+        ths.fused_heap_step(*bad, **GEOM)
+    bad = list(args)
+    bad[3] = bad[3][:, :-1].contiguous()  # longest of the wrong shape
+    with pytest.raises(ValueError, match="longest"):
+        ths.fused_heap_step(*bad, **GEOM)
+
+
+def test_kernel_same_round_double_free_on_card(cuda):
+    """Two threads free one bypass block in one round: the kernel's second
+    backend walk (a 1-byte free after big_log2 was cleared) equals the
+    plain version's."""
+    state = initial_state()
+    op = np.zeros((C, T), np.int32)
+    size = np.zeros((C, T), np.int32)
+    ptr = np.full((C, T), -1, np.int32)
+    op[:, 0], size[:, 0] = 1, 8192
+    out = ths.fused_heap_step(
+        *(torch.from_numpy(a).to(cuda) for a in [op, size, ptr] + state),
+        **GEOM)
+    op[:, :2], size[:, 0] = 2, 0
+    ptr[:, 0] = ptr[:, 1] = out.m_ptr[:, 0].cpu().numpy()
+    args = [torch.from_numpy(a).to(cuda) for a in (op, size, ptr)] + [
+        x.clone() for x in out[:ths.N_STATE]]
+    want = ths.protocol_round(*args, **GEOM)
+    got = ths.fused_heap_step(*args, **GEOM)
+    assert_outputs_equal(got, want, "double free")
+    assert bool(got.f_big[:, :2].all())

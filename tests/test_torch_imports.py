@@ -1,0 +1,32 @@
+"""The port stands alone: importing every module of `repro_torch`, and
+chip_smoke.py, pulls in neither JAX nor any module of the reference."""
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+PROBE = """
+import importlib, pkgutil, sys
+sys.path[:0] = [{src!r}, {root!r}]
+import repro_torch
+for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    importlib.import_module(m.name)
+import chip_smoke
+bad = sorted(n for n in sys.modules
+             if n == "jax" or n.startswith(("jax.", "jaxlib"))
+             or n == "repro" or n.startswith("repro."))
+print("BAD", bad)
+print("N", sum(n.startswith("repro_torch") for n in sys.modules))
+"""
+
+
+def test_port_imports_no_jax_and_no_reference():
+    out = subprocess.run(
+        [sys.executable, "-c",
+         PROBE.format(src=str(ROOT / "src"), root=str(ROOT))],
+        capture_output=True, text=True, cwd=ROOT, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+    n = int(out.stdout.split("N ")[1].split()[0])
+    assert n >= 16, out.stdout  # every module of the package was imported
