@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Drive the port's main path on one NVIDIA GPU and check it end to end.
+"""Drive the port's main paths on one NVIDIA GPU and check them end to end.
 
     python3 chip_smoke.py [--seed N] [--out F]
 
 Phases (each raises on failure; nothing is caught and carried on):
 
   1. versions, and the card's name and power limit from nvidia-smi;
-  2. build ``heap_step.cu`` for sm_90a from the checkout's source;
+  2. build ``heap_step.cu`` and ``paged_attention.cu`` for sm_90a from the
+     checkout's sources, one ``nvcc`` each, started together;
   3. the CUDA kernel against its plain PyTorch version on the card, all 31
      outputs bit for bit, over the first rounds of the session stream at
      the paper's width (32 MiB heap, T=16, 8 classes, CAP=1024, C=512);
@@ -21,7 +22,24 @@ Phases (each raises on failure; nothing is caught and carried on):
      read just after; then the conservation residual of every core,
      kernel and plain-version timings (CUDA events, and the kernel's own
      device time from a torch.profiler trace, over the launches the trace
-     recorded), and the device busy share of a few steps.
+     recorded), and the device busy share of a few steps;
+  6. the paged-attention kernel against its plain version on the card
+     (fp32 to 2e-5, bf16 to 2e-2, atol = rtol): MHA, GQA and MQA at
+     head_dim 32 and 128 with seq_len 0, 1, a page boundary and full, -1
+     entries and permuted page tables, granite-3-8b's decode shape (B=8,
+     H=32, KVH=8, D=128, page 128, P=6) and head_dim 160;
+  7. the serving path: granite-3-8b at full width (40 layers, bf16,
+     weights from ``--seed`` on the card), 8 requests of 512 prompt tokens
+     and 64 greedy decode steps through `launch.serve.serve`, page ids from
+     a ``fused`` PagePool on the card; both kernels' launch counters are
+     reset just before and read just after (paged attention 40 x 64, the
+     heap step once per pool round); then the pool's counters, every
+     step's logits finite, the last step's layer-0 attention == the plain
+     version, and timings: prefill, decode per step, the paged-attention
+     kernel (CUDA events; device time from torch.profiler), its plain
+     version, `scaled_dot_product_attention` over gathered K/V as a
+     yardstick (never on the path), the bytes bound, and the device busy
+     share of a few decode steps.
 
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -30,6 +48,7 @@ without a CUDA device or without the port's sources beside the script.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import subprocess
@@ -48,6 +67,21 @@ ROUNDS = 64          # rounds of the main-path session
 CHECK_ROUNDS = 16    # session rounds held kernel against plain version
 PLAIN_ROUNDS = 8     # rounds the plain version is timed over
 PROFILE_ROUNDS = 10  # steps in the profiler window (2 of them warm-up)
+
+PA_SOURCE = "src/repro_torch/kernels/csrc/paged_attention.cu"
+PA_REPLACES = "src/repro/kernels/paged_attention.py:94"
+PA_KERNEL = "paged_attention_kernel"  # its name in a profiler trace
+FP32_OPS_PER_S = 67e12      # non-tensor fp32 peak (data sheet)
+# (H, KVH, D): MHA, GQA with G = 4, MQA, at head_dim 32 and 128
+PA_HEADS = ((4, 4, 32), (8, 2, 32), (4, 1, 32),
+            (4, 4, 128), (8, 2, 128), (4, 1, 128))
+PA_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+SERVE_ARCH = "granite_3_8b"
+SERVE_BATCH = 8       # requests
+SERVE_PROMPT = 512    # prompt tokens per request
+SERVE_STEPS = 64      # greedy decode steps
+SERVE_PROFILE = 4     # decode steps in the profiler window (after 1 warm-up)
+PA_CALLS = 100        # back-to-back calls per timing
 
 
 def session_tape(rng, rounds, cores, threads):
@@ -244,11 +278,11 @@ def time_kernel(cfg, fresh, reqs):
             recs)
 
 
-def kernel_events(prof):
-    """(device µs, event count) of the fused kernel in a profiler trace."""
+def kernel_events(prof, name="heap_step_kernel"):
+    """(device µs, event count) of the kernel `name` in a profiler trace."""
     us, n = 0.0, 0
     for e in prof.key_averages():
-        if "heap_step_kernel" in e.key and device_us(e) > 0:
+        if name in e.key and device_us(e) > 0:
             us += device_us(e)
             n += e.count
     return us, n
@@ -429,6 +463,310 @@ def run(seed, device, cores=CORES, rounds=ROUNDS):
     return result, kernels
 
 
+# ---------------------------------------------------------------------------
+# phases 6-7: the paged-attention kernel and the serving path
+# ---------------------------------------------------------------------------
+def paged_case(rng, H, KVH, D, page, pages, lens, dtype, device):
+    """Inputs of one paged-attention call: a permuted page table over a
+    pool of B * pages + 3 pages, with -1 entries past the end of sequence 1
+    and one inside the valid range of the last sequence (reads page 0)."""
+    import numpy as np
+    import torch
+    B = len(lens)
+    N = B * pages + 3
+
+    def f(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(device=device, dtype=dtype)
+
+    pt = rng.permutation(N)[:B * pages].reshape(B, pages).astype(np.int32)
+    pt[1, 1:] = -1
+    pt[-1, 1] = -1
+    return (f(B, H, D), f(N, page, KVH, D), f(N, page, KVH, D),
+            torch.from_numpy(pt).to(device),
+            torch.tensor(lens, dtype=torch.int32, device=device))
+
+
+def assert_close(got, want, tol, what):
+    """max |got - want|; raises beyond atol = rtol = tol."""
+    import torch
+    g, w = got.float(), want.float()
+    diff = float((g - w).abs().max()) if g.numel() else 0.0
+    if not torch.allclose(g, w, atol=tol, rtol=tol):
+        raise AssertionError(f"{what}: kernel != plain version beyond "
+                             f"{tol} (max |diff| {diff})")
+    return diff
+
+
+def phase_paged_vs_plain(seed, device):
+    """The kernel against its plain version over the sweep; returns
+    {dtype name: max |diff|}."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+    rng = np.random.default_rng(seed)
+    worst = {}
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[1]
+        cases = [(H, KVH, D, 16, 4, (0, 1, 16, 17, 64))
+                 for H, KVH, D in PA_HEADS]
+        cases += [(32, 8, 128, 128, 6, (513, 530, 545, 560, 575, 576, 0,
+                                        768)),
+                  (32, 8, 160, 128, 6, (1, 128, 129, 768))]
+        for H, KVH, D, page, pages, lens in cases:
+            args = paged_case(rng, H, KVH, D, page, pages, lens, dt, device)
+            got = pa.paged_attention(*args)
+            want = pa.paged_attention_plain(*args)
+            torch.cuda.synchronize()
+            d = assert_close(got, want, PA_TOL[name],
+                             f"{name} H={H} KVH={KVH} D={D} page={page}")
+            if lens[0] == 0 and bool(got[0].any()):
+                raise AssertionError("seq_len 0 did not give zeros")
+            worst[name] = max(worst.get(name, 0.0), d)
+    q, k, v, _, _ = paged_case(rng, 2, 2, 128, 128, 2, (256, 256),
+                               torch.float32, device)
+    q2 = torch.cat([q[:1], q[:1]])
+    pt = torch.tensor([[0, 1], [2, 3]], dtype=torch.int32, device=device)
+    sl = torch.tensor([256, 256], dtype=torch.int32, device=device)
+    out = pa.paged_attention(q2, k, v, pt, sl)
+    out_sw = pa.paged_attention(q2, k, v, pt.flip(0).contiguous(), sl)
+    if not torch.allclose(out[0], out_sw[1], atol=1e-6, rtol=0) or \
+            torch.allclose(out[0], out[1]):
+        raise AssertionError("the kernel does not follow the page table")
+    return worst
+
+
+def time_calls(fn, n=PA_CALLS):
+    """(CUDA-event ms per call over n back-to-back calls after warm-up,
+    profiler device ms per call of every kernel the calls launched, the
+    profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    dev = sum(device_us(e) for e in prof.key_averages()
+              if device_us(e) > 0 and e.device_type.name == "CUDA")
+    return start.elapsed_time(end) / n, (dev / n / 1e3 if dev else None), \
+        prof
+
+
+def pa_bound(q, k_pages, seq_lens, page_table):
+    """(bytes, fp32 operations) one call needs for these inputs: the K and
+    V rows of the valid tokens, q and the output, the page table and the
+    lengths, each once; q.k and p.v products plus the softmax's exp, max
+    and sum per score."""
+    B, H, D = q.shape
+    KVH = k_pages.shape[2]
+    elt = q.element_size()
+    tokens = int(seq_lens.clamp(min=0).sum())
+    nbytes = (2 * tokens * KVH * D * elt + 2 * B * H * D * elt
+              + 4 * page_table.numel() + 4 * B)
+    ops = 4 * tokens * H * D + 5 * tokens * H
+    return nbytes, ops
+
+
+def phase_serve(seed, device):
+    """Phase 7; returns (result dict, the paged-attention kernels entry)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import configs
+    from repro_torch.kernels import heap_step
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kvcache import paged
+    from repro_torch.launch import serve as srv
+    from repro_torch.models import layers, registry, transformer
+
+    cfg = configs.get(SERVE_ARCH)
+    B, S, steps = SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    params = registry.init(cfg, seed=seed, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in params["blocks"].values()) + sum(
+        x.numel() for k, x in params.items() if k != "blocks")
+
+    # ---- the main path, counters reset just before -------------------------
+    heap_step.fused_heap_step.launches = 0
+    pa.paged_attention.launches = 0
+    res = srv.serve(cfg, batch=B, prompt_len=S, decode_steps=steps,
+                    impl="kernel", seed=seed, device=device, params=params)
+    torch.cuda.synchronize()
+    pa_launches = pa.paged_attention.launches
+    heap_launches = heap_step.fused_heap_step.launches
+    if pa_launches != cfg.n_layers * steps:
+        raise AssertionError(f"serve launched the paged-attention kernel "
+                             f"{pa_launches} times, want {cfg.n_layers} x "
+                             f"{steps}")
+    if heap_launches != res.pool_rounds or heap_launches == 0:
+        raise AssertionError(f"serve launched the heap kernel "
+                             f"{heap_launches} times for {res.pool_rounds} "
+                             f"pool rounds")
+    st = res.stats
+    if st["fails"] != 0 or st["front_hits"] <= 0:
+        raise AssertionError(f"pool stats {st}")
+    if not res.logits_finite:
+        raise AssertionError("non-finite logits in some step")
+    if res.tokens.shape != (B, steps + 1) or \
+            int(res.tokens.max()) >= cfg.vocab or int(res.tokens.min()) < 0:
+        raise AssertionError(f"tokens {tuple(res.tokens.shape)} outside "
+                             f"[0, {cfg.vocab})")
+    peak_gib = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    pf_s, dec_s = res.timings["prefill_s"], res.timings["decode_s"]
+    print(f"serve {cfg.name}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {n_params / 1e9:.3f} B params in {cfg.dtype} "
+          f"(init {init_s:.2f} s), {B} x {S} prompt tokens, {steps} decode "
+          f"steps, page {cfg.page_size}; paged-attention launches "
+          f"{pa_launches}, heap-step launches {heap_launches} for "
+          f"{res.pool_rounds} pool rounds; pool {st}; all logits finite; "
+          f"peak device memory {peak_gib:.2f} GiB")
+    print(f"serve timings: prefill {1e3 * pf_s:.2f} ms; decode "
+          f"{1e3 * dec_s / steps:.3f} ms/step, {B * steps / dec_s:.2f} "
+          f"tokens/s; waiting on the per-step length read-back "
+          f"{1e3 * res.timings['sync_s'] / steps:.3f} ms/step")
+
+    # ---- the last step's layer-0 attention, kernel vs plain ----------------
+    cache, p = res.cache, res.params
+    H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    pt, seq_lens = cache["page_table"], cache["seq_lens"]
+    P, page = pt.shape[1], cfg.page_size
+    pos = seq_lens - 1
+    x = p["embed"][res.tokens[:, -2]].to(layers.torch_dtype(cfg.dtype))
+    h = layers.rms_norm(x[:, None], p["blocks"]["ln1"][0])
+    cos, sin = layers.rope_tables(pos[:, None], hd, cfg.rope_theta)
+    q = layers.apply_rope(layers.qk_proj(h, p["blocks"]["wq"][0], H, hd),
+                          cos, sin)[:, 0].contiguous()
+    kp = cache["k_pages"][0].view(B * P, page, KVH, hd)
+    vp = cache["v_pages"][0].view(B * P, page, KVH, hd)
+    ptg = paged.global_page_table(pt, P)
+    args = (q, kp, vp, ptg, seq_lens)
+    got, want = pa.paged_attention(*args), pa.paged_attention_plain(*args)
+    torch.cuda.synchronize()
+    serve_err = assert_close(got, want, PA_TOL["bfloat16"],
+                             "layer-0 attention of the last decode step")
+
+    # ---- timings at these inputs (not on the path) -------------------------
+    kern_ms, _, kprof = time_calls(lambda: pa.paged_attention(*args))
+    k_us, k_seen = kernel_events(kprof, PA_KERNEL)
+    kern_dev_ms = k_us / 1e3 / k_seen if k_seen else None
+    plain_ms, plain_dev_ms, _ = time_calls(
+        lambda: pa.paged_attention_plain(*args), n=20)
+    Stot = P * page
+    bidx = torch.arange(B, device=device)[:, None]
+    ptl = pt.long().clamp(0, P - 1)
+    mask = (torch.arange(Stot, device=device)[None, :]
+            < seq_lens[:, None])[:, None, None, :]
+
+    def gather():
+        kg = cache["k_pages"][0][bidx, ptl].reshape(B, Stot, KVH, hd)
+        vg = cache["v_pages"][0][bidx, ptl].reshape(B, Stot, KVH, hd)
+        return kg.transpose(1, 2).contiguous(), vg.transpose(1, 2).contiguous()
+
+    kg, vg = gather()
+
+    def sdpa(kg, vg):
+        return F.scaled_dot_product_attention(
+            q[:, :, None, :], kg, vg, attn_mask=mask, enable_gqa=True)[:, :, 0]
+
+    # a yardstick, not a check: in bf16 it may round the scores and p to
+    # bf16, where the kernel and the plain version keep them in fp32
+    lib_err = float((sdpa(kg, vg).float() - want.float()).abs().max())
+    lib_ms, lib_dev_ms, _ = time_calls(lambda: sdpa(kg, vg))
+    libg_ms, libg_dev_ms, _ = time_calls(lambda: sdpa(*gather()))
+    nbytes, nops = pa_bound(q, kp, seq_lens, ptg)
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * nops / FP32_OPS_PER_S
+    dev = "not measured" if kern_dev_ms is None else \
+        f"{kern_dev_ms:.5f} ms device time/launch over the {k_seen} " \
+        f"launches the profiler recorded"
+    print(f"paged attention at the last step's layer-0 inputs (B={B}, "
+          f"H={H}, KVH={KVH}, D={hd}, {int(seq_lens[0])} tokens): kernel "
+          f"{kern_ms:.5f} ms/call (CUDA events, back to back), {dev}; "
+          f"plain version {plain_ms:.4f} ms/call; "
+          f"scaled_dot_product_attention {lib_ms:.5f} ms/call over gathered "
+          f"K/V (device {lib_dev_ms}), {libg_ms:.5f} ms with the gather "
+          f"(device {libg_dev_ms}); bound {max(bytes_ms, ops_ms):.6f} ms "
+          f"({nbytes} B, {nops} fp32 ops); kernel == plain max |diff| "
+          f"{serve_err}, yardstick vs plain max |diff| {lib_err}")
+
+    # ---- device busy share over a few more decode steps --------------------
+    dcfg = dataclasses.replace(cfg, attend_impl="kernel")
+    toks = res.tokens[:, -1:]
+    cache, logits = transformer.decode(dcfg, p, cache, {"tokens": toks})
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(SERVE_PROFILE):
+            toks = torch.argmax(logits, dim=-1)[:, None]
+            cache, logits = transformer.decode(dcfg, p, cache,
+                                               {"tokens": toks})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy, launches, top = 0.0, 0, []
+    for e in prof.key_averages():
+        us = device_us(e)
+        if us > 0 and e.device_type.name == "CUDA":
+            busy += us
+            launches += e.count
+            top.append((us / SERVE_PROFILE / 1e3, e.count, e.key[:60]))
+    top.sort(reverse=True)
+    step_pa_us, step_pa_n = kernel_events(prof, PA_KERNEL)
+    wall_ms = 1e3 * wall / SERVE_PROFILE
+    busy_ms = busy / SERVE_PROFILE / 1e3 if busy else None
+    if busy_ms is None:
+        print("profiler: no device time recorded; busy share not measured")
+    else:
+        print(f"profiler over {SERVE_PROFILE} decode steps: device busy "
+              f"{busy_ms:.3f} of {wall_ms:.3f} ms/step "
+              f"({100 * busy_ms / wall_ms:.1f} %), "
+              f"{launches / SERVE_PROFILE:.0f} device launches/step, "
+              f"paged attention {step_pa_us / 1e3 / SERVE_PROFILE:.4f} "
+              f"ms/step over {step_pa_n} of {cfg.n_layers * SERVE_PROFILE} "
+              f"launches recorded ({step_pa_us / 1e3 / max(step_pa_n, 1):.5f}"
+              f" ms device time/launch in situ); top: " + "; ".join(
+                  f"{k} {ms:.3f} ms/step x{c}" for ms, c, k in top[:6]))
+    result = dict(
+        arch=cfg.name, n_params=n_params, init_s=init_s, batch=B,
+        prompt=S, decode_steps=steps, pool_rounds=res.pool_rounds,
+        pool_stats=st, pa_launches=pa_launches, heap_launches=heap_launches,
+        peak_gib=peak_gib, prefill_ms=1e3 * pf_s,
+        decode_ms_per_step=1e3 * dec_s / steps,
+        tokens_per_s=B * steps / dec_s,
+        sync_ms_per_step=1e3 * res.timings["sync_s"] / steps,
+        pa_ms=kern_ms, pa_device_ms=kern_dev_ms, pa_device_events=k_seen,
+        pa_plain_ms=plain_ms, pa_plain_device_ms=plain_dev_ms,
+        sdpa_ms=lib_ms, sdpa_device_ms=lib_dev_ms, sdpa_gather_ms=libg_ms,
+        sdpa_gather_device_ms=libg_dev_ms, pa_bytes=nbytes, pa_ops=nops,
+        pa_bytes_ms=bytes_ms, pa_ops_ms=ops_ms, pa_serve_err=serve_err,
+        step_busy_ms=busy_ms, step_wall_ms=wall_ms,
+        step_launches=launches / SERVE_PROFILE,
+        step_pa_device_ms=step_pa_us / 1e3 / SERVE_PROFILE,
+        step_pa_events=step_pa_n, step_top=[list(t) for t in top[:8]])
+    entry = {
+        "name": "paged_attention", "route": "cuda", "source": PA_SOURCE,
+        "replaces": PA_REPLACES, "launches": pa_launches,
+        "max_abs_err": serve_err, "ms": kern_ms, "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": lib_ms}
+    return result, entry
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -455,18 +793,35 @@ def main(argv=None) -> int:
           f"CUDA {torch.version.cuda}")
     print(smi)
 
-    # ---- 2: build the kernel from source ----------------------------------
+    # ---- 2: build the kernels from source, in parallel ---------------------
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    _build.build("heap_step", verbose=True)
-    _build.load("heap_step")
-    print(f"built {KERNEL_SOURCE} for sm_90a in "
-          f"{time.perf_counter() - t0:.2f} s")
+    secs = _build.build_all(verbose=True)
+    for name in secs:
+        _build.load(name)
+    print("built " + ", ".join(f"{name}.cu in {s:.2f} s"
+                                for name, s in secs.items())
+          + f" for sm_90a ({time.perf_counter() - t0:.2f} s in all)")
 
     result, kernels = run(args.seed, device)
+
+    # ---- 6: paged attention, kernel against plain version -----------------
+    t0 = time.perf_counter()
+    worst = phase_paged_vs_plain(args.seed, device)
+    print(f"paged attention kernel == plain version over the sweep: max "
+          f"|diff| " + ", ".join(f"{k} {v:.3g} (tol {PA_TOL[k]})"
+                                 for k, v in worst.items())
+          + f" [{time.perf_counter() - t0:.1f} s]")
+
+    # ---- 7: the serving path at full width ---------------------------------
+    serve_result, pa_entry = phase_serve(args.seed, device)
+    pa_entry["max_abs_err"] = max(pa_entry["max_abs_err"], *worst.values())
+    kernels.append(pa_entry)
     if args.out:
         with open(args.out, "w") as f:
-            json.dump(dict(result, gpu=smi, kernels=kernels), f, indent=1)
+            json.dump(dict(result, serve=serve_result, build_s=secs,
+                           paged_vs_plain=worst, gpu=smi, kernels=kernels),
+                      f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

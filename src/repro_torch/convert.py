@@ -1,4 +1,5 @@
-"""Carry state and requests between the reference and the port.
+"""Carry state, requests and model parameters between the reference and
+the port.
 
 The port's state is a tree of NamedTuples with the reference's field names
 and nesting (`SystemState(alloc=PimMallocState(buddy=BuddyState(...), ...),
@@ -56,6 +57,26 @@ def request_from_reference(req, device="cuda", core_axis: bool = True
     dev = _device.resolve(device)
     return AllocRequest(*(_tensor(x, dev, core_axis)
                           for x in (req.op, req.size, req.ptr)))
+
+
+def params_from_reference(np_tree, device="cuda", dtype=None) -> dict:
+    """The reference's parameter tree (nested dicts of arrays, e.g. after
+    ``jax.tree.map(numpy.asarray, params)``) as the port's: the same
+    nesting and names, each leaf a tensor on `device`, cast to `dtype`
+    when given (else NumPy's dtype; a bfloat16 leaf goes through
+    float32)."""
+    dev = _device.resolve(device)
+
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        a = np.asarray(x)
+        if a.dtype.kind not in "fiub":  # ml_dtypes' bfloat16 is kind 'V'
+            a = a.astype(np.float32)
+        t = torch.from_numpy(np.array(a)).to(dev)
+        return t if dtype is None else t.to(dtype)
+
+    return conv(np_tree)
 
 
 def to_numpy(tree):

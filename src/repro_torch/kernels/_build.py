@@ -15,6 +15,8 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -26,6 +28,7 @@ _VP, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "heap_step": ("heap_step_launch",
                   [_VP] * 12 + [ctypes.POINTER(_I), _VP] + [_I] * 7 + [_VP]),
+    "paged_attention": ("paged_attention_launch", [_VP] * 6 + [_I] * 8 + [_VP]),
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}
@@ -77,6 +80,19 @@ def build(name: str, verbose: bool = False) -> Path:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return out
+
+
+def build_all(verbose: bool = False) -> dict:
+    """Build every kernel at once, one ``nvcc`` each, all started together;
+    returns {name: seconds until that build finished}."""
+    def timed(name):
+        t0 = time.perf_counter()
+        build(name, verbose=verbose)
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=len(_SIGNATURES)) as ex:
+        futs = {n: ex.submit(timed, n) for n in _SIGNATURES}
+        return {n: f.result() for n, f in futs.items()}
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,0 +1,273 @@
+"""Paged KV cache backed by PIM-malloc: the paper's allocator as the
+serving substrate.
+
+Layout: **per-sequence page pools**
+
+    k_pages [L, B, P, page, KVH, hd]
+
+Each sequence owns a reserved extent of P physical pages (what the buddy
+backend hands out at prefill); the page table indirects logical ->
+physical *within* that extent, and single-page decode growth is served by
+the thread-cache frontend.
+
+`attend(impl="kernel")` flattens the per-sequence pools into the shared
+pool the paged-attention kernel takes (``[B*P, page, KVH, hd]`` views with
+global page ids ``b*P + pt``); `attend(impl="ref")` is the batched-gather
+plain version. Both compute the same function.
+
+The port of `repro.kvcache.paged`, with one difference of contract: the
+reference's writers are functional, the port's **write into the pages
+they are given, in place** (`write_prefill`, `write_token`). At
+granite-3-8b's full width one layer's K and V pools hold ~25 MB; copying
+them per layer per decode step would move gigabytes per step for a write
+of 4 KiB. The sequence-parallel `write_attend_seqpar` (a mesh-only
+`shard_map` body) waits for multi-GPU work; on one device the reference
+falls back to write + `attend` as well.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from .. import device as _device
+from ..core import api
+from ..core.heap import AllocResponse
+from ..kernels.paged_attention import paged_attention
+
+PAGE_UNIT = 16  # allocator bytes per page (smallest size class)
+
+
+def pages_per_seq(max_seq: int, page_size: int) -> int:
+    return math.ceil(max_seq / page_size)
+
+
+def cache_spec(*, n_layers: int, batch: int, max_seq: int, page_size: int,
+               kv_heads: int, head_dim: int, dtype) -> dict:
+    """{name: (shape, dtype)} of the paged cache (nothing allocated)."""
+    P = pages_per_seq(max_seq, page_size)
+    pool = (n_layers, batch, P, page_size, kv_heads, head_dim)
+    return {
+        "k_pages": (pool, dtype),
+        "v_pages": (pool, dtype),
+        "page_table": ((batch, P), torch.int32),
+        "seq_lens": ((batch,), torch.int32),
+    }
+
+
+def init_cache(*, n_layers: int, batch: int, max_seq: int, page_size: int,
+               kv_heads: int, head_dim: int, dtype, device="cuda") -> dict:
+    """Zero cache with the identity page table (contiguous buddy extent),
+    on `device` (the card unless the caller asks for the CPU)."""
+    dev = _device.resolve(device)
+    spec = cache_spec(n_layers=n_layers, batch=batch, max_seq=max_seq,
+                      page_size=page_size, kv_heads=kv_heads,
+                      head_dim=head_dim, dtype=dtype)
+    P = spec["page_table"][0][1]
+    cache = {k: torch.zeros(shape, dtype=dt, device=dev)
+             for k, (shape, dt) in spec.items()}
+    cache["page_table"] = torch.arange(
+        P, dtype=torch.int32, device=dev).expand(batch, P).contiguous()
+    return cache
+
+
+def write_prefill(pages, kv, page_table):
+    """Write a prompt's K or V into its pages, **in place**.
+
+    pages [B, P, page, KVH, hd]; kv [B, S, KVH, hd] with S % page == 0;
+    page_table int32 [B, P] (ids clamped to [0, P)). Returns `pages`."""
+    B, P, page_size, KVH, hd = pages.shape
+    S = kv.shape[1]
+    if S % page_size:
+        raise ValueError(f"prompt length {S} is not a multiple of the page "
+                         f"size {page_size}")
+    sp = S // page_size
+    kv4 = kv.reshape(B, sp, page_size, KVH, hd).to(pages.dtype)
+    idx = page_table[:, :sp].long().clamp(0, P - 1)
+    bidx = torch.arange(B, device=pages.device)[:, None]
+    pages[bidx, idx] = kv4
+    return pages
+
+
+def write_token(pages, kv, page_table, pos):
+    """Write one new token's K or V per sequence, **in place**.
+
+    pages [B, P, page, KVH, hd]; kv [B, KVH, hd]; pos int32 [B] (0-based
+    slot). Returns `pages`."""
+    B, P, page_size, KVH, hd = pages.shape
+    pos = pos.long()
+    pidx = page_table.long().gather(1, (pos // page_size)[:, None])[:, 0]
+    pidx = pidx.clamp(0, P - 1)
+    slot = pos % page_size
+    pages[torch.arange(B, device=pages.device), pidx, slot] = \
+        kv.to(pages.dtype)
+    return pages
+
+
+def _attend_ref(q, k_pages, v_pages, page_table, seq_lens):
+    """Batched-gather plain version over per-sequence pools: gathers in the
+    pools' dtype, fp32 only inside the products (as the reference's
+    ``preferred_element_type=float32`` einsums)."""
+    B, H, D = q.shape
+    _, P, page_size, KVH, _ = k_pages.shape
+    G = H // KVH
+    scale = 1.0 / (D ** 0.5)
+    pt = page_table.long().clamp(0, P - 1)
+    bidx = torch.arange(B, device=q.device)[:, None]
+    k = k_pages[bidx, pt].reshape(B, P * page_size, KVH, D)
+    v = v_pages[bidx, pt].reshape(B, P * page_size, KVH, D)
+    qh = q.reshape(B, KVH, G, D).to(k.dtype)
+    s = torch.einsum("bkgd,bskd->bkgs", qh.float(), k.float()) * scale
+    pos = torch.arange(P * page_size, device=q.device)[None, None, None, :]
+    mask = pos < seq_lens[:, None, None, None]
+    s = torch.where(mask, s, -1e30)
+    p = torch.where(mask, torch.softmax(s, dim=-1), 0.0)
+    o = torch.einsum("bkgs,bskd->bkgd", p.to(k.dtype).float(), v.float())
+    return o.reshape(B, H, D).to(q.dtype)
+
+
+def global_page_table(page_table, P: int):
+    """Per-sequence page ids as ids into the flattened ``[B*P, ...]`` pool:
+    ``b*P + clip(pt, 0, P-1)`` (int32 [B, P])."""
+    B = page_table.shape[0]
+    base = torch.arange(B, dtype=torch.int32, device=page_table.device)
+    return (base[:, None] * P + page_table.clamp(0, P - 1)).to(torch.int32)
+
+
+def attend(q, k_pages, v_pages, page_table, seq_lens, impl: str = "ref"):
+    """Decode attention over per-sequence paged KV: q [B, H, hd] ->
+    [B, H, hd].
+
+    ``impl="kernel"`` goes through `kernels.paged_attention.paged_attention`
+    (the CUDA kernel on the card) over ``[B*P, page, KVH, hd]`` views of the
+    pools with `global_page_table`'s ids; ``impl="ref"`` is
+    `_attend_ref`."""
+    if impl == "kernel":
+        B, P, page_size, KVH, hd = k_pages.shape
+        kp = k_pages.view(B * P, page_size, KVH, hd)
+        vp = v_pages.view(B * P, page_size, KVH, hd)
+        return paged_attention(q, kp, vp, global_page_table(page_table, P),
+                               seq_lens)
+    if impl != "ref":
+        raise ValueError(f"unknown attend impl {impl!r} (kernel | ref)")
+    return _attend_ref(q, k_pages, v_pages, page_table, seq_lens)
+
+
+class PagePool:
+    """Host-side page allocator for serving: PIM-malloc manages page ids.
+
+    Pages are allocator 'bytes' at PAGE_UNIT per page; ptr -> page_id =
+    ptr // PAGE_UNIT. Built on a `repro_torch.core.api.HeapClient` (kind
+    ``fused`` by default: the heap-step kernel on the card), so every call
+    also yields the DPU cost model's per-thread latencies
+    (``pool.client.last_info``).
+
+    Every page free routes through the protocol's free path: a stale or
+    repeated page id reaches the backend and shows up in
+    `Stats.dropped_frees` instead of being absorbed host-side. ``gc``
+    waits for ROADMAP A1; the reference's deprecated ``alloc=`` hook is not
+    ported.
+    """
+
+    def __init__(self, n_pages: int, num_threads: int = 16,
+                 kind: str = "fused", client: api.HeapClient = None,
+                 device="cuda"):
+        """``client`` injects a `HeapClient` whose heap spans
+        n_pages * PAGE_UNIT bytes; otherwise one is built on `device`."""
+        if n_pages <= 0 or n_pages & (n_pages - 1):
+            raise ValueError(f"n_pages must be a power of two, got {n_pages}")
+        self.n_pages = n_pages
+        if client is None:
+            client = api.HeapClient(heap_bytes=n_pages * PAGE_UNIT,
+                                    num_threads=num_threads, kind=kind,
+                                    device=device)
+        elif not isinstance(client, api.HeapClient):
+            raise TypeError(
+                f"client must be a HeapClient, got {type(client).__name__!r}")
+        if client.cfg.heap_bytes != n_pages * PAGE_UNIT:
+            raise ValueError(f"client heap {client.cfg.heap_bytes} B != "
+                             f"{n_pages} pages x {PAGE_UNIT} B")
+        self.client = client
+        self.cfg = client.cfg.pm  # block_bytes=4096: 256-page refills
+
+    @property
+    def device(self) -> torch.device:
+        return self.client.device
+
+    def alloc_pages(self, n: int, thread: int = 0) -> torch.Tensor:
+        """Contiguous extent of `n` pages; returns page ids [n] (empty on
+        OOM)."""
+        ptr = self.client.malloc(n * PAGE_UNIT, thread=thread)
+        if ptr < 0:
+            return torch.zeros((0,), dtype=torch.int32, device=self.device)
+        return ptr // PAGE_UNIT + torch.arange(n, dtype=torch.int32,
+                                               device=self.device)
+
+    def alloc_page_batch(self, threads) -> tuple[torch.Tensor, AllocResponse]:
+        """One single-page allocation per requesting thread (decode growth).
+        threads: bool [T] mask. Returns (int32 [T] page ids, -1 = none;
+        the response)."""
+        threads = torch.as_tensor(threads, dtype=torch.bool,
+                                  device=self.device)
+        sizes = torch.where(threads, PAGE_UNIT, 0).to(torch.int32)
+        resp = self.client.malloc_batch(sizes, threads)
+        ids = torch.where(resp.ptr >= 0,
+                          torch.div(resp.ptr, PAGE_UNIT,
+                                    rounding_mode="floor"), -1)
+        return ids.to(torch.int32), resp
+
+    def grow_extent(self, first_page: int, n_pages: int,
+                    thread: int = 0) -> tuple[torch.Tensor, bool]:
+        """realloc an extent to `n_pages` pages.
+
+        Returns (page ids [n], moved). ids is empty on OOM (the old extent
+        then remains live). When `moved` is True the allocator relocated the
+        extent and freed the old pages: the caller MUST copy the old pages'
+        KV contents into the returned ids before its next allocation, or the
+        old pages may be handed to another sequence."""
+        new_ptr = self.client.realloc(int(first_page) * PAGE_UNIT,
+                                      n_pages * PAGE_UNIT, thread=thread)
+        if new_ptr < 0:
+            return torch.zeros((0,), dtype=torch.int32,
+                               device=self.device), False
+        moved = bool(self.client.last_info.moved[thread])
+        return new_ptr // PAGE_UNIT + torch.arange(
+            n_pages, dtype=torch.int32, device=self.device), moved
+
+    def free_page_batch(self, pages) -> AllocResponse:
+        """Free one page per thread slot (decode-page reclaim): pages
+        int32 [T] page ids, -1 = nothing to free on that slot."""
+        pages = torch.as_tensor(pages, dtype=torch.int32, device=self.device)
+        ptrs = torch.where(pages >= 0, pages * PAGE_UNIT, -1)
+        return self.client.free_batch(ptrs.to(torch.int32))
+
+    def free_extent(self, first_page: int, thread: int = 0) -> None:
+        self.client.free(int(first_page) * PAGE_UNIT, thread=thread)
+
+    def evict(self, first_page: int, decode_pages, thread: int = 0) -> dict:
+        """Session-end eviction: free ALL decode pages (chunked into T-wide
+        free rounds), then the extent at ``first_page`` (skipped when < 0),
+        every free through the protocol. Returns ``{"freed_pages",
+        "dropped_frees"}``; a nonzero ``dropped_frees`` means a stale or
+        double page id reached the backend's dropped-free path."""
+        T = self.client.cfg.num_threads
+        ids = [int(p) for p in np.asarray(
+            torch.as_tensor(decode_pages).cpu(), np.int64).reshape(-1)
+            if int(p) >= 0]
+        freed = dropped = 0
+        for i in range(0, len(ids), T):
+            chunk = np.full((T,), -1, np.int32)
+            chunk[:len(ids[i:i + T])] = ids[i:i + T]
+            resp = self.free_page_batch(chunk)
+            freed += len(ids[i:i + T])
+            dropped += int(((resp.path == 2).cpu().numpy()
+                            & (chunk >= 0)).sum())
+        if int(first_page) >= 0:
+            self.free_extent(first_page, thread=thread)
+            dropped += int(self.client.last_info.path[thread] == 2)
+        return {"freed_pages": freed, "dropped_frees": dropped}
+
+    @property
+    def stats(self) -> dict:
+        return self.client.stats

@@ -1,0 +1,211 @@
+"""Paged-KV serving: PIM-malloc page allocation + batched decode.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_3_8b \\
+        --reduced --device cpu --batch 2 --prompt-len 16 --decode-steps 8
+
+The port of `repro.launch.serve`. It shows the paper's allocator as the
+serving substrate:
+
+  * prefill allocates each request's page extent through a `PagePool`
+    (kind ``fused``: the heap-step kernel on the card), a frontend hit at
+    these sizes;
+  * per-token page growth is served by the thread-cache frontend when any
+    sequence crosses a page boundary;
+  * attention consumes the page tables (``--impl kernel``: the
+    paged-attention kernel on the card; ``--impl ref``: the plain
+    batched gather).
+
+`serve` is the entry point a program calls; `main` parses the reference's
+flags (``--fleet-ranks`` waits for ROADMAP A2/A6 and raises) plus
+``--device``, ``--seed`` and ``--no-reduced`` for full width.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from .. import configs
+from .. import device as _device
+from ..kvcache import paged
+from ..models import registry
+from ..models.config import ArchConfig
+
+
+@dataclasses.dataclass
+class ServeResult:
+    """What one `serve` run produced.
+
+    tokens: greedy tokens int64 [B, decode_steps + 1] (the prefill's, then
+      one per decode step); prompt: the (page-padded) prompt [B, S];
+    logits: the last step's logits [B, V]; logits_finite: whether every
+      step's logits were finite; page_ids: each request's prefill extent,
+      int32 [B, P]; stats / prefill_stats: the pool's
+      allocator counters at the end and after the extents;
+    pool_rounds: allocator rounds the pool served (one heap step each);
+    page_allocs: decode-time page allocations; alloc_us: their modeled DPU
+      time; timings: host-clock seconds (``prefill_s``, ``decode_s`` and
+      ``sync_s``, the part of the decode loop spent waiting to read the
+      sequence lengths back); cache / params: the final cache and the
+      parameters, for inspection."""
+
+    tokens: torch.Tensor
+    prompt: torch.Tensor
+    logits: torch.Tensor
+    logits_finite: bool
+    page_ids: torch.Tensor
+    stats: dict
+    prefill_stats: dict
+    pool_rounds: int
+    page_allocs: int
+    alloc_us: float
+    timings: dict
+    cache: dict
+    params: dict
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def serve(cfg: ArchConfig, *, batch: int, prompt_len: int,
+          decode_steps: int, impl: str = "kernel", seed: int = 0,
+          device="cuda", params=None, tokens=None) -> ServeResult:
+    """Serve `batch` requests of `prompt_len` tokens for `decode_steps`
+    greedy decode steps, on `device` (the card unless the caller asks for
+    the CPU; raises without a GPU).
+
+    `params` (a `registry.init` tree) and `tokens` (int [batch,
+    prompt_len]) default to ones made from `seed`. The prompt is padded
+    with zeros to a whole number of pages, as the reference pads it."""
+    dev = _device.resolve(device)
+    cfg = dataclasses.replace(cfg, attend_impl=impl)
+    mod = registry.get_module(cfg)
+    B, S = batch, prompt_len
+    page = cfg.page_size
+    max_seq = S + decode_steps + page
+    P = paged.pages_per_seq(max_seq, page)
+
+    # ---- PIM-malloc page pool: one extent per request ---------------------
+    # floor: the hierarchy needs headroom beyond thread-cache prepopulation
+    n_pages = max(1 << (B * P - 1).bit_length(), 1 << 16)
+    pool = paged.PagePool(n_pages=n_pages, device=dev)
+    T = pool.cfg.num_threads
+    if B > T:
+        raise ValueError(f"batch {B} exceeds the pool's {T} hardware "
+                         f"threads (a fleet of pools waits for ROADMAP A2)")
+    rows = []
+    for b in range(B):
+        pages = pool.alloc_pages(P, thread=b % T)
+        if pages.shape[0] != P:
+            raise RuntimeError(f"page pool exhausted at request {b}")
+        rows.append(pages)
+    pool_rounds = B
+    prefill_stats = pool.stats
+
+    if params is None:
+        params = registry.init(cfg, seed=seed, device=dev)
+    cache = mod.init_cache(cfg, B, max_seq, device=dev)
+    # per-sequence page tables are slot indices into the sequence's own
+    # pool; the pool's ids map through modulo the extent
+    page_ids = torch.stack(rows)
+    cache["page_table"] = (page_ids % P).to(torch.int32)
+
+    if tokens is None:
+        tokens = registry.make_prompts(cfg, B, S, seed=seed, device=dev)
+    tokens = torch.as_tensor(tokens, device=dev)
+    if tuple(tokens.shape) != (B, S):
+        raise ValueError(f"tokens {tuple(tokens.shape)} != (batch, "
+                         f"prompt_len) = {(B, S)}")
+    pad = (-S) % page
+    if pad:  # page-align the prompt for prefill
+        tokens = torch.nn.functional.pad(tokens, (0, pad))
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    cache, logits = mod.prefill(cfg, params, {"tokens": tokens}, cache)
+    _sync(dev)
+    prefill_s = time.perf_counter() - t0
+
+    toks = torch.argmax(logits, dim=-1)[:, None]
+    out = [toks]
+    finite = torch.isfinite(logits).all()  # every step's, kept on the device
+    page_allocs, alloc_cyc, sync_s = 0, 0.0, 0.0
+    t0 = time.perf_counter()
+    for _ in range(decode_steps):
+        # a fresh page from the frontend when any sequence crosses a page
+        # boundary (the paper's fast path, Fig 9 case 1); reading the
+        # lengths back waits for the previous step, as in the reference
+        ts = time.perf_counter()
+        pos = cache["seq_lens"].cpu().numpy()
+        sync_s += time.perf_counter() - ts
+        need = (pos % page) == 0
+        if need.any():
+            _, resp = pool.alloc_page_batch(np.pad(need, (0, T - B)))
+            pool_rounds += 1
+            page_allocs += int(need.sum())
+            alloc_cyc += float(resp.latency_cyc.max())
+        cache, logits = mod.decode(cfg, params, cache, {"tokens": toks})
+        toks = torch.argmax(logits, dim=-1)[:, None]
+        out.append(toks)
+        finite &= torch.isfinite(logits).all()
+    _sync(dev)
+    decode_s = time.perf_counter() - t0
+
+    return ServeResult(
+        tokens=torch.cat(out, dim=1), prompt=tokens, logits=logits,
+        logits_finite=bool(finite), page_ids=page_ids, stats=pool.stats,
+        prefill_stats=prefill_stats,
+        pool_rounds=pool_rounds, page_allocs=page_allocs,
+        alloc_us=alloc_cyc / pool.client.cfg.dpu.freq_hz * 1e6,
+        timings={"prefill_s": prefill_s, "decode_s": decode_s,
+                 "sync_s": sync_s},
+        cache=cache, params=params)
+
+
+def main(argv=None) -> ServeResult:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="granite_3_8b")
+    ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
+                    default=True, help="smoke-test widths (the default, as "
+                    "in the reference); --no-reduced for full width")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--decode-steps", type=int, default=48)
+    ap.add_argument("--impl", default="kernel", choices=["kernel", "ref"])
+    ap.add_argument("--fleet-ranks", type=int, default=0,
+                    help="not ported yet (ROADMAP A2/A6): must be 0")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    if args.fleet_ranks:
+        raise NotImplementedError("--fleet-ranks: the ShardedHeap fleet is "
+                                  "not ported yet (ROADMAP A2/A6)")
+
+    cfg = configs.get(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    res = serve(cfg, batch=args.batch, prompt_len=args.prompt_len,
+                decode_steps=args.decode_steps, impl=args.impl,
+                seed=args.seed, device=args.device)
+    B, S = res.prompt.shape
+    dev = res.logits.device
+    where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    print("allocator stats after prefill extents:", res.prefill_stats)
+    print(f"prefill {B}x{S}: {res.timings['prefill_s']:.2f}s")
+    total = args.decode_steps * B
+    dt = res.timings["decode_s"]
+    print(f"decode: {total} tokens in {dt:.2f}s ({total / dt:.1f} tok/s, "
+          f"{where}, {args.impl})")
+    print(f"frontend page allocations during decode: {res.page_allocs} "
+          f"({res.alloc_us:.2f} us modeled DPU time)")
+    print("final allocator stats:", res.stats)
+    return res
+
+
+if __name__ == "__main__":
+    main()

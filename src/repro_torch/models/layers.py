@@ -1,0 +1,219 @@
+"""Shared model layers: norms, RoPE, (flash / GQA / local) attention, MLPs.
+
+The port of `repro.models.layers`, in plain PyTorch with the reference's
+numerics: norms and softmax in fp32, attention products in fp32, matmuls in
+the config dtype with fp32 accumulation, and the reference's tensor layouts
+(``[B, S, H, hd]`` activations, ``[D, H, hd]`` / ``[H, hd, D]`` attention
+weights under ``attn_4d``). Parameters are dicts of tensors stacked over
+layers (leading L axis). ``activation_constraint`` (mesh-only) and
+``cross_entropy`` (training) wait for their slices.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+NEG_INF = -1e30
+
+
+def rms_norm(x, scale, eps: float = 1e-6):
+    xf = x.float()
+    var = xf.square().mean(-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.float())).to(x.dtype)
+
+
+def rope_tables(positions, d: int, theta: float = 10_000.0):
+    """(cos, sin) of RoPE for ``positions [..., S]``, each
+    ``[..., S, 1, d // 2]`` fp32: shared by every layer of a step."""
+    half = d // 2
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=positions.device) / half)
+    ang = positions[..., :, None].float() * freq
+    return torch.cos(ang)[..., :, None, :], torch.sin(ang)[..., :, None, :]
+
+
+def apply_rope(x, cos, sin):
+    """Rotate x ``[..., S, H, D]`` by halves with `rope_tables`' output;
+    fp32 inside, x's dtype out."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    return torch.cat([y1, y2], dim=-1).to(x.dtype)
+
+
+def rope(x, positions, theta: float = 10_000.0):
+    """x: [..., S, H, D]; positions: [..., S]."""
+    return apply_rope(x, *rope_tables(positions, x.shape[-1], theta))
+
+
+def _causal_mask(S, T, device, causal, window, q_offset=0):
+    qpos = torch.arange(S, device=device) + q_offset
+    kpos = torch.arange(T, device=device)
+    mask = torch.ones((S, T), dtype=torch.bool, device=device)
+    if causal:
+        mask &= qpos[:, None] >= kpos[None, :]
+    if window:
+        mask &= qpos[:, None] - kpos[None, :] < window
+    return mask
+
+
+def attention(q, k, v, *, causal: bool = True, window: int = 0,
+              q_offset: int = 0):
+    """Materializing GQA attention (for short sequences).
+
+    q: [B, S, H, D]; k, v: [B, T, KVH, D]. Returns [B, S, H, D].
+    window > 0 -> local (sliding-window) attention."""
+    B, S, H, D = q.shape
+    T, KVH = k.shape[1], k.shape[2]
+    G = H // KVH
+    qh = q.reshape(B, S, KVH, G, D)
+    s = torch.einsum("bskgd,btkd->bkgst", qh.float(), k.float()) / (D ** 0.5)
+    mask = _causal_mask(S, T, q.device, causal, window, q_offset)
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    o = torch.einsum("bkgst,btkd->bskgd", p.float(), v.float())
+    return o.reshape(B, S, H, D).to(q.dtype)
+
+
+def _pick_block(n: int, target: int) -> int:
+    """Largest divisor of n that is <= target (prefers big blocks)."""
+    d = min(n, target)
+    while n % d:
+        d -= 1
+    return d
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    block_q: int = 1024, block_kv: int = 1024):
+    """Chunked (flash-style) attention in plain PyTorch: O(S * block)
+    memory, online softmax over KV blocks. Same signature and semantics as
+    `attention`; for sequences where the S x T scores must not
+    materialize."""
+    B, S, H, D = q.shape
+    T, KVH = k.shape[1], k.shape[2]
+    G = H // KVH
+    block_q = _pick_block(S, block_q)
+    block_kv = _pick_block(T, block_kv)
+    qh = q.reshape(B, S, KVH, G, D)
+    scale = 1.0 / (D ** 0.5)
+    out = []
+    for q0 in range(0, S, block_q):
+        qi = qh[:, q0:q0 + block_q]
+        m = torch.full((B, KVH, G, block_q), NEG_INF, device=q.device)
+        l = torch.zeros((B, KVH, G, block_q), device=q.device)
+        acc = torch.zeros((B, KVH, G, block_q, D), device=q.device)
+        for k0 in range(0, T, block_kv):
+            ki, vi = k[:, k0:k0 + block_kv], v[:, k0:k0 + block_kv]
+            s = torch.einsum("bskgd,btkd->bkgst", qi.float(),
+                             ki.float()) * scale
+            mask = _causal_mask(block_q, block_kv, q.device, causal, window,
+                                q_offset=q0 - k0)
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bkgst,btkd->bkgsd", p.to(q.dtype).float(), vi.float())
+            m = m_new
+        out.append(acc / torch.clamp(l, min=1e-30)[..., None])
+    o = torch.cat(out, dim=3)                          # [B, KVH, G, S, D]
+    return o.permute(0, 3, 1, 2, 4).reshape(B, S, H, D).to(q.dtype)
+
+
+def pick_attention(S: int, T: int, min_seq: int = 8193):
+    """Materializing attention below `min_seq` tokens, chunked flash
+    above."""
+    return attention if max(S, T) < min_seq else flash_attention
+
+
+def qk_proj(h, w, H: int, hd: int):
+    """Attention projection for both weight layouts: w 2-D ``[D, H*hd]``
+    (flat) or 3-D ``[D, H, hd]`` (``attn_4d``). The 3-D product runs as one
+    matmul over a view of w, accumulating in fp32."""
+    if w.dim() == 2:
+        return (h @ w).reshape(*h.shape[:-1], H, hd)
+    return (h @ w.reshape(w.shape[0], -1)).reshape(*h.shape[:-1], H, hd)
+
+
+def out_proj(o, w):
+    """o [..., H, hd] x wo (``[H*hd, D]`` flat | ``[H, hd, D]``
+    ``attn_4d``) -> [..., D]."""
+    flat = o.reshape(*o.shape[:-2], -1)
+    if w.dim() == 2:
+        return flat @ w
+    return flat @ w.reshape(-1, w.shape[-1])
+
+
+def mlp(x, w1, w2, w3, kind: str):
+    """w1: [D, F] (gate / in), w2: [F, D] (out), w3: [D, F] (up; swiglu /
+    geglu only). GELU is the tanh approximation, as ``jax.nn.gelu``'s
+    default."""
+    dt = x.dtype
+    if kind == "swiglu":
+        h = F.silu(x @ w1) * (x @ w3)
+    elif kind == "geglu":
+        h = F.gelu(x @ w1, approximate="tanh") * (x @ w3)
+    elif kind == "squared_relu":
+        h = torch.square(F.relu(x @ w1))
+    elif kind == "gelu":
+        h = F.gelu(x @ w1, approximate="tanh")
+    else:
+        raise ValueError(kind)
+    return (h.to(dt) @ w2).to(dt)
+
+
+def mlp_n_mats(kind: str) -> int:
+    return 3 if kind in ("swiglu", "geglu") else 2
+
+
+def mask_padded_logits(logits, vocab: int):
+    """Vocab is padded (Megatron-style); mask the pad columns."""
+    vp = logits.shape[-1]
+    if vp == vocab:
+        return logits
+    col = torch.arange(vp, device=logits.device) < vocab
+    return torch.where(col, logits, NEG_INF)
+
+
+def torch_dtype(name) -> torch.dtype:
+    """``"bfloat16"`` / ``"float32"`` (a config's dtype) as a torch dtype."""
+    return name if isinstance(name, torch.dtype) else getattr(torch, name)
+
+
+def init_dense(shape, dtype, generator, device, scale: Optional[float] = None):
+    """Normal(0, std) made on `device` in `dtype` (never a host copy of a
+    full-width weight); std is `scale`, else fan-in^-1/2 with the
+    reference's fan-in (``shape[-2]``, or ``shape[-1]`` for vectors)."""
+    dtype = torch_dtype(dtype)
+    if any(s == 0 for s in shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    std = scale if scale is not None else fan_in ** -0.5
+    return torch.empty(shape, dtype=dtype, device=device).normal_(
+        0.0, std, generator=generator)
+
+
+def init_params(shapes, generator, device):
+    """Materialize a ``{name: (shape, dtype)}`` tree (nested dicts) on
+    `device`: norms ('ln*' / 'scale*' / 'norm*') -> zeros, embeddings
+    ('embed*') -> N(0, 0.02), else fan-in normal; draws in the tree's
+    order from `generator` (which lives on `device`)."""
+    out = {}
+    for name, leaf in shapes.items():
+        if isinstance(leaf, dict):
+            out[name] = init_params(leaf, generator, device)
+            continue
+        shape, dt = leaf
+        if name.startswith(("ln", "scale", "norm")):
+            out[name] = torch.zeros(shape, dtype=torch_dtype(dt),
+                                    device=device)
+        elif name.startswith("embed"):
+            out[name] = init_dense(shape, dt, generator, device, scale=0.02)
+        else:
+            out[name] = init_dense(shape, dt, generator, device)
+    return out

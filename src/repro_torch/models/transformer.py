@@ -1,0 +1,149 @@
+"""Dense GQA transformer LM (nemotron / stablelm / mistral / granite):
+serving (prefill + paged-KV decode).
+
+The port of `repro.models.transformer`'s serving half. Parameters are a
+dict of tensors stacked over layers, as in the reference, and the layer
+loop is a Python loop that indexes the stacked weights where the reference
+scans. Decode uses the paged KV cache managed by PIM-malloc
+(`repro_torch.kvcache`). Training (`_block`, `forward`, `loss`) waits for
+the training slice.
+
+`prefill` and `decode` **write the cache's pages in place** (the layer
+slices of ``cache["k_pages"]`` / ``cache["v_pages"]``) and return a new
+dict that shares them: the reference is functional, but a functional copy
+of a full-width cache per layer per token would move gigabytes per step.
+
+Sequence parallelism: the reference's decode takes
+`paged.write_attend_seqpar` when ``cfg.kv_seq_parallel`` is set, which on
+one device (no mesh) falls back to write + `attend` *without* passing
+``cfg.attend_impl`` (so its Pallas kernel is never reached there). The port
+runs on one GPU with no mesh: it always writes the token and calls
+`attend(impl=cfg.attend_impl)`. Both attention implementations compute the
+same function.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import device as _device
+from ..kvcache import paged
+from . import layers
+from .config import ArchConfig
+
+
+def param_shapes(cfg: ArchConfig) -> dict:
+    L, D, V, F = cfg.n_layers, cfg.d_model, cfg.padded_vocab, cfg.d_ff
+    H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dt = cfg.dtype
+    blocks = {
+        "ln1": ((L, D), dt),
+        "ln2": ((L, D), dt),
+        "wq": ((L, D, H, hd) if cfg.attn_4d else (L, D, H * hd), dt),
+        "wk": ((L, D, KVH, hd) if cfg.attn_4d else (L, D, KVH * hd), dt),
+        "wv": ((L, D, KVH, hd) if cfg.attn_4d else (L, D, KVH * hd), dt),
+        "wo": ((L, H, hd, D) if cfg.attn_4d else (L, H * hd, D), dt),
+        "w1": ((L, D, F), dt),
+        "w2": ((L, F, D), dt),
+    }
+    if layers.mlp_n_mats(cfg.mlp) == 3:
+        blocks["w3"] = ((L, D, F), dt)
+    shapes = {"embed": ((V, D), dt), "blocks": blocks, "ln_f": ((D,), dt)}
+    if not cfg.tie_embeddings:
+        shapes["head"] = ((D, V), dt)
+    return shapes
+
+
+def init(cfg: ArchConfig, seed: int = 0, device="cuda") -> dict:
+    """Random parameters from `seed`, made on `device` in the config's dtype
+    (the card unless the caller asks for the CPU)."""
+    dev = _device.resolve(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return layers.init_params(param_shapes(cfg), gen, dev)
+
+
+def logits_fn(cfg: ArchConfig, params, hidden):
+    head = params["embed"].T if cfg.tie_embeddings else params["head"]
+    return layers.mask_padded_logits(hidden @ head.to(hidden.dtype),
+                                     cfg.vocab)
+
+
+def _layer(params, l: int) -> dict:
+    return {k: v[l] for k, v in params["blocks"].items()}
+
+
+# ----------------------------------------------------------------- serving --
+def cache_spec(cfg: ArchConfig, batch: int, max_seq: int) -> dict:
+    return paged.cache_spec(
+        n_layers=cfg.n_layers, batch=batch, max_seq=max_seq,
+        page_size=cfg.page_size, kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.head_dim, dtype=layers.torch_dtype(cfg.dtype))
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device="cuda"):
+    return paged.init_cache(
+        n_layers=cfg.n_layers, batch=batch, max_seq=max_seq,
+        page_size=cfg.page_size, kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.head_dim, dtype=layers.torch_dtype(cfg.dtype),
+        device=device)
+
+
+def prefill(cfg: ArchConfig, params, batch, cache):
+    """Full-sequence forward that also writes the paged KV cache (in
+    place). Returns (cache, logits_last [B, V])."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    cos, sin = layers.rope_tables(positions, hd, cfg.rope_theta)
+    attn = layers.pick_attention(S, S, cfg.flash_min_seq)
+    x = params["embed"][tokens].to(layers.torch_dtype(cfg.dtype))
+    for l in range(cfg.n_layers):
+        lp = _layer(params, l)
+        h = layers.rms_norm(x, lp["ln1"])
+        q = layers.apply_rope(layers.qk_proj(h, lp["wq"], H, hd), cos, sin)
+        k = layers.apply_rope(layers.qk_proj(h, lp["wk"], KVH, hd), cos, sin)
+        v = layers.qk_proj(h, lp["wv"], KVH, hd)
+        o = attn(q, k, v, causal=True)
+        x = x + layers.out_proj(o, lp["wo"]).to(x.dtype)
+        h2 = layers.rms_norm(x, lp["ln2"])
+        x = x + layers.mlp(h2, lp["w1"], lp["w2"], lp.get("w3"), cfg.mlp)
+        paged.write_prefill(cache["k_pages"][l], k, cache["page_table"])
+        paged.write_prefill(cache["v_pages"][l], v, cache["page_table"])
+    x = layers.rms_norm(x, params["ln_f"])
+    logits = logits_fn(cfg, params, x[:, -1])
+    seq_lens = torch.full((B,), S, dtype=torch.int32, device=tokens.device)
+    return dict(cache, seq_lens=seq_lens), logits
+
+
+def decode(cfg: ArchConfig, params, cache, batch):
+    """One decode step: tokens [B, 1] -> (cache, logits [B, V]); writes
+    the new token's K/V into the cache's pages in place.
+
+    The RoPE tables are the same for every layer of a step, so they are
+    made once per step."""
+    tokens = batch["tokens"]
+    H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    pos = cache["seq_lens"]  # [B] position of the new token
+    seq_lens = pos + 1
+    pt = cache["page_table"]
+    cos, sin = layers.rope_tables(pos[:, None], hd, cfg.rope_theta)
+    x = params["embed"][tokens[:, 0]].to(
+        layers.torch_dtype(cfg.dtype))[:, None, :]  # [B, 1, D]
+    for l in range(cfg.n_layers):
+        lp = _layer(params, l)
+        h = layers.rms_norm(x, lp["ln1"])
+        q = layers.apply_rope(layers.qk_proj(h, lp["wq"], H, hd), cos,
+                              sin)[:, 0]
+        k = layers.apply_rope(layers.qk_proj(h, lp["wk"], KVH, hd), cos,
+                              sin)[:, 0]
+        v = layers.qk_proj(h, lp["wv"], KVH, hd)[:, 0]
+        kp, vp = cache["k_pages"][l], cache["v_pages"][l]
+        paged.write_token(kp, k, pt, pos)
+        paged.write_token(vp, v, pt, pos)
+        o = paged.attend(q, kp, vp, pt, seq_lens, impl=cfg.attend_impl)
+        x = x + layers.out_proj(o[:, None], lp["wo"]).to(x.dtype)
+        h2 = layers.rms_norm(x, lp["ln2"])
+        x = x + layers.mlp(h2, lp["w1"], lp["w2"], lp.get("w3"), cfg.mlp)
+    x = layers.rms_norm(x, params["ln_f"])
+    logits = logits_fn(cfg, params, x[:, 0])
+    return dict(cache, seq_lens=seq_lens), logits

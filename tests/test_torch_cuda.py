@@ -1,11 +1,13 @@
-"""The CUDA kernel against its plain PyTorch version, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card.
 
 This file imports nothing of JAX or of the reference, so that it runs on a
 GPU machine that has neither; on a machine without a GPU its card tests
-skip with a reason. It also holds the seeded mixed-op stream that the
-CPU differential test (test_torch_heap_step.py) shares.
+skip with a reason. It also holds the seeded mixed-op stream and the
+paged-attention sweep that the CPU differential tests
+(test_torch_heap_step.py, test_torch_paged_attention.py) share.
 
-The tolerance is exact equality: all 31 outputs of a round are int32.
+The heap-step kernel's tolerance is exact equality: all 31 outputs of a
+round are int32. The paged-attention kernel's are stated at `TOL`.
 """
 import numpy as np
 import pytest
@@ -13,6 +15,7 @@ import torch
 
 from repro_torch.core import heap, pim_malloc, system
 from repro_torch.kernels import heap_step as ths
+from repro_torch.kernels import paged_attention as tpa
 
 HEAP = 1 << 18
 BLOCK = 4096
@@ -225,3 +228,123 @@ def test_kernel_same_round_double_free_on_card(cuda):
     got = ths.fused_heap_step(*args, **GEOM)
     assert_outputs_equal(got, want, "double free")
     assert bool(got.f_big[:, :2].all())
+
+
+# ---------------------------------------------------------------------------
+# paged attention: the seeded sweep (shared with the CPU differential test,
+# test_torch_paged_attention.py) and the kernel against its plain version
+# ---------------------------------------------------------------------------
+PAGE = 16
+PAGES = 4
+# (H, KVH, D): MHA, GQA with G = 4, MQA, at head_dim 32 and 128
+HEADS = [(4, 4, 32), (8, 2, 32), (4, 1, 32),
+         (4, 4, 128), (8, 2, 128), (4, 1, 128)]
+# seq_len 0, 1, a page boundary, one past it, and full
+SEQ_LENS = (0, 1, PAGE, PAGE + 1, PAGE * PAGES)
+# fp32: reordered fp32 sums; bf16: one rounding of the output (the
+# reference's own tolerances, tests/test_kernels.py)
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def paged_case(seed, H, KVH, D, page=PAGE, pages=PAGES, seq_lens=SEQ_LENS):
+    """NumPy inputs of one paged-attention call: q [B, H, D], pools
+    [N, page, KVH, D] (N = B * pages + 3), a permuted page table with -1
+    entries (past the end of sequence 1, and one inside the valid range of
+    the last sequence, which reads page 0), and `seq_lens`."""
+    rng = np.random.default_rng(seed)
+    B = len(seq_lens)
+    N = B * pages + 3
+    q = rng.standard_normal((B, H, D)).astype(np.float32)
+    k = rng.standard_normal((N, page, KVH, D)).astype(np.float32)
+    v = rng.standard_normal((N, page, KVH, D)).astype(np.float32)
+    pt = rng.permutation(N)[:B * pages].reshape(B, pages).astype(np.int32)
+    pt[1, 1:] = -1
+    pt[-1, 1] = -1
+    return q, k, v, pt, np.asarray(seq_lens, np.int32)
+
+
+def to_torch(case, dtype, device):
+    q, k, v, pt, sl = case
+    f = [torch.from_numpy(x).to(device=device, dtype=dtype) for x in (q, k, v)]
+    return f + [torch.from_numpy(x).to(device) for x in (pt, sl)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,KVH,D", HEADS)
+def test_paged_attention_kernel_matches_plain_on_card(cuda, H, KVH, D,
+                                                      dtype):
+    args = to_torch(paged_case(11, H, KVH, D), dtype, cuda)
+    n = tpa.paged_attention.launches
+    got = tpa.paged_attention(*args)
+    want = tpa.paged_attention_plain(*args)
+    torch.cuda.synchronize()
+    assert tpa.paged_attention.launches == n + 1
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    assert not got[0].any()  # seq_len 0 gives zeros
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_kernel_serving_shapes_on_card(cuda, dtype):
+    """granite-3-8b's decode shape (B=8, H=32, KVH=8, D=128, page 128,
+    P=6, seq 513-576) and stablelm-12b's head_dim 160."""
+    for H, KVH, D, lens in ((32, 8, 128, (513, 540, 576, 128, 1, 600, 700,
+                                          768)),
+                            (32, 8, 160, (1, 128, 129, 768))):
+        args = to_torch(paged_case(12, H, KVH, D, page=128, pages=6,
+                                   seq_lens=lens), dtype, cuda)
+        got = tpa.paged_attention(*args)
+        want = tpa.paged_attention_plain(*args)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def test_paged_attention_kernel_respects_page_table_on_card(cuda):
+    q, k, v, _, _ = paged_case(13, 2, 2, 128, page=128, pages=2,
+                               seq_lens=(256, 256))
+    q2 = np.concatenate([q[:1], q[:1]])
+    pt = np.array([[0, 1], [2, 3]], np.int32)
+    sl = np.array([256, 256], np.int32)
+    a = to_torch((q2, k, v, pt, sl), torch.float32, cuda)
+    b = to_torch((q2, k, v, pt[::-1].copy(), sl), torch.float32, cuda)
+    out, out_sw = tpa.paged_attention(*a), tpa.paged_attention(*b)
+    torch.testing.assert_close(out[0], out_sw[1], atol=1e-6, rtol=0)
+    assert not torch.allclose(out[0], out[1])
+
+
+def test_attend_kernel_launches_the_kernel_on_card(cuda):
+    """`kvcache.paged.attend(impl="kernel")` on CUDA tensors reaches the
+    kernel (its counter moves) and equals the plain batched gather."""
+    from repro_torch.kvcache import paged
+    rng = np.random.default_rng(14)
+    B, P, page, KVH, hd, H = 3, 3, 16, 2, 32, 8
+    kp = torch.from_numpy(rng.standard_normal(
+        (B, P, page, KVH, hd)).astype(np.float32)).to(cuda)
+    vp = torch.from_numpy(rng.standard_normal(
+        (B, P, page, KVH, hd)).astype(np.float32)).to(cuda)
+    q = torch.from_numpy(rng.standard_normal((B, H, hd)).astype(
+        np.float32)).to(cuda)
+    pt = torch.tensor([[2, 0, 1], [0, 1, 2], [1, 2, 0]], dtype=torch.int32,
+                      device=cuda)
+    sl = torch.tensor([1, 17, 48], dtype=torch.int32, device=cuda)
+    n = tpa.paged_attention.launches
+    got = paged.attend(q, kp, vp, pt, sl, impl="kernel")
+    assert tpa.paged_attention.launches == n + 1
+    want = paged.attend(q, kp, vp, pt, sl, impl="ref")
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+def test_paged_attention_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    args = to_torch(paged_case(15, 4, 2, 32), torch.float32, cuda)
+    bad = list(args)
+    bad[3] = bad[3].long()
+    with pytest.raises(ValueError, match="int32"):
+        tpa.paged_attention(*bad)
+    bad = list(args)
+    bad[1] = bad[1].to(torch.bfloat16)
+    with pytest.raises(ValueError, match="share"):
+        tpa.paged_attention(*bad)
+    bad = list(args)
+    bad[0] = bad[0].transpose(0, 1).contiguous().transpose(0, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        tpa.paged_attention(*bad)
