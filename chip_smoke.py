@@ -6,8 +6,10 @@
 Phases (each raises on failure; nothing is caught and carried on):
 
   1. versions, and the card's name and power limit from nvidia-smi;
-  2. build ``heap_step.cu`` and ``paged_attention.cu`` for sm_90a from the
-     checkout's sources, one ``nvcc`` each, started together;
+  2. build the five kernels (``heap_step.cu``, ``paged_attention.cu``,
+     ``buddy_traverse.cu``, ``freelist.cu``, ``flash_attention.cu``) for
+     sm_90a from the checkout's sources, one ``nvcc`` each, started
+     together;
   3. the CUDA kernel against its plain PyTorch version on the card, all 31
      outputs bit for bit, over the first rounds of the session stream at
      the paper's width (32 MiB heap, T=16, 8 classes, CAP=1024, C=512);
@@ -39,7 +41,42 @@ Phases (each raises on failure; nothing is caught and carried on):
      kernel (CUDA events; device time from torch.profiler), its plain
      version, `scaled_dot_product_attention` over gathered K/V as a
      yardstick (never on the path), the bytes bound, and the device busy
-     share of a few decode steps.
+     share of a few decode steps;
+  8. the buddy batch through `kernels.ops.buddy_alloc_batch` at the
+     allocator's width (C=512 cores, 32 MiB heaps of 4 KiB blocks: 16384-
+     node trees): first the small geometries of tests/test_kernels.py,
+     then 4 chained batches of B=128 requests per core (sizes from
+     ``--seed``, log-uniform over 4 KiB - 1 MiB, ~3 % each 0, negative and
+     above 2^30) with the counter reset just before and read just after;
+     every batch == the plain version bit for bit, the free bytes of every
+     tree == heap minus the blocks served; timings and bound;
+  9. the freelist op through `kernels.ops.freelist_op` at the allocator's
+     width (16 threads x 512 cores = 8192 thread caches, 8 classes, CAP
+     1024: 256 MiB of stacks): 8 chained ops with op in {-1, 0, 1} and
+     classes from -1 to NC, each == the plain version bit for bit;
+     timings and bound;
+ 10. flash attention through `kernels.ops.flash_attention_op`: the kernel
+     against its plain version over a sweep at the reference's input scale
+     (randn x 0.2; causal, windowed, non-causal with S != T; MHA, GQA,
+     MQA; head_dim 64, 128, 256; S = 192 and 1000; fp32 to 3e-5, bf16 to
+     2.5e-2, atol = rtol), then the main path at full width, each shape
+     driven with the counter reset just before and read just after:
+     granite-3-8b's prefill attention (B=8, S=T=512, H=32, KVH=8, hd=128,
+     causal, bf16) and a long context (B=1, S=T=8192, the same heads).
+     There the inputs are unit-scale randn, so scores spread as real q and
+     k give them, and each bf16 output is held to its plain version both
+     at 2.5e-2 and within two bf16 rounding steps of each element
+     (|diff| <= 2^-6 |want| + 2^-14 max|want|); the same inputs in fp32
+     go through the kernel again (not counted) and are held at 3e-5.
+     Then timings, bounds, and `scaled_dot_product_attention` as a
+     yardstick (never on the path). `tools/flash_mutants.py` shows that
+     these checks fail deliberately broken kernels.
+
+In the ``kernels`` record, each kernel's ``ms``, ``plain_ms``,
+``bound_ms`` and ``library_ms`` are per launch: averaged over the launches
+of its main path for the heap step (phase 5) and phases 8-9, for one call
+at each shape of phase 10 (one entry per shape), at the last decode
+step's layer-0 inputs for paged attention (phase 7).
 
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -82,6 +119,43 @@ SERVE_PROMPT = 512    # prompt tokens per request
 SERVE_STEPS = 64      # greedy decode steps
 SERVE_PROFILE = 4     # decode steps in the profiler window (after 1 warm-up)
 PA_CALLS = 100        # back-to-back calls per timing
+
+BUDDY_SOURCE = "src/repro_torch/kernels/csrc/buddy_traverse.cu"
+BUDDY_REPLACES = "src/repro/kernels/buddy_traverse.py:174"
+BUDDY_KERNEL = "buddy_alloc_batch_kernel"  # its name in a profiler trace
+BUDDY_BATCH = 128     # requests per core and batch
+BUDDY_BATCHES = 4     # chained batches of the main path
+BUDDY_ODD = 0.03      # share of each of: 0, negative, above 2^30
+# the geometries of tests/test_kernels.py: (heap, min_block) x (C, B)
+BUDDY_SMALL = ((1 << 14, 32), (1 << 16, 64), (1 << 18, 4096))
+BUDDY_SMALL_CB = ((1, 8), (4, 16))
+INT_STEP_OPS = 4      # integer operations per step of a tree walk
+
+FL_SOURCE = "src/repro_torch/kernels/csrc/freelist.cu"
+FL_REPLACES = "src/repro/kernels/freelist.py:139"
+FL_KERNEL = "freelist_kernel"
+FL_OPS = 8            # chained ops of the main path
+
+FA_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+FA_REPLACES = "src/repro/kernels/flash_attention.py:102"
+FA_KERNEL = "flash_attention_kernel"
+FA_TOL = {"float32": 3e-5, "bfloat16": 2.5e-2}
+FA_STEP = 2.0 ** -6    # two bf16 rounding steps, relative to |want|
+FA_FLOOR = 2.0 ** -14  # of max |want|: room for another fp32 summation order
+FA_SCALE = 0.2         # the sweep's input scale (the reference's tests)
+BF16_OPS_PER_S = 989e12     # dense bf16 tensor-core peak (data sheet)
+# B, S, T, H, KVH, hd, causal, window
+FA_SWEEP = ((2, 192, 192, 4, 2, 64, True, 0),
+            (1, 1000, 1000, 4, 1, 128, True, 128),
+            (2, 192, 1000, 6, 6, 256, False, 0),
+            (1, 1000, 192, 8, 2, 256, True, 64),
+            (1, 1000, 1000, 4, 4, 64, False, 300),
+            (2, 192, 192, 8, 1, 128, True, 0))
+# (kernels-record name, label, case) of the main path's calls
+FA_FULL = (("flash_attention", "granite-3-8b prefill",
+            (8, 512, 512, 32, 8, 128, True, 0)),
+           ("flash_attention_8192", "long context",
+            (1, 8192, 8192, 32, 8, 128, True, 0)))
 
 
 def session_tape(rng, rounds, cores, threads):
@@ -536,13 +610,11 @@ def phase_paged_vs_plain(seed, device):
     return worst
 
 
-def time_calls(fn, n=PA_CALLS):
-    """(CUDA-event ms per call over n back-to-back calls after warm-up,
-    profiler device ms per call of every kernel the calls launched, the
-    profiler)."""
+def event_ms(fn, n, warm=3):
+    """CUDA-event ms per call over n back-to-back calls after `warm`
+    warm-up calls."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -552,6 +624,16 @@ def time_calls(fn, n=PA_CALLS):
         fn()
     end.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def time_calls(fn, n=PA_CALLS):
+    """(CUDA-event ms per call over n back-to-back calls after warm-up,
+    profiler device ms per call of every kernel the calls launched, the
+    profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    ms = event_ms(fn, n)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
@@ -559,8 +641,7 @@ def time_calls(fn, n=PA_CALLS):
         torch.cuda.synchronize()
     dev = sum(device_us(e) for e in prof.key_averages()
               if device_us(e) > 0 and e.device_type.name == "CUDA")
-    return start.elapsed_time(end) / n, (dev / n / 1e3 if dev else None), \
-        prof
+    return ms, (dev / n / 1e3 if dev else None), prof
 
 
 def pa_bound(q, k_pages, seq_lens, page_table):
@@ -767,6 +848,397 @@ def phase_serve(seed, device):
     return result, entry
 
 
+# ---------------------------------------------------------------------------
+# phases 8-10: the kernels reached through kernels.ops
+# ---------------------------------------------------------------------------
+def device_ms(prof, name):
+    """(device ms per launch of kernel `name` in a trace, launches seen)."""
+    us, seen = kernel_events(prof, name)
+    return (us / 1e3 / seen if seen else None), seen
+
+
+def buddy_sizes(rng, cores, batch):
+    """[C, B] request sizes: log-uniform over 4 KiB - 1 MiB, with a share
+    BUDDY_ODD each of 0, negative and (2^30, 2^31) sizes."""
+    import numpy as np
+    shape = (cores, batch)
+    sizes = np.exp(rng.uniform(math.log(4096), math.log(1 << 20), shape))
+    sizes = sizes.astype(np.int64)
+    u = rng.random(shape)
+    sizes[u < BUDDY_ODD] = 0
+    neg = (u >= BUDDY_ODD) & (u < 2 * BUDDY_ODD)
+    sizes[neg] = -rng.integers(1, 1 << 20, int(neg.sum()))
+    wide = (u >= 2 * BUDDY_ODD) & (u < 3 * BUDDY_ODD)
+    sizes[wide] = rng.integers(2 ** 30 + 1, 2 ** 31, int(wide.sum()))
+    return sizes.astype(np.int32)
+
+
+def served_bytes(sizes, offs, min_block):
+    """Per-core bytes of the blocks served: next_pow2 with the int32 wrap
+    (a size above 2^30 is served as min_block), at least min_block."""
+    import numpy as np
+    s = sizes.astype(np.int64)
+    p2 = np.where(s > 2 ** 30, min_block,
+                  1 << np.ceil(np.log2(np.maximum(s, 1))).astype(np.int64))
+    r = np.maximum(p2, min_block)
+    return np.where(offs >= 0, r, 0).sum(-1), r
+
+
+def phase_buddy(seed, device, cores=CORES, batches=BUDDY_BATCHES,
+                batch=BUDDY_BATCH):
+    """Phase 8; returns (result dict, the kernels entry)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.paper_upmem import CONFIG
+    from repro_torch.core import buddy
+    from repro_torch.kernels import buddy_traverse as bt
+    from repro_torch.kernels import ops
+
+    # ---- the small geometries of tests/test_kernels.py (not counted) -----
+    rng = np.random.default_rng(seed + 8)
+    for heap, mb in BUDDY_SMALL:
+        for c, b in BUDDY_SMALL_CB + ((1, 40),):
+            cfg = buddy.BuddyConfig(heap_bytes=heap, min_block=mb)
+            tree = buddy.init(cfg, device=device).longest.repeat(c, 1)
+            sizes = torch.from_numpy(rng.choice(
+                [mb, 2 * mb, 7 * mb, heap // 8, 0, -1],
+                (c, b)).astype(np.int32)).to(device)
+            got = ops.buddy_alloc_batch(tree, sizes, heap_bytes=heap,
+                                        min_block=mb)
+            want = bt.buddy_alloc_batch_plain(tree, sizes, heap_bytes=heap,
+                                              min_block=mb)
+            torch.cuda.synchronize()
+            for name, a, w in zip(("offsets", "tree"), got, want):
+                if not torch.equal(a, w):
+                    raise AssertionError(f"buddy kernel != plain version, "
+                                         f"heap {heap}, min_block {mb}, "
+                                         f"C={c}, B={b}: {name}")
+
+    # ---- the main path: chained batches at the allocator's width ---------
+    heap, mb = CONFIG.heap_bytes, CONFIG.block_bytes
+    cfg = buddy.BuddyConfig(heap_bytes=heap, min_block=mb)
+    kw = dict(heap_bytes=heap, min_block=mb)
+    tree0 = buddy.init(cfg, device=device).longest.repeat(cores, 1)
+    host_sizes = [buddy_sizes(rng, cores, batch) for _ in range(batches)]
+    sizes = [torch.from_numpy(x).to(device) for x in host_sizes]
+    torch.cuda.synchronize()
+    bt.buddy_alloc_batch_kernel.launches = 0
+    trees, offs = [tree0], []
+    for s in sizes:
+        o, tr = ops.buddy_alloc_batch(trees[-1], s, **kw)
+        offs.append(o)
+        trees.append(tr)
+    torch.cuda.synchronize()
+    launches = bt.buddy_alloc_batch_kernel.launches
+    if launches != batches:
+        raise AssertionError(f"buddy main path launched the kernel "
+                             f"{launches} times for {batches} batches")
+    served_total = np.zeros(cores, np.int64)
+    served, failed, steps = [], [], 0
+    for k in range(batches):
+        w_offs, w_tree = bt.buddy_alloc_batch_plain(trees[k], sizes[k], **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(offs[k], w_offs) or \
+                not torch.equal(trees[k + 1], w_tree):
+            raise AssertionError(f"buddy kernel != plain version in batch "
+                                 f"{k}")
+        o = offs[k].cpu().numpy()
+        if np.any(o[host_sizes[k] <= 0] != -1):
+            raise AssertionError("a size <= 0 was served")
+        got_bytes, r = served_bytes(host_sizes[k], o, mb)
+        served_total += got_bytes
+        served.append(int((o >= 0).sum()))
+        failed.append(int((o < 0).sum()))
+        depth_left = np.log2(np.maximum(heap // r, 1))  # levels below root
+        steps += int(np.where(o >= 0, 2 * depth_left, 0).sum())
+        if np.any((o >= 0) & ((o % np.minimum(r, heap)) != 0)):
+            raise AssertionError("a block is not aligned to its size")
+    free = buddy.free_bytes(cfg, buddy.BuddyState(trees[-1])).cpu().numpy()
+    if np.any(free != heap - served_total):
+        raise AssertionError("free bytes != heap - blocks served")
+    if failed[-1] == 0:
+        raise AssertionError("the trees never filled")
+    print(f"buddy batch: {batches} x {batch} requests on each of {cores} "
+          f"cores ({heap >> 20} MiB heaps, {mb} B blocks, "
+          f"{cfg.n_nodes}-node trees, {4 * cfg.n_nodes * cores >> 20} MiB "
+          f"of trees): kernel launched {launches} times, == plain version "
+          f"bit for bit in every batch and at the small geometries; served "
+          f"{served} / failed {failed} per batch; free bytes == heap - "
+          f"served on every core (min {int(free.min())} B)")
+
+    # ---- timings (not on the path) -----------------------------------------
+    def run_kernel():
+        tr = tree0
+        for s in sizes:
+            _, tr = ops.buddy_alloc_batch(tr, s, **kw)
+
+    def run_plain():
+        tr = tree0
+        for s in sizes:
+            _, tr = bt.buddy_alloc_batch_plain(tr, s, **kw)
+
+    kern_ms, _, prof = time_calls(run_kernel, n=20)
+    kern_ms /= batches
+    dev_ms, seen = device_ms(prof, BUDDY_KERNEL)
+    plain_ms = event_ms(run_plain, 1, warm=1) / batches
+    nbytes = 2 * 4 * cores * cfg.n_nodes + 2 * 4 * cores * batch
+    nops = INT_STEP_OPS * steps / batches
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * nops / INT_OPS_PER_S
+    print(f"buddy kernel {kern_ms:.5f} ms/launch (CUDA events, back to "
+          f"back), device time {dev_ms} ms/launch over {seen} launches "
+          f"recorded; plain version {plain_ms:.3f} ms/launch; bound "
+          f"{max(bytes_ms, ops_ms):.6f} ms ({nbytes} B; {nops:.0f} int ops "
+          f"over {steps / batches:.0f} walk steps a launch, at most "
+          f"{batch * 2 * cfg.depth} a core); no single PyTorch call "
+          f"computes it")
+    result = dict(cores=cores, batches=batches, batch=batch,
+                  n_nodes=cfg.n_nodes, served=served, failed=failed,
+                  launches=launches, kernel_ms=kern_ms,
+                  kernel_device_ms=dev_ms, kernel_device_events=seen,
+                  plain_ms=plain_ms, bytes=nbytes, int_ops=nops,
+                  walk_steps=steps, bytes_ms=bytes_ms, ops_ms=ops_ms)
+    entry = {
+        "name": "buddy_alloc_batch", "route": "cuda", "source": BUDDY_SOURCE,
+        "replaces": BUDDY_REPLACES, "launches": launches, "max_abs_err": 0,
+        "ms": kern_ms, "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None}
+    return result, entry
+
+
+def phase_freelist(seed, device, caches=None, n_ops=FL_OPS):
+    """Phase 9; returns (result dict, the kernels entry)."""
+    import torch
+    from repro_torch.configs.paper_upmem import CONFIG
+    from repro_torch.core.pim_malloc import PimMallocConfig
+    from repro_torch.kernels import freelist as fl
+    from repro_torch.kernels import ops
+
+    pm = PimMallocConfig(heap_bytes=CONFIG.heap_bytes,
+                         num_threads=CONFIG.num_threads,
+                         size_classes=CONFIG.size_classes,
+                         block_bytes=CONFIG.block_bytes)
+    T = caches or CONFIG.num_threads * CORES
+    NC, CAP = pm.nc, pm.cap
+    g = torch.Generator(device=device)
+    g.manual_seed(seed + 9)
+    i32 = dict(dtype=torch.int32, device=device, generator=g)
+    stacks = torch.randint(0, CONFIG.heap_bytes, (T, NC, CAP), **i32)
+    counts = torch.randint(0, CAP + 1, (T, NC), **i32)
+    counts[:, 0], counts[:, -1] = 0, CAP  # pop-empty, push-full classes
+    reqs = [(torch.randint(-1, 2, (T,), **i32),
+             torch.randint(-1, NC + 1, (T,), **i32),
+             torch.randint(0, CONFIG.heap_bytes, (T,), **i32))
+            for _ in range(n_ops)]
+    torch.cuda.synchronize()
+    fl.freelist_op_kernel.launches = 0
+    states, outs = [(stacks, counts)], []
+    for op, cls, ptr in reqs:
+        st, ct = states[-1]
+        p, c2, s2 = ops.freelist_op(st, ct, op, cls, ptr)
+        outs.append(p)
+        states.append((s2, c2))
+    torch.cuda.synchronize()
+    launches = fl.freelist_op_kernel.launches
+    if launches != n_ops:
+        raise AssertionError(f"freelist main path launched the kernel "
+                             f"{launches} times for {n_ops} ops")
+    pops = pushes = 0
+    for k, (op, cls, ptr) in enumerate(reqs):
+        want = fl.freelist_op_plain(*states[k], op, cls, ptr)
+        torch.cuda.synchronize()
+        got = (outs[k], states[k + 1][1], states[k + 1][0])
+        for name, a, w in zip(("ptr_out", "counts", "stacks"), got, want):
+            if not torch.equal(a, w):
+                raise AssertionError(f"freelist kernel != plain version in "
+                                     f"op {k}: {name}")
+        pops += int((outs[k] >= 0).sum())
+        pushes += int(((op == 1) & (states[k + 1][1].sum(1) >
+                                    states[k][1].sum(1))).sum())
+    mib = stacks.numel() * 4 >> 20
+    print(f"freelist op: {n_ops} chained ops on {T} thread caches x {NC} "
+          f"classes x CAP {CAP} ({mib} MiB of stacks): kernel launched "
+          f"{launches} times, == plain version bit for bit in every op; "
+          f"{pops} pops served, {pushes} pushes landed")
+
+    args = (stacks, counts) + reqs[0]
+    kern_ms, _, prof = time_calls(lambda: ops.freelist_op(*args), n=20)
+    dev_ms, seen = device_ms(prof, FL_KERNEL)
+    plain_ms = event_ms(lambda: fl.freelist_op_plain(*args), 3,
+                        warm=1)
+    nbytes = 2 * 4 * stacks.numel() + 2 * 4 * counts.numel() + 4 * 4 * T
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * 20 * T / INT_OPS_PER_S
+    print(f"freelist kernel {kern_ms:.5f} ms/launch (CUDA events, back to "
+          f"back), device time {dev_ms} ms/launch over {seen} launches "
+          f"recorded; plain version {plain_ms:.4f} ms/launch; bound "
+          f"{max(bytes_ms, ops_ms):.6f} ms ({nbytes} B); no single PyTorch "
+          f"call computes it")
+    result = dict(caches=T, classes=NC, cap=CAP, ops=n_ops,
+                  launches=launches, pops=pops, pushes=pushes,
+                  kernel_ms=kern_ms, kernel_device_ms=dev_ms,
+                  kernel_device_events=seen, plain_ms=plain_ms, bytes=nbytes,
+                  bytes_ms=bytes_ms)
+    entry = {
+        "name": "freelist_op", "route": "cuda", "source": FL_SOURCE,
+        "replaces": FL_REPLACES, "launches": launches, "max_abs_err": 0,
+        "ms": kern_ms, "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None}
+    return result, entry
+
+
+def flash_inputs(g, B, S, T, H, KVH, hd, dtype, device, scale=1.0):
+    import torch
+    return [(torch.randn((B, n, h, hd), generator=g, device=device) * scale)
+            .to(dtype) for n, h in ((S, H), (T, KVH), (T, KVH))]
+
+
+def flash_work(B, S, T, H, KVH, hd, causal, window, elt):
+    """(bytes, operations) one call needs: q, k, v read and the output
+    written once; 4 * hd operations (q.k and p.v) per visible pair."""
+    import numpy as np
+    i = np.arange(S)[:, None]
+    j = np.arange(T)[None, :]
+    vis = np.ones((S, T), bool) if not causal else i >= j
+    if window:
+        vis &= i - j < window
+    pairs = int(vis.sum())
+    nbytes = elt * (2 * B * S * H * hd + 2 * B * T * KVH * hd)
+    return nbytes, 4 * hd * B * H * pairs
+
+
+def flash_reading(got, want):
+    """(max |got - want|, the largest share of its limit any element
+    uses). fp32: atol = rtol = 3e-5. bf16: atol = rtol = 2.5e-2, and also
+    |diff| <= FA_STEP |want| + FA_FLOOR max|want|: both sides round
+    nearly the same fp32 value to bf16, so a sound kernel differs by at
+    most one rounding step (<= 2^-7 |want|); the limit allows two. A share
+    above 1 fails."""
+    import torch
+    if got.dtype != want.dtype:
+        raise ValueError(f"{got.dtype} against {want.dtype}")
+    g, w = got.float(), want.float()
+    d, a = (g - w).abs(), w.abs()
+    tol = FA_TOL[str(got.dtype).split(".")[1]]
+    share = d / (tol + tol * a)
+    if got.dtype == torch.bfloat16:
+        floor = FA_FLOOR * float(a.max())
+        share = share.maximum(d / (FA_STEP * a + floor))
+    return float(d.max()), float(share.max())
+
+
+def flash_check(got, want, what):
+    """flash_reading, raising where an element passes its limit."""
+    diff, share = flash_reading(got, want)
+    if not share <= 1.0:
+        raise AssertionError(f"{what}: kernel != plain version (max |diff| "
+                             f"{diff}, {share:.3g} of the limit)")
+    return diff, share
+
+
+def phase_flash(seed, device, full=FA_FULL, sweep=FA_SWEEP):
+    """Phase 10; returns (result dict, one kernels entry per full shape)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=device)
+    g.manual_seed(seed + 10)
+    worst = {}
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[1]
+        for case in sweep:
+            B, S, T, H, KVH, hd, causal, window = case
+            q, k, v = flash_inputs(g, B, S, T, H, KVH, hd, dt, device,
+                                   scale=FA_SCALE)
+            got = ops.flash_attention_op(q, k, v, causal=causal,
+                                         window=window)
+            want = fa.flash_attention_plain(q, k, v, causal=causal,
+                                            window=window)
+            torch.cuda.synchronize()
+            d = assert_close(got, want, FA_TOL[name], f"flash {name} {case}")
+            worst[name] = max(worst.get(name, 0.0), d)
+    print("flash attention kernel == plain version over the sweep: max "
+          "|diff| " + ", ".join(f"{k} {v:.3g} (tol {FA_TOL[k]})"
+                                for k, v in worst.items()))
+
+    # ---- the main path at full width, one shape at a time ------------------
+    shapes, entries = [], []
+    for key, label, case in full:
+        B, S, T, H, KVH, hd, causal, window = case
+        kw = dict(causal=causal, window=window)
+        q, k, v = flash_inputs(g, *case[:6], torch.bfloat16, device)
+        torch.cuda.synchronize()
+        fa.flash_attention_kernel.launches = 0
+        out = ops.flash_attention_op(q, k, v, **kw)
+        torch.cuda.synchronize()
+        launches = fa.flash_attention_kernel.launches
+        if launches != 1:
+            raise AssertionError(f"flash {label}: the main path launched the "
+                                 f"kernel {launches} times for one call")
+        if out.shape != q.shape or out.dtype != q.dtype or \
+                not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"flash {label}: misshapen or non-finite")
+        want = fa.flash_attention_plain(q, k, v, **kw)
+        d, share = flash_check(out, want, f"flash {label} bf16")
+        q32, k32, v32 = (x.float() for x in (q, k, v))
+        d32, share32 = flash_check(ops.flash_attention_op(q32, k32, v32, **kw),
+                                   fa.flash_attention_plain(q32, k32, v32,
+                                                            **kw),
+                                   f"flash {label} fp32")
+        del q32, k32, v32
+        # the profiler tends to lose a trace's first few launches
+        n = 20 if S <= 1024 else 8
+        kern_ms, _, prof = time_calls(
+            lambda: ops.flash_attention_op(q, k, v, **kw), n=n)
+        dev_ms, seen = device_ms(prof, FA_KERNEL)
+        plain_ms = event_ms(lambda: fa.flash_attention_plain(q, k, v, **kw),
+                            2, warm=1)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True)
+
+        lib_err = float((sdpa().transpose(1, 2).float()
+                         - want.float()).abs().max())
+        lib_ms, lib_dev_ms, _ = time_calls(sdpa, n=n)
+        nbytes, nops = flash_work(*case, elt=q.element_size())
+        bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        ops_ms = 1e3 * nops / BF16_OPS_PER_S
+        print(f"flash {label} (B={B}, S=T={S}, H={H}, KVH={KVH}, hd={hd}, "
+              f"causal, bf16): kernel launched {launches} time, == plain "
+              f"version: bf16 max |diff| {d} ({share:.3g} of the limit), "
+              f"fp32 max |diff| {d32} ({share32:.3g} of 3e-5); kernel "
+              f"{kern_ms:.4f} ms/call (CUDA events), device time {dev_ms} ms "
+              f"over {seen} launches recorded; plain version {plain_ms:.4f} "
+              f"ms/call; scaled_dot_product_attention {lib_ms:.5f} ms/call "
+              f"(device {lib_dev_ms}); bound {max(bytes_ms, ops_ms):.6f} ms "
+              f"({nbytes} B, {nops} ops); yardstick vs plain max |diff| "
+              f"{lib_err}")
+        shapes.append(dict(label=label, case=list(case), launches=launches,
+                           kernel_ms=kern_ms, kernel_device_ms=dev_ms,
+                           kernel_device_events=seen, plain_ms=plain_ms,
+                           sdpa_ms=lib_ms, sdpa_device_ms=lib_dev_ms,
+                           bytes=nbytes, ops=nops, bytes_ms=bytes_ms,
+                           ops_ms=ops_ms, err=d, limit_share=share,
+                           err_fp32=d32, limit_share_fp32=share32,
+                           sdpa_err=lib_err))
+        entries.append({
+            "name": key, "route": "cuda", "source": FA_SOURCE,
+            "replaces": FA_REPLACES, "launches": launches,
+            "max_abs_err": max(d, d32, *worst.values()),
+            "ms": kern_ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": lib_ms})
+    return dict(sweep_err=worst, shapes=shapes), entries
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -817,11 +1289,22 @@ def main(argv=None) -> int:
     serve_result, pa_entry = phase_serve(args.seed, device)
     pa_entry["max_abs_err"] = max(pa_entry["max_abs_err"], *worst.values())
     kernels.append(pa_entry)
+
+    # ---- 8-10: the kernels reached through kernels.ops ----------------------
+    t0 = time.perf_counter()
+    buddy_result, entry = phase_buddy(args.seed, device)
+    kernels.append(entry)
+    fl_result, entry = phase_freelist(args.seed, device)
+    kernels.append(entry)
+    fa_result, entries = phase_flash(args.seed, device)
+    kernels += entries
+    print(f"phases 8-10 took {time.perf_counter() - t0:.1f} s")
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(result, serve=serve_result, build_s=secs,
-                           paged_vs_plain=worst, gpu=smi, kernels=kernels),
-                      f, indent=1)
+                           paged_vs_plain=worst, buddy=buddy_result,
+                           freelist=fl_result, flash=fa_result, gpu=smi,
+                           kernels=kernels), f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

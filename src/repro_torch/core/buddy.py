@@ -1,11 +1,21 @@
-"""Array buddy allocator (the backend), the part the fused round needs.
+"""Array buddy allocator (the backend).
 
 Same ``longest[]`` encoding as `repro.core.buddy`: ``longest[i]`` is the size
 in bytes of the largest free block under tree node ``i`` (1-indexed, root =
-1, slot 0 unused). The batched alloc/free walks of a round live in the fused
-kernel and its plain version (`repro_torch.kernels.heap_step`); this module
-keeps the geometry, the initial tree, the int32 bit helpers, and the serial
-host-side `alloc` that `pim_malloc.init` carves its prepopulated blocks with.
+1, slot 0 unused). alloc / free are O(depth) walks with fixed trip counts
+and emit a fixed-length `BuddyEvent` trace of the nodes they touched, as in
+the reference. Where the reference `vmap`s over PIM cores, every function
+here takes an explicit leading core axis: trees ``[C, n_nodes]``, one
+request per core ``[C]`` (alloc / free) or a batch ``[C, B]``
+(alloc_batch / free_batch), served in order within each core.
+
+The int32 semantics are the reference's: `next_pow2` wraps to INT32_MIN
+above 2^30 (so such a size rounds to ``min_block``), and a size <= 0 rounds
+to ``min_block`` too (alloc has no ``size > 0`` check). Gathers at an index
+outside the tree read the clamped node and writes there are dropped, as
+JAX's indexing does. The fused round's batched walks live in
+`repro_torch.kernels.heap_step`; `alloc_host` is the serial host-side walk
+that `pim_malloc.init` carves its prepopulated blocks with.
 """
 from __future__ import annotations
 
@@ -68,9 +78,23 @@ class BuddyConfig:
     def n_nodes(self) -> int:  # 1-indexed array size (slot 0 unused)
         return 2 * self.n_leaf
 
+    @property
+    def trace_len(self) -> int:
+        # descent records root + one node per level; up-walk one per level
+        return 2 * (self.depth + 1)
+
 
 class BuddyState(NamedTuple):
     longest: torch.Tensor  # int32[..., n_nodes]
+
+
+class BuddyEvent(NamedTuple):
+    """Per-op record (the reference's), with the leading axes of the op."""
+
+    ok: torch.Tensor           # bool: the op succeeded
+    levels_down: torch.Tensor  # int32: descent length (nodes visited - 1)
+    levels_up: torch.Tensor    # int32: ancestor updates
+    trace: torch.Tensor        # int32[..., trace_len] node indices, -1 padded
 
 
 def init(cfg: BuddyConfig, device="cuda") -> BuddyState:
@@ -84,7 +108,7 @@ def init(cfg: BuddyConfig, device="cuda") -> BuddyState:
     return BuddyState(longest=torch.from_numpy(longest).to(dev))
 
 
-def alloc(cfg: BuddyConfig, st: BuddyState, size: int):
+def alloc_host(cfg: BuddyConfig, st: BuddyState, size: int):
     """Serial leftmost-fit allocation of `size` bytes on a host tree.
 
     Returns (state, offset); offset is -1 on failure. Host-side set-up code
@@ -104,3 +128,169 @@ def alloc(cfg: BuddyConfig, st: BuddyState, size: int):
         node >>= 1
         lg[node] = max(lg[2 * node], lg[2 * node + 1])
     return BuddyState(longest=longest), offset
+
+
+# ---------------------------------------------------------------------------
+# the reference's alloc / free / batches / free_bytes, over a core axis
+# ---------------------------------------------------------------------------
+def _round_size(cfg: BuddyConfig, size: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(next_pow2(size), min=cfg.min_block)
+
+
+def _take(longest: torch.Tensor, node: torch.Tensor) -> torch.Tensor:
+    """longest[c, node[c]] with JAX's index rule for reads: a negative
+    index counts from the end, then the index is clamped into the tree."""
+    n = longest.shape[1]
+    i = torch.where(node < 0, node + n, node).clamp(0, n - 1)
+    return longest.gather(1, i.long()[:, None])[:, 0]
+
+
+def _put(longest: torch.Tensor, node: torch.Tensor, val: torch.Tensor,
+         mask: torch.Tensor) -> None:
+    """longest[c, node[c]] = val[c] where mask[c], in place; the callers
+    only mask in nodes that lie inside the tree."""
+    i = torch.where(mask, node, torch.zeros_like(node)).long()[:, None]
+    longest.scatter_(1, i, torch.where(mask, val, longest.gather(1, i)[:, 0])
+                     [:, None])
+
+
+def _alloc_(cfg: BuddyConfig, longest: torch.Tensor, size: torch.Tensor,
+            live=None):
+    """One leftmost-fit allocation per core on ``longest [C, n_nodes]``,
+    updated in place; `live` (bool [C], default all) additionally gates
+    the request. Returns (offset [C], BuddyEvent)."""
+    size = _round_size(cfg, size)
+    ok = (size <= cfg.heap_bytes) & (_take(longest, torch.ones_like(size))
+                                     >= size)
+    if live is not None:
+        ok = ok & live
+    one = torch.ones_like(size)
+    node, node_size = one.clone(), torch.full_like(size, cfg.heap_bytes)
+    trace = [one]  # root visit
+    lvd = torch.zeros_like(size)
+    for _ in range(cfg.depth):
+        descend = node_size > size
+        left = 2 * node
+        go_left = _take(longest, left) >= size
+        node = torch.where(descend, torch.where(go_left, left, left + 1), node)
+        trace.append(torch.where(descend, node, -one))
+        node_size = torch.where(descend, node_size >> 1, node_size)
+        lvd += descend.to(torch.int32)
+    offset = node * node_size - cfg.heap_bytes
+    _put(longest, node, torch.zeros_like(node), ok)
+    n, lvu = node, torch.zeros_like(size)
+    for _ in range(cfg.depth):
+        parent = n >> 1
+        active = ok & (parent >= 1)
+        p = torch.clamp(parent, min=1)
+        newval = torch.maximum(_take(longest, 2 * p), _take(longest, 2 * p + 1))
+        _put(longest, p, newval, active)
+        trace.append(torch.where(active, p, -one))
+        lvu += active.to(torch.int32)
+        n = torch.where(active, p, torch.zeros_like(p))
+    trace.append(-one)  # the trace's last slot is never written
+    ev = BuddyEvent(ok=ok, levels_down=lvd, levels_up=lvu,
+                    trace=torch.stack(trace, dim=-1))
+    return torch.where(ok, offset, -one), ev
+
+
+def _free_(cfg: BuddyConfig, longest: torch.Tensor, offset: torch.Tensor,
+           size: torch.Tensor) -> BuddyEvent:
+    """Free one block per core on ``longest [C, n_nodes]``, in place."""
+    size = _round_size(cfg, size)
+    node = torch.div(offset + cfg.heap_bytes, size, rounding_mode="floor")
+    valid = (offset >= 0) & (offset < cfg.heap_bytes) & \
+        (_take(longest, node) == 0)
+    _put(longest, node, size, valid)
+    one = torch.ones_like(size)
+    trace = [node]
+    n, nsize, lvu = node, size, torch.zeros_like(size)
+    for _ in range(cfg.depth):
+        parent = n >> 1
+        active = valid & (parent >= 1)
+        p = torch.clamp(parent, min=1)
+        psize = nsize << 1
+        lft, rgt = _take(longest, 2 * p), _take(longest, 2 * p + 1)
+        both_free = (lft == nsize) & (rgt == nsize)
+        _put(longest, p, torch.where(both_free, psize, torch.maximum(lft, rgt)),
+             active)
+        trace.append(torch.where(active, p, -one))
+        lvu += active.to(torch.int32)
+        n, nsize = torch.where(active, p, torch.zeros_like(p)), psize
+    trace += [-one] * (cfg.trace_len - len(trace))
+    return BuddyEvent(ok=valid, levels_down=torch.zeros_like(size),
+                      levels_up=lvu, trace=torch.stack(trace, dim=-1))
+
+
+def alloc(cfg: BuddyConfig, st: BuddyState, size: torch.Tensor):
+    """Allocate ``size [C]`` bytes on each core's tree ``[C, n_nodes]``.
+
+    Returns (state, offset [C], BuddyEvent); offset is -1 on failure. The
+    input state is left as it was."""
+    longest = st.longest.clone()
+    off, ev = _alloc_(cfg, longest, size.to(torch.int32))
+    return BuddyState(longest=longest), off, ev
+
+
+def free(cfg: BuddyConfig, st: BuddyState, offset: torch.Tensor,
+         size: torch.Tensor):
+    """Free the block at ``offset [C]`` allocated with request ``size [C]``.
+
+    An offset outside [0, heap) or a node that is not allocated changes
+    nothing (the event's ``ok`` is False). Returns (state, BuddyEvent)."""
+    longest = st.longest.clone()
+    ev = _free_(cfg, longest, offset.to(torch.int32), size.to(torch.int32))
+    return BuddyState(longest=longest), ev
+
+
+def _stack_events(evs) -> BuddyEvent:
+    return BuddyEvent(*(torch.stack(f, dim=1) for f in zip(*evs)))
+
+
+def alloc_batch(cfg: BuddyConfig, st: BuddyState, sizes: torch.Tensor):
+    """Serve ``sizes [C, B]`` in order on each core (the shared-mutex
+    backend). Returns (state, offsets [C, B], BuddyEvent with [C, B]
+    fields)."""
+    longest = st.longest.clone()
+    sizes = sizes.to(torch.int32)
+    offs, evs = [], []
+    for b in range(sizes.shape[1]):
+        off, ev = _alloc_(cfg, longest, sizes[:, b])
+        offs.append(off)
+        evs.append(ev)
+    return BuddyState(longest=longest), torch.stack(offs, 1), \
+        _stack_events(evs)
+
+
+def free_batch(cfg: BuddyConfig, st: BuddyState, offsets: torch.Tensor,
+               sizes: torch.Tensor):
+    """Free ``offsets [C, B]`` (requests ``sizes [C, B]``) in order on each
+    core. Returns (state, BuddyEvent with [C, B] fields)."""
+    longest = st.longest.clone()
+    offsets, sizes = offsets.to(torch.int32), sizes.to(torch.int32)
+    evs = [_free_(cfg, longest, offsets[:, b], sizes[:, b])
+           for b in range(sizes.shape[1])]
+    return BuddyState(longest=longest), _stack_events(evs)
+
+
+def free_bytes(cfg: BuddyConfig, st: BuddyState) -> torch.Tensor:
+    """Free bytes of each core's heap (int32 [C]) = heap - allocated bytes.
+
+    A node X was allocated as a block iff longest[X] == 0 and X is a leaf
+    or both its children still read stale-full (see the reference)."""
+    longest = st.longest
+    n = cfg.n_nodes
+    dev = longest.device
+    idx = torch.arange(n, device=dev)
+    # node i sits at depth k for 2^k <= i < 2^(k+1); node 0 (unused) at 0
+    levels = torch.arange(cfg.depth + 1, device=dev)
+    depth = torch.cat([levels[:1], levels.repeat_interleave(1 << levels)])
+    full = (cfg.heap_bytes >> depth).to(torch.int32)
+    is_leaf = depth == cfg.depth
+    lc = torch.clamp(2 * idx, max=n - 1)
+    rc = torch.clamp(2 * idx + 1, max=n - 1)
+    child_full = full >> 1
+    stale = (longest[:, lc] == child_full) & (longest[:, rc] == child_full)
+    is_blk = (idx > 0) & (longest == 0) & (is_leaf | stale)
+    allocated = torch.where(is_blk, full, 0).sum(-1, dtype=torch.int64)
+    return (cfg.heap_bytes - allocated).to(torch.int32)

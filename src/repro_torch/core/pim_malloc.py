@@ -98,7 +98,8 @@ def init(cfg: PimMallocConfig, prepopulate: bool = True,
     if prepopulate:
         for t in range(T):
             for c, csize in enumerate(cfg.size_classes):
-                bst, off = buddy.alloc(cfg.buddy_cfg, bst, cfg.block_bytes)
+                bst, off = buddy.alloc_host(cfg.buddy_cfg, bst,
+                                              cfg.block_bytes)
                 if off < 0:
                     continue
                 sub = cfg.block_bytes // csize

@@ -29,6 +29,10 @@ _SIGNATURES = {
     "heap_step": ("heap_step_launch",
                   [_VP] * 12 + [ctypes.POINTER(_I), _VP] + [_I] * 7 + [_VP]),
     "paged_attention": ("paged_attention_launch", [_VP] * 6 + [_I] * 8 + [_VP]),
+    "buddy_traverse": ("buddy_traverse_launch", [_VP] * 4 + [_I] * 5 + [_VP]),
+    "freelist": ("freelist_launch", [_VP] * 8 + [_I] * 3 + [_VP]),
+    "flash_attention": ("flash_attention_launch",
+                        [_VP] * 4 + [_I] * 9 + [_VP]),
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}
@@ -55,31 +59,35 @@ def library_path(name: str) -> Path:
 
 
 def build(name: str, verbose: bool = False) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library exists; return its path.
+    """Compile ``csrc/<name>.cu`` unless its library exists; return its path."""
+    out = library_path(name)
+    if not out.exists():
+        compile_source(CSRC / f"{name}.cu", out, verbose=verbose)
+    return out
+
+
+def compile_source(src: Path, out: Path, verbose: bool = False) -> None:
+    """Compile one CUDA source into the shared library `out`.
 
     The library is written to a temporary name and renamed into place, so a
     concurrent or interrupted build never leaves a partial file behind."""
-    out = library_path(name)
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
     os.close(fd)
     cmd = [nvcc(), ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler",
-           "-fPIC", "-o", tmp, str(CSRC / f"{name}.cu")]
+           "-fPIC", "-o", tmp, str(src)]
     if verbose:
         cmd.insert(1, "-Xptxas=-v")
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
+            raise RuntimeError(f"nvcc failed for {src.name}:\n{proc.stderr}")
         if verbose and proc.stderr:
             print(proc.stderr, end="")
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
-    return out
 
 
 def build_all(verbose: bool = False) -> dict:
@@ -100,10 +108,15 @@ def load(name: str) -> ctypes.CDLL:
     with _LOCK:
         lib = _LOADED.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build(name)))
-            fn_name, argtypes = _SIGNATURES[name]
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-            _LOADED[name] = lib
+            lib = _LOADED[name] = bind(build(name), name)
         return lib
+
+
+def bind(path: Path, name: str) -> ctypes.CDLL:
+    """Load the library at `path` and type the launcher of kernel `name`."""
+    lib = ctypes.CDLL(str(path))
+    fn_name, argtypes = _SIGNATURES[name]
+    fn = getattr(lib, fn_name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return lib

@@ -348,3 +348,237 @@ def test_paged_attention_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     bad[0] = bad[0].transpose(0, 1).contiguous().transpose(0, 1)
     with pytest.raises(ValueError, match="contiguous"):
         tpa.paged_attention(*bad)
+
+
+# ---------------------------------------------------------------------------
+# the kernels reached through kernels.ops: buddy batch, freelist op, flash
+# attention. Buddy and freelist: exact equality (int32); flash: the
+# reference's bounds, FLASH_TOL.
+# ---------------------------------------------------------------------------
+FLASH_TOL = {torch.float32: 3e-5, torch.bfloat16: 2.5e-2}
+
+
+def buddy_case(seed, heap, min_block, cores, batch):
+    """Fresh trees and sizes from min_block / 2 to heap / 2, with 0,
+    negative and above-2^30 sizes mixed in."""
+    from repro_torch.core import buddy
+    rng = np.random.default_rng(seed)
+    cfg = buddy.BuddyConfig(heap_bytes=heap, min_block=min_block)
+    tree = buddy.init(cfg, device="cpu").longest.repeat(cores, 1)
+    lo, hi = np.log(max(min_block // 2, 1)), np.log(heap // 2)
+    sizes = np.exp(rng.uniform(lo, hi, (cores, batch))).astype(np.int64)
+    odd = rng.random((cores, batch)) < 0.1
+    sizes[odd] = rng.choice([0, -5, 2 ** 30 + 1, INT32_MAX], int(odd.sum()))
+    return tree, torch.from_numpy(sizes.astype(np.int32))
+
+
+@pytest.mark.parametrize("heap,min_block,cores,batch", [
+    (1 << 14, 32, 1, 8), (1 << 16, 64, 4, 16), (1 << 18, 4096, 4, 130),
+    (1 << 25, 4096, 3, 200), (1 << 20, 64, 2, 64)])
+def test_buddy_kernel_matches_plain_on_card(cuda, heap, min_block, cores,
+                                            batch):
+    """Three chained batches per geometry, up to the allocator's (32 MiB,
+    4 KiB: a 64 KiB tree, above the 48 KiB default shared memory) and the
+    largest tree the kernel takes (2^15 nodes)."""
+    from repro_torch.kernels import buddy_traverse as bt
+    tree, sizes = buddy_case(21, heap, min_block, cores, batch)
+    tree = tree.to(cuda)
+    kw = dict(heap_bytes=heap, min_block=min_block)
+    n = bt.buddy_alloc_batch_kernel.launches
+    for r in range(3):
+        s = sizes.roll(r, dims=1).contiguous().to(cuda)
+        offs, new = bt.buddy_alloc_batch_kernel(tree, s, **kw)
+        woffs, wnew = bt.buddy_alloc_batch_plain(tree, s, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(offs, woffs), f"batch {r}: offsets"
+        assert torch.equal(new, wnew), f"batch {r}: tree"
+        tree = new
+    assert bt.buddy_alloc_batch_kernel.launches == n + 3
+
+
+def test_buddy_kernel_quirk_rows_on_card(cuda):
+    """Sizes <= 0 fail; above 2^30 they wrap to min_block (findings 1-2)."""
+    from repro_torch.kernels import ops
+    tree, _ = buddy_case(0, 1 << 16, 64, 1, 1)
+    sizes = torch.tensor([[0, -5, 64, 2 ** 30 + 1, 100, INT32_MAX]],
+                         dtype=torch.int32, device=cuda)
+    offs, _ = ops.buddy_alloc_batch(tree.to(cuda), sizes, heap_bytes=1 << 16,
+                                    min_block=64)
+    assert offs.tolist() == [[-1, -1, 0, 64, 128, 256]]
+
+
+def test_buddy_free_bytes_on_card(cuda):
+    """`core.buddy.free_bytes` on the card equals the host's on trees the
+    kernel filled, and heap minus the blocks served (the tree depth of
+    every node is exact on the card)."""
+    from repro_torch.core import buddy
+    from repro_torch.kernels import ops
+    heap, mb = 1 << 25, 4096
+    cfg = buddy.BuddyConfig(heap_bytes=heap, min_block=mb)
+    tree, sizes = buddy_case(25, heap, mb, 8, 48)
+    sizes = sizes.clamp(max=1 << 20)
+    offs, new = ops.buddy_alloc_batch(tree.to(cuda), sizes.to(cuda),
+                                      heap_bytes=heap, min_block=mb)
+    got = buddy.free_bytes(cfg, buddy.BuddyState(new))
+    want = buddy.free_bytes(cfg, buddy.BuddyState(new.cpu()))
+    assert torch.equal(got.cpu(), want)
+    r = torch.clamp(buddy.next_pow2(sizes), min=mb)
+    served = torch.where(offs.cpu() >= 0, r, 0).sum(1)
+    assert torch.equal(want, (heap - served).to(torch.int32))
+
+
+def test_buddy_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from repro_torch.kernels import buddy_traverse as bt
+    tree, sizes = buddy_case(0, 1 << 14, 32, 2, 4)
+    tree, sizes = tree.to(cuda), sizes.to(cuda)
+    kw = dict(heap_bytes=1 << 14, min_block=32)
+    with pytest.raises(ValueError, match="int32"):
+        bt.buddy_alloc_batch_kernel(tree.long(), sizes, **kw)
+    with pytest.raises(ValueError, match="sizes must be"):
+        bt.buddy_alloc_batch_kernel(tree, sizes[:1].contiguous(), **kw)
+    with pytest.raises(ValueError, match="sizes is on"):
+        bt.buddy_alloc_batch_kernel(tree, sizes.cpu(), **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        bt.buddy_alloc_batch_kernel(tree, sizes.t().contiguous().t(), **kw)
+    with pytest.raises(ValueError, match="tree must be"):
+        bt.buddy_alloc_batch_kernel(tree[:, :-2].contiguous(), sizes, **kw)
+    big = torch.zeros((1, 1 << 16), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="does not fit"):
+        bt.buddy_alloc_batch_kernel(big, sizes[:1].contiguous(),
+                                    heap_bytes=1 << 15, min_block=1)
+
+
+def freelist_case(seed, T, NC, CAP):
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, CAP + 1, (T, NC)).astype(np.int32)
+    counts[:, 0] = 0
+    counts[:, -1] = CAP
+    stacks = rng.integers(0, 1 << 20, (T, NC, CAP)).astype(np.int32)
+    return torch.from_numpy(stacks), torch.from_numpy(counts), rng
+
+
+@pytest.mark.parametrize("T,NC,CAP", [(4, 8, 64), (8, 4, 128), (1000, 3, 5),
+                                      (8192, 8, 64)])
+def test_freelist_kernel_matches_plain_on_card(cuda, T, NC, CAP):
+    """Five chained ops with classes -1 and NC, pops of empty and pushes
+    onto full classes, and counts outside [0, CAP] in the last op; CAP 5
+    takes the kernel's unaligned copy."""
+    from repro_torch.kernels import freelist as fl
+    stacks, counts, rng = freelist_case(22, T, NC, CAP)
+    stacks, counts = stacks.to(cuda), counts.to(cuda)
+    n = fl.freelist_op_kernel.launches
+    for r in range(5):
+        if r == 4:
+            counts[:, 1] = torch.from_numpy(rng.choice(
+                [-1, -CAP - 2, CAP + 3, INT32_MAX, -2 ** 31],
+                T).astype(np.int32)).to(cuda)
+        op, cls, ptr = (torch.from_numpy(a.astype(np.int32)).to(cuda) for a in
+                        (rng.integers(-1, 2, T), rng.integers(-1, NC + 1, T),
+                         rng.integers(0, 1 << 20, T)))
+        got = fl.freelist_op_kernel(stacks, counts, op, cls, ptr)
+        want = fl.freelist_op_plain(stacks, counts, op, cls, ptr)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("ptr_out", "counts", "stacks"), got, want):
+            assert torch.equal(a, b), f"op {r}: {name}"
+        _, counts, stacks = got
+    assert fl.freelist_op_kernel.launches == n + 5
+
+
+def test_freelist_kernel_quirk_row_on_card(cuda):
+    """A class >= NC pops and counts class NC-1 (finding 3)."""
+    from repro_torch.kernels import ops
+    stacks = (torch.arange(24, dtype=torch.int32) + 100).reshape(3, 2, 4)
+    counts = torch.tensor([[1, 2], [0, 1], [2, 2]], dtype=torch.int32)
+    i32 = dict(dtype=torch.int32, device=cuda)
+    p, c, _ = ops.freelist_op(stacks.to(cuda), counts.to(cuda),
+                              torch.tensor([0, -1, -1], **i32),
+                              torch.tensor([2, 0, 0], **i32),
+                              torch.zeros(3, **i32))
+    assert p.tolist() == [105, -1, -1] and c[0].tolist() == [1, 1]
+
+
+def test_freelist_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from repro_torch.kernels import freelist as fl
+    stacks, counts, _ = freelist_case(0, 4, 2, 8)
+    i32 = dict(dtype=torch.int32, device=cuda)
+    args = [stacks.to(cuda), counts.to(cuda), torch.zeros(4, **i32),
+            torch.zeros(4, **i32), torch.zeros(4, **i32)]
+    bad = list(args)
+    bad[1] = bad[1].long()
+    with pytest.raises(ValueError, match="counts must be int32"):
+        fl.freelist_op_kernel(*bad)
+    bad = list(args)
+    bad[2] = bad[2][:3]
+    with pytest.raises(ValueError, match="op must be"):
+        fl.freelist_op_kernel(*bad)
+    bad = list(args)
+    bad[1] = bad[1].t().contiguous().t()
+    with pytest.raises(ValueError, match="contiguous"):
+        fl.freelist_op_kernel(*bad)
+    bad = list(args)
+    bad[4] = bad[4].cpu()
+    with pytest.raises(ValueError, match="ptr_in is on"):
+        fl.freelist_op_kernel(*bad)
+
+
+FLASH_CASES = [  # B, S, T, H, KVH, hd, causal, window
+    (2, 192, 192, 4, 2, 64, True, 0),       # GQA, S not a tile multiple
+    (1, 1000, 1000, 4, 1, 128, True, 128),  # MQA, sliding window
+    (2, 192, 1000, 6, 6, 256, False, 0),    # MHA, S != T, hd 256
+    (1, 1000, 192, 8, 2, 256, True, 64),    # causal, S > T, window
+    (1, 1000, 1000, 4, 4, 160, False, 300),  # window without causal
+    (1, 192, 192, 2, 2, 32, True, 0),
+]
+
+
+def flash_inputs(seed, B, S, T, H, KVH, hd, dtype, device, mag=0.2):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy((rng.standard_normal((B, n, h, hd)) * mag)
+                             .astype(np.float32)).to(device=device,
+                                                     dtype=dtype)
+            for n, h in ((S, H), (T, KVH), (T, KVH))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_kernel_matches_plain_on_card(cuda, case, dtype):
+    from repro_torch.kernels import flash_attention as fa
+    B, S, T, H, KVH, hd, causal, window = case
+    q, k, v = flash_inputs(23, B, S, T, H, KVH, hd, dtype, cuda)
+    n = fa.flash_attention_kernel.launches
+    got = fa.flash_attention_kernel(q, k, v, causal=causal, window=window)
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_kernel.launches == n + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=FLASH_TOL[dtype], rtol=FLASH_TOL[dtype])
+
+
+def test_flash_kernel_rows_that_see_no_key_are_zero_on_card(cuda):
+    """Non-causal with a window and S > T: rows past T + window see no
+    key and give 0, as the reference's acc / max(l, 1e-30) does."""
+    from repro_torch.kernels import ops
+    q, k, v = flash_inputs(24, 1, 300, 64, 2, 1, 64, torch.float32, cuda)
+    got = ops.flash_attention_op(q, k, v, causal=False, window=100)
+    assert not bool(got[:, 64 + 100:].any())
+    assert bool(got[:, :64].abs().sum(-1).gt(0).all())
+
+
+def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = flash_inputs(0, 1, 64, 64, 4, 2, 64, torch.float32, cuda)
+    with pytest.raises(ValueError, match="share"):
+        fa.flash_attention_kernel(q, k.to(torch.bfloat16), v)
+    with pytest.raises(ValueError, match="share"):
+        fa.flash_attention_kernel(*(x.half() for x in (q, k, v)))
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention_kernel(q.transpose(1, 2).contiguous()
+                                  .transpose(1, 2), k, v)
+    with pytest.raises(ValueError, match="is on"):
+        fa.flash_attention_kernel(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="multiple"):
+        fa.flash_attention_kernel(q[:, :, :3].contiguous(), k, v)
+    big = flash_inputs(0, 1, 8, 8, 1, 1, 320, torch.float32, cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_kernel(*big)

@@ -1,5 +1,10 @@
-"""The port stands alone: importing every module of `repro_torch`, and
-chip_smoke.py, pulls in neither JAX nor any module of the reference."""
+"""The port stands alone: importing every module of `repro_torch`,
+chip_smoke.py and tools/flash_mutants.py pulls in neither JAX nor any
+module of the reference.
+
+Among them the kernel entry point `kernels.ops` with its oracles
+`kernels.ref` and the modules of the buddy, freelist and flash-attention
+kernels."""
 import subprocess
 import sys
 from pathlib import Path
@@ -8,11 +13,17 @@ ROOT = Path(__file__).resolve().parents[1]
 
 PROBE = """
 import importlib, pkgutil, sys
-sys.path[:0] = [{src!r}, {root!r}]
+sys.path[:0] = [{src!r}, {root!r}, {tools!r}]
 import repro_torch
 for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(m.name)
 import chip_smoke
+import flash_mutants
+from repro_torch.kernels import ops
+assert all(callable(getattr(ops, n)) for n in (
+    "buddy_alloc_batch", "freelist_op", "paged_attention_op",
+    "flash_attention_op", "buddy_alloc_batch_ref", "freelist_op_ref",
+    "paged_attention_ref"))
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith(("jax.", "jaxlib"))
              or n == "repro" or n.startswith("repro."))
@@ -24,9 +35,10 @@ print("N", sum(n.startswith("repro_torch") for n in sys.modules))
 def test_port_imports_no_jax_and_no_reference():
     out = subprocess.run(
         [sys.executable, "-c",
-         PROBE.format(src=str(ROOT / "src"), root=str(ROOT))],
+         PROBE.format(src=str(ROOT / "src"), root=str(ROOT),
+                      tools=str(ROOT / "tools"))],
         capture_output=True, text=True, cwd=ROOT, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     n = int(out.stdout.split("N ")[1].split()[0])
-    assert n >= 34, out.stdout  # every module of the package was imported
+    assert n >= 39, out.stdout  # every module of the package was imported

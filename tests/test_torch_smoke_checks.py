@@ -1,0 +1,71 @@
+"""chip_smoke's full-width flash-attention check, on the host: it passes
+an output that differs from the plain version only in summation order and
+bf16 rounding, and fails one that misses a KV tile or rounds p to bf16.
+tools/flash_mutants.py's broken kernels still apply to the kernel source.
+"""
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path[:0] = [str(ROOT), str(ROOT / "tools")]
+
+import chip_smoke  # noqa: E402
+import flash_mutants  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+
+B, S, H, KVH, HD = 1, 384, 4, 2, 64
+
+
+def inputs(seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal((B, S, h, HD)))
+            for h in (H, KVH, KVH)]
+
+
+def attend64(q, k, v, dtype, drop=None, p_dtype=None):
+    """Causal attention in float64, cast to `dtype`; `drop` = (first query
+    row, first key) of a 64-key tile those rows do not see; `p_dtype`
+    rounds p before the p.v product."""
+    G = H // KVH
+    k, v = (x.repeat_interleave(G, dim=2) for x in (k, v))
+    s = torch.einsum("bshd,bthd->bhst", q, k) / HD ** 0.5
+    i = torch.arange(S)[:, None]
+    j = torch.arange(S)[None, :]
+    vis = i >= j
+    if drop is not None:
+        r0, t0 = drop
+        vis = vis & ~((i >= r0) & (j >= t0) & (j < t0 + 64))
+    s = torch.where(vis, s, -torch.inf)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    l = p.sum(-1, keepdim=True)
+    if p_dtype is not None:
+        p = p.to(p_dtype).double()
+    o = torch.einsum("bhst,bthd->bshd", p / l, v)
+    return o.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_reading_passes_rounding_and_fails_wrong_outputs(dtype):
+    q, k, v = (x.to(dtype) for x in inputs(11))
+    want = fa.flash_attention_plain(q, k, v, causal=True)
+    exact = [x.double() for x in (q, k, v)]
+    _, share = chip_smoke.flash_reading(attend64(*exact, dtype), want)
+    assert share <= 1.0
+    for kw in (dict(drop=(S - 64, 128)), dict(drop=(128, 64)),
+               dict(p_dtype=torch.bfloat16)):
+        _, share = chip_smoke.flash_reading(attend64(*exact, dtype, **kw),
+                                            want)
+        assert share > 1.0, kw
+    with pytest.raises(AssertionError):
+        chip_smoke.flash_check(attend64(*exact, dtype, drop=(128, 64)),
+                               want, "dropped tile")
+
+
+@pytest.mark.parametrize("name", sorted(flash_mutants.MUTANTS))
+def test_flash_mutants_apply_to_the_kernel_source(name):
+    src = (ROOT / chip_smoke.FA_SOURCE).read_text()
+    assert flash_mutants.mutate(src, name) != src
