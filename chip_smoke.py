@@ -25,11 +25,13 @@ Phases (each raises on failure; nothing is caught and carried on):
      kernel and plain-version timings (CUDA events, and the kernel's own
      device time from a torch.profiler trace, over the launches the trace
      recorded), and the device busy share of a few steps;
-  6. the paged-attention kernel against its plain version on the card
-     (fp32 to 2e-5, bf16 to 2e-2, atol = rtol): MHA, GQA and MQA at
-     head_dim 32 and 128 with seq_len 0, 1, a page boundary and full, -1
-     entries and permuted page tables, granite-3-8b's decode shape (B=8,
-     H=32, KVH=8, D=128, page 128, P=6) and head_dim 160;
+  6. the paged-attention kernels (split and merge) against their plain
+     version on the card (fp32 to 2e-5, bf16 to 2e-2, atol = rtol): MHA,
+     GQA and MQA at head_dim 32 and 128 with seq_len 0, 1, a page boundary
+     and full, -1 entries and permuted page tables, granite-3-8b's decode
+     shape (B=8, H=32, KVH=8, D=128, page 128, P=6), head_dim 160, and a
+     long sequence (B=1, granite's heads, 8192 tokens in 64 pages of 128)
+     that crosses many splits;
   7. the serving path: granite-3-8b at full width (40 layers, bf16,
      weights from ``--seed`` on the card), 8 requests of 512 prompt tokens
      and 64 greedy decode steps through `launch.serve.serve`, page ids from
@@ -38,10 +40,11 @@ Phases (each raises on failure; nothing is caught and carried on):
      heap step once per pool round); then the pool's counters, every
      step's logits finite, the last step's layer-0 attention == the plain
      version, and timings: prefill, decode per step, the paged-attention
-     kernel (CUDA events; device time from torch.profiler), its plain
-     version, `scaled_dot_product_attention` over gathered K/V as a
-     yardstick (never on the path), the bytes bound, and the device busy
-     share of a few decode steps;
+     kernels per call (CUDA events; device time from torch.profiler, the
+     split kernel and the merge summed), its plain version,
+     `scaled_dot_product_attention` over gathered K/V as a yardstick
+     (never on the path), the bytes bound, and the device busy share of a
+     few decode steps;
   8. the buddy batch through `kernels.ops.buddy_alloc_batch` at the
      allocator's width (C=512 cores, 32 MiB heaps of 4 KiB blocks: 16384-
      node trees): first the small geometries of tests/test_kernels.py,
@@ -68,9 +71,11 @@ Phases (each raises on failure; nothing is caught and carried on):
      at 2.5e-2 and within two bf16 rounding steps of each element
      (|diff| <= 2^-6 |want| + 2^-14 max|want|); the same inputs in fp32
      go through the kernel again (not counted) and are held at 3e-5.
-     Then timings, bounds, and `scaled_dot_product_attention` as a
-     yardstick (never on the path). `tools/flash_mutants.py` shows that
-     these checks fail deliberately broken kernels.
+     The launches of each route (bf16 on the tensor cores, fp32 on the
+     CUDA cores) are counted and printed. Then timings, bounds, and
+     `scaled_dot_product_attention` as a yardstick (never on the path).
+     `tools/flash_mutants.py` shows that these checks, and phase 6's,
+     fail deliberately broken kernels.
 
 In the ``kernels`` record, each kernel's ``ms``, ``plain_ms``,
 ``bound_ms`` and ``library_ms`` are per launch: averaged over the launches
@@ -107,12 +112,21 @@ PROFILE_ROUNDS = 10  # steps in the profiler window (2 of them warm-up)
 
 PA_SOURCE = "src/repro_torch/kernels/csrc/paged_attention.cu"
 PA_REPLACES = "src/repro/kernels/paged_attention.py:94"
-PA_KERNEL = "paged_attention_kernel"  # its name in a profiler trace
+# the kernels of one call, in a profiler trace: the split kernel (one per
+# call) and the merge (one per call with more than one split)
+PA_KERNEL = "paged_attention_kernel"
+PA_MERGE = "paged_attention_merge"
 FP32_OPS_PER_S = 67e12      # non-tensor fp32 peak (data sheet)
 # (H, KVH, D): MHA, GQA with G = 4, MQA, at head_dim 32 and 128
 PA_HEADS = ((4, 4, 32), (8, 2, 32), (4, 1, 32),
             (4, 4, 128), (8, 2, 128), (4, 1, 128))
 PA_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# phase 6: (H, KVH, D, page, pages, seq_lens)
+PA_CASES = tuple((H, KVH, D, 16, 4, (0, 1, 16, 17, 64))
+                 for H, KVH, D in PA_HEADS) + (
+    (32, 8, 128, 128, 6, (513, 530, 545, 560, 575, 576, 0, 768)),
+    (32, 8, 160, 128, 6, (1, 128, 129, 768)))
+PA_LONG = (32, 8, 128, 128, 64, (8192,))  # B=1, across many splits
 SERVE_ARCH = "granite_3_8b"
 SERVE_BATCH = 8       # requests
 SERVE_PROMPT = 512    # prompt tokens per request
@@ -554,7 +568,8 @@ def paged_case(rng, H, KVH, D, page, pages, lens, dtype, device):
             np.float32)).to(device=device, dtype=dtype)
 
     pt = rng.permutation(N)[:B * pages].reshape(B, pages).astype(np.int32)
-    pt[1, 1:] = -1
+    if B > 1:
+        pt[1, 1:] = -1
     pt[-1, 1] = -1
     return (f(B, H, D), f(N, page, KVH, D), f(N, page, KVH, D),
             torch.from_numpy(pt).to(device),
@@ -572,22 +587,26 @@ def assert_close(got, want, tol, what):
     return diff
 
 
+def pa_reading(got, want, tol):
+    """(max |got - want|, the largest share of atol = rtol = tol any
+    element uses; above 1 fails, as `assert_close`)."""
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    return float(d.max()), float((d / (tol + tol * w.abs())).max())
+
+
 def phase_paged_vs_plain(seed, device):
-    """The kernel against its plain version over the sweep; returns
-    {dtype name: max |diff|}."""
+    """The kernel against its plain version over the sweep and the long
+    case; returns {dtype name: max |diff|}."""
     import numpy as np
     import torch
     from repro_torch.kernels import paged_attention as pa
     rng = np.random.default_rng(seed)
-    worst = {}
+    worst, long_diff = {}, {}
     for dt in (torch.float32, torch.bfloat16):
         name = str(dt).split(".")[1]
-        cases = [(H, KVH, D, 16, 4, (0, 1, 16, 17, 64))
-                 for H, KVH, D in PA_HEADS]
-        cases += [(32, 8, 128, 128, 6, (513, 530, 545, 560, 575, 576, 0,
-                                        768)),
-                  (32, 8, 160, 128, 6, (1, 128, 129, 768))]
-        for H, KVH, D, page, pages, lens in cases:
+        for case in PA_CASES + (PA_LONG,):
+            H, KVH, D, page, pages, lens = case
             args = paged_case(rng, H, KVH, D, page, pages, lens, dt, device)
             got = pa.paged_attention(*args)
             want = pa.paged_attention_plain(*args)
@@ -597,6 +616,15 @@ def phase_paged_vs_plain(seed, device):
             if lens[0] == 0 and bool(got[0].any()):
                 raise AssertionError("seq_len 0 did not give zeros")
             worst[name] = max(worst.get(name, 0.0), d)
+            if case == PA_LONG:
+                long_diff[name] = d
+    H, KVH, D, page, pages, lens = PA_LONG
+    pps, splits = pa.split_plan(len(lens) * KVH, pages,
+                                pa.sm_count(device))
+    print(f"paged attention, long sequence (B={len(lens)}, H={H}, "
+          f"KVH={KVH}, D={D}, {lens[0]} tokens in {pages} pages of {page}: "
+          f"{splits} splits of {pps} page(s)) == plain version: max |diff| "
+          + ", ".join(f"{k} {v:.3g}" for k, v in long_diff.items()))
     q, k, v, _, _ = paged_case(rng, 2, 2, 128, 128, 2, (256, 256),
                                torch.float32, device)
     q2 = torch.cat([q[:1], q[:1]])
@@ -642,6 +670,18 @@ def time_calls(fn, n=PA_CALLS):
     dev = sum(device_us(e) for e in prof.key_averages()
               if device_us(e) > 0 and e.device_type.name == "CUDA")
     return ms, (dev / n / 1e3 if dev else None), prof
+
+
+def pa_call_ms(prof):
+    """Device ms per paged-attention call in a trace: (split + merge, the
+    split kernel's, the merge's, split launches seen), each kernel averaged
+    over the launches the trace recorded; None where it recorded none (the
+    merge's 0.0 where no call had more than one split)."""
+    s_us, s_n = kernel_events(prof, PA_KERNEL)
+    m_us, m_n = kernel_events(prof, PA_MERGE)
+    split = s_us / 1e3 / s_n if s_n else None
+    merge = m_us / 1e3 / m_n if m_n else 0.0
+    return (None if split is None else split + merge), split, merge, s_n
 
 
 def pa_bound(q, k_pages, seq_lens, page_table):
@@ -742,8 +782,7 @@ def phase_serve(seed, device):
 
     # ---- timings at these inputs (not on the path) -------------------------
     kern_ms, _, kprof = time_calls(lambda: pa.paged_attention(*args))
-    k_us, k_seen = kernel_events(kprof, PA_KERNEL)
-    kern_dev_ms = k_us / 1e3 / k_seen if k_seen else None
+    kern_dev_ms, split_ms, merge_ms, k_seen = pa_call_ms(kprof)
     plain_ms, plain_dev_ms, _ = time_calls(
         lambda: pa.paged_attention_plain(*args), n=20)
     Stot = P * page
@@ -772,8 +811,8 @@ def phase_serve(seed, device):
     bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
     ops_ms = 1e3 * nops / FP32_OPS_PER_S
     dev = "not measured" if kern_dev_ms is None else \
-        f"{kern_dev_ms:.5f} ms device time/launch over the {k_seen} " \
-        f"launches the profiler recorded"
+        f"{kern_dev_ms:.5f} ms device time/call (split {split_ms:.5f} + " \
+        f"merge {merge_ms}) over the {k_seen} calls the profiler recorded"
     print(f"paged attention at the last step's layer-0 inputs (B={B}, "
           f"H={H}, KVH={KVH}, D={hd}, {int(seq_lens[0])} tokens): kernel "
           f"{kern_ms:.5f} ms/call (CUDA events, back to back), {dev}; "
@@ -806,7 +845,9 @@ def phase_serve(seed, device):
             launches += e.count
             top.append((us / SERVE_PROFILE / 1e3, e.count, e.key[:60]))
     top.sort(reverse=True)
-    step_pa_us, step_pa_n = kernel_events(prof, PA_KERNEL)
+    step_pa_ms, step_split_ms, step_merge_ms, step_pa_n = pa_call_ms(prof)
+    step_pa_total_ms = sum(kernel_events(prof, k)[0] for k in
+                           (PA_KERNEL, PA_MERGE)) / 1e3 / SERVE_PROFILE
     wall_ms = 1e3 * wall / SERVE_PROFILE
     busy_ms = busy / SERVE_PROFILE / 1e3 if busy else None
     if busy_ms is None:
@@ -816,10 +857,11 @@ def phase_serve(seed, device):
               f"{busy_ms:.3f} of {wall_ms:.3f} ms/step "
               f"({100 * busy_ms / wall_ms:.1f} %), "
               f"{launches / SERVE_PROFILE:.0f} device launches/step, "
-              f"paged attention {step_pa_us / 1e3 / SERVE_PROFILE:.4f} "
-              f"ms/step over {step_pa_n} of {cfg.n_layers * SERVE_PROFILE} "
-              f"launches recorded ({step_pa_us / 1e3 / max(step_pa_n, 1):.5f}"
-              f" ms device time/launch in situ); top: " + "; ".join(
+              f"paged attention {step_pa_total_ms:.4f} ms/step, "
+              f"{step_pa_ms} ms device time/call in situ "
+              f"(split {step_split_ms} + merge {step_merge_ms}; "
+              f"{step_pa_n} of {cfg.n_layers * SERVE_PROFILE} calls "
+              f"recorded); top: " + "; ".join(
                   f"{k} {ms:.3f} ms/step x{c}" for ms, c, k in top[:6]))
     result = dict(
         arch=cfg.name, n_params=n_params, init_s=init_s, batch=B,
@@ -830,14 +872,17 @@ def phase_serve(seed, device):
         tokens_per_s=B * steps / dec_s,
         sync_ms_per_step=1e3 * res.timings["sync_s"] / steps,
         pa_ms=kern_ms, pa_device_ms=kern_dev_ms, pa_device_events=k_seen,
+        pa_split_device_ms=split_ms, pa_merge_device_ms=merge_ms,
         pa_plain_ms=plain_ms, pa_plain_device_ms=plain_dev_ms,
         sdpa_ms=lib_ms, sdpa_device_ms=lib_dev_ms, sdpa_gather_ms=libg_ms,
         sdpa_gather_device_ms=libg_dev_ms, pa_bytes=nbytes, pa_ops=nops,
         pa_bytes_ms=bytes_ms, pa_ops_ms=ops_ms, pa_serve_err=serve_err,
         step_busy_ms=busy_ms, step_wall_ms=wall_ms,
         step_launches=launches / SERVE_PROFILE,
-        step_pa_device_ms=step_pa_us / 1e3 / SERVE_PROFILE,
-        step_pa_events=step_pa_n, step_top=[list(t) for t in top[:8]])
+        step_pa_device_ms=step_pa_total_ms, step_pa_call_device_ms=step_pa_ms,
+        step_pa_split_device_ms=step_split_ms,
+        step_pa_merge_device_ms=step_merge_ms, step_pa_events=step_pa_n,
+        step_top=[list(t) for t in top[:8]])
     entry = {
         "name": "paged_attention", "route": "cuda", "source": PA_SOURCE,
         "replaces": PA_REPLACES, "launches": pa_launches,
@@ -1174,22 +1219,31 @@ def phase_flash(seed, device, full=FA_FULL, sweep=FA_SWEEP):
         q, k, v = flash_inputs(g, *case[:6], torch.bfloat16, device)
         torch.cuda.synchronize()
         fa.flash_attention_kernel.launches = 0
+        routes = fa.flash_attention_kernel.route_launches
+        routes.update(dict.fromkeys(routes, 0))
         out = ops.flash_attention_op(q, k, v, **kw)
         torch.cuda.synchronize()
         launches = fa.flash_attention_kernel.launches
-        if launches != 1:
+        main_routes = dict(routes)
+        if launches != 1 or main_routes["bf16_tensor_cores"] != 1:
             raise AssertionError(f"flash {label}: the main path launched the "
-                                 f"kernel {launches} times for one call")
+                                 f"kernel {launches} times for one call, "
+                                 f"by route {main_routes}")
         if out.shape != q.shape or out.dtype != q.dtype or \
                 not bool(torch.isfinite(out).all()):
             raise AssertionError(f"flash {label}: misshapen or non-finite")
         want = fa.flash_attention_plain(q, k, v, **kw)
         d, share = flash_check(out, want, f"flash {label} bf16")
         q32, k32, v32 = (x.float() for x in (q, k, v))
+        routes.update(dict.fromkeys(routes, 0))
         d32, share32 = flash_check(ops.flash_attention_op(q32, k32, v32, **kw),
                                    fa.flash_attention_plain(q32, k32, v32,
                                                             **kw),
                                    f"flash {label} fp32")
+        fp32_routes = dict(routes)
+        if fp32_routes["fp32_cuda_cores"] != 1:
+            raise AssertionError(f"flash {label}: fp32 went by route "
+                                 f"{fp32_routes}")
         del q32, k32, v32
         # the profiler tends to lose a trace's first few launches
         n = 20 if S <= 1024 else 8
@@ -1211,7 +1265,9 @@ def phase_flash(seed, device, full=FA_FULL, sweep=FA_SWEEP):
         bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
         ops_ms = 1e3 * nops / BF16_OPS_PER_S
         print(f"flash {label} (B={B}, S=T={S}, H={H}, KVH={KVH}, hd={hd}, "
-              f"causal, bf16): kernel launched {launches} time, == plain "
+              f"causal, bf16): kernel launched {launches} time (by route: "
+              f"main path {main_routes}; the fp32 check {fp32_routes}), "
+              f"== plain "
               f"version: bf16 max |diff| {d} ({share:.3g} of the limit), "
               f"fp32 max |diff| {d32} ({share32:.3g} of 3e-5); kernel "
               f"{kern_ms:.4f} ms/call (CUDA events), device time {dev_ms} ms "
@@ -1221,6 +1277,7 @@ def phase_flash(seed, device, full=FA_FULL, sweep=FA_SWEEP):
               f"({nbytes} B, {nops} ops); yardstick vs plain max |diff| "
               f"{lib_err}")
         shapes.append(dict(label=label, case=list(case), launches=launches,
+                           routes=main_routes, fp32_check_routes=fp32_routes,
                            kernel_ms=kern_ms, kernel_device_ms=dev_ms,
                            kernel_device_events=seen, plain_ms=plain_ms,
                            sdpa_ms=lib_ms, sdpa_device_ms=lib_dev_ms,

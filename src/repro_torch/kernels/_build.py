@@ -28,11 +28,12 @@ _VP, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "heap_step": ("heap_step_launch",
                   [_VP] * 12 + [ctypes.POINTER(_I), _VP] + [_I] * 7 + [_VP]),
-    "paged_attention": ("paged_attention_launch", [_VP] * 6 + [_I] * 8 + [_VP]),
+    "paged_attention": ("paged_attention_launch",
+                        [_VP] * 8 + [_I] * 10 + [_VP]),
     "buddy_traverse": ("buddy_traverse_launch", [_VP] * 4 + [_I] * 5 + [_VP]),
     "freelist": ("freelist_launch", [_VP] * 8 + [_I] * 3 + [_VP]),
     "flash_attention": ("flash_attention_launch",
-                        [_VP] * 4 + [_I] * 9 + [_VP]),
+                        [_VP] * 4 + [_I] * 9 + [_VP, ctypes.POINTER(_I)]),
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}

@@ -12,10 +12,12 @@ q's dtype, so a row that sees no key is 0.
 `flash_attention_plain` is the plain version (a masked softmax over query
 row blocks; it never holds more than `ROW_BLOCK` rows of scores).
 `flash_attention_kernel` is the wrapper `ops.flash_attention_op` calls:
-for CUDA tensors it launches ``csrc/flash_attention.cu`` (fp32 or bf16,
-head_dim up to 256), for CPU tensors it runs the plain version. The
-function does not depend on ``block_q`` / ``block_kv``: they are
-validated and kept in the signature; the CUDA kernel uses its own tiles.
+for CUDA tensors it launches ``csrc/flash_attention.cu`` (head_dim up to
+256; bf16 on the tensor cores, with p split into two bf16 terms for the
+p.v product, fp32 on the CUDA cores), for CPU tensors it runs the plain
+version. The function does not depend on ``block_q`` / ``block_kv``: they
+are validated and kept in the signature; the CUDA kernel uses its own
+tiles.
 """
 from __future__ import annotations
 
@@ -27,6 +29,8 @@ NEG_INF = -1e30
 MAX_HEAD_DIM = 256
 ROW_BLOCK = 1024  # query rows per pass of the plain version
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernel's routes, by the number its launcher reports
+ROUTES = ("fp32_cuda_cores", "bf16_tensor_cores")
 
 
 def _validate(q, k, v, window, block_q, block_kv):
@@ -113,7 +117,9 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0,
     head_dim up to `MAX_HEAD_DIM`, contiguous inputs; anything else, or a
     build or launch error, raises. For CPU tensors it runs
     `flash_attention_plain`. Any other device raises.
-    `flash_attention_kernel.launches` counts kernel launches."""
+    `flash_attention_kernel.launches` counts kernel launches and
+    `flash_attention_kernel.route_launches` those of each route in
+    `ROUTES` (the launcher routes by dtype)."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      block_q=block_q, block_kv=block_kv)
@@ -128,16 +134,20 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0,
     T, KVH = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     vp = ctypes.c_void_p
+    route = ctypes.c_int(-1)
     err = lib.flash_attention_launch(
         vp(q.data_ptr()), vp(k.data_ptr()), vp(v.data_ptr()),
         vp(out.data_ptr()), _DTYPES[q.dtype], B, S, T, H, KVH, hd,
         int(bool(causal)), window,
-        vp(torch.cuda.current_stream(q.device).cuda_stream))
+        vp(torch.cuda.current_stream(q.device).cuda_stream),
+        ctypes.byref(route))
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: "
                            f"error {err}")
     flash_attention_kernel.launches += 1
+    flash_attention_kernel.route_launches[ROUTES[route.value]] += 1
     return out
 
 
 flash_attention_kernel.launches = 0
+flash_attention_kernel.route_launches = dict.fromkeys(ROUTES, 0)

@@ -14,18 +14,37 @@ output in q's dtype. A sequence of length 0 gives zeros.
 `paged_attention_plain` is the plain version (the twin of the oracle: a
 dense gather and a masked softmax). `paged_attention` is the wrapper the
 serving path calls: for CUDA tensors it launches
-``csrc/paged_attention.cu`` (one CTA per sequence and KV head, online
-softmax over the pages), for CPU tensors it runs the plain version.
+``csrc/paged_attention.cu`` (each sequence split over `split_plan`'s CTAs,
+online softmax over each split's pages, then a merge of the splits), for
+CPU tensors it runs the plain version.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
+CTAS_PER_SM = 2  # the split grid's target occupancy
+
+
+def split_plan(rows: int, pages: int, sms: int) -> tuple[int, int]:
+    """(pages per split, splits) of the kernel's grid (rows x splits): each
+    of the `rows` (sequence, KV head) pairs is split into runs of
+    consecutive pages, enough of them that the grid has at least
+    `CTAS_PER_SM` CTAs per SM where `pages` allows."""
+    want = min(pages, -(-CTAS_PER_SM * sms // rows))
+    pps = max(1, pages // max(want, 1))
+    return pps, -(-pages // pps)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (read once per device)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def paged_attention_plain(q, k_pages, v_pages, page_table, seq_lens):
@@ -94,11 +113,12 @@ def paged_attention(q, k_pages, v_pages, page_table, seq_lens):
     page_table int32 [B, P] physical page ids (-1 = unmapped, reads page
     0); seq_lens int32 [B]. fp32 or bf16. Returns [B, H, D] in q's dtype.
 
-    For CUDA tensors this launches the hand-written kernel
-    (``csrc/paged_attention.cu``) on the current stream; a build or launch
-    error raises. For CPU tensors it runs `paged_attention_plain`. Any
-    other device raises. `paged_attention.launches` counts kernel
-    launches."""
+    For CUDA tensors this launches the hand-written kernels
+    (``csrc/paged_attention.cu``: the split kernel, then the merge unless
+    there is one split) on the current stream; a build or launch error
+    raises. For CPU tensors it runs `paged_attention_plain`. Any other
+    device raises. `paged_attention.launches` counts the calls that
+    launched the kernels."""
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pages, v_pages, page_table,
                                      seq_lens)
@@ -110,13 +130,24 @@ def paged_attention(q, k_pages, v_pages, page_table, seq_lens):
     lib = _build.load("paged_attention")
     B, H, D = q.shape
     N, page, KVH, _ = k_pages.shape
+    P = page_table.shape[1]
+    pps, splits = split_plan(B * KVH, P, sm_count(q.device))
     out = torch.empty_like(q)
     vp = ctypes.c_void_p
+    part_acc = part_ml = None
+    if splits > 1:  # fp32 partials (m, l, acc) of every split, then merged
+        G = H // KVH
+        part_acc = torch.empty((B * KVH, splits, G, D), dtype=torch.float32,
+                               device=q.device)
+        part_ml = torch.empty((B * KVH, splits, G, 2), dtype=torch.float32,
+                              device=q.device)
     err = lib.paged_attention_launch(
         vp(q.data_ptr()), vp(k_pages.data_ptr()), vp(v_pages.data_ptr()),
         vp(page_table.data_ptr()), vp(seq_lens.data_ptr()),
-        vp(out.data_ptr()), _DTYPES[q.dtype], B, H, KVH, D, N, page,
-        page_table.shape[1],
+        vp(out.data_ptr()),
+        vp(part_acc.data_ptr() if part_acc is not None else None),
+        vp(part_ml.data_ptr() if part_ml is not None else None),
+        _DTYPES[q.dtype], B, H, KVH, D, N, page, P, pps, splits,
         vp(torch.cuda.current_stream(q.device).cuda_stream))
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: "

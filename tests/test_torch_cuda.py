@@ -9,13 +9,18 @@ paged-attention sweep that the CPU differential tests
 The heap-step kernel's tolerance is exact equality: all 31 outputs of a
 round are int32. The paged-attention kernel's are stated at `TOL`.
 """
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import heap, pim_malloc, system
-from repro_torch.kernels import heap_step as ths
-from repro_torch.kernels import paged_attention as tpa
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))  # chip_smoke
+
+from repro_torch.core import heap, pim_malloc, system  # noqa: E402
+from repro_torch.kernels import heap_step as ths  # noqa: E402
+from repro_torch.kernels import paged_attention as tpa  # noqa: E402
 
 HEAP = 1 << 18
 BLOCK = 4096
@@ -334,6 +339,61 @@ def test_attend_kernel_launches_the_kernel_on_card(cuda):
     torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,KVH,D", [(32, 8, 128), (32, 1, 128),
+                                     (16, 4, 160)])
+def test_paged_attention_kernel_long_sequences_on_card(cuda, H, KVH, D,
+                                                       dtype):
+    """80 pages of 16 per sequence, split over CTAs as `split_plan` says:
+    lengths 0, on a split boundary, one past one, one short of one, and
+    full; GQA, MQA (all 32 query heads on one CTA's K/V) and head_dim 160."""
+    page, pages, B = 16, 80, 5
+    pps, splits = tpa.split_plan(B * KVH, pages, tpa.sm_count(cuda))
+    assert splits > 1
+    run = pps * page
+    lens = (0, run, 3 * run + 1, 5 * run - 1, pages * page)
+    args = to_torch(paged_case(16, H, KVH, D, page=page, pages=pages,
+                               seq_lens=lens), dtype, cuda)
+    n = tpa.paged_attention.launches
+    got = tpa.paged_attention(*args)
+    want = tpa.paged_attention_plain(*args)
+    torch.cuda.synchronize()
+    assert tpa.paged_attention.launches == n + 1  # calls, not kernels
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    assert not got[0].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_kernel_one_split_on_card(cuda, dtype):
+    """Enough (sequence, KV head) rows to fill the card with one split
+    each: the split kernel writes the output itself, with no merge."""
+    sms = tpa.sm_count(cuda)
+    KVH, pages = 8, 3
+    B = -(-2 * sms // KVH)
+    assert tpa.split_plan(B * KVH, pages, sms) == (pages, 1)
+    lens = tuple((0, 1, 16, 17, 48)[i % 5] for i in range(B))
+    args = to_torch(paged_case(17, 16, KVH, 64, pages=pages, seq_lens=lens),
+                    dtype, cuda)
+    got = tpa.paged_attention(*args)
+    want = tpa.paged_attention_plain(*args)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    assert not got[0].any()
+
+
+def test_paged_attention_launch_error_raises_on_card(cuda):
+    """A launch the card refuses (here: more shared memory than a CTA may
+    have, for 256 query heads on one KV head at head_dim 256 in fp32)
+    raises; nothing falls back to the plain version."""
+    args = to_torch(paged_case(18, 256, 1, 256, pages=2,
+                               seq_lens=(1, 2, 3)), torch.float32, cuda)
+    n = tpa.paged_attention.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tpa.paged_attention(*args)
+    assert tpa.paged_attention.launches == n
+
+
 def test_paged_attention_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     args = to_torch(paged_case(15, 4, 2, 32), torch.float32, cuda)
     bad = list(args)
@@ -582,3 +642,72 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     big = flash_inputs(0, 1, 8, 8, 1, 1, 320, torch.float32, cuda)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention_kernel(*big)
+
+
+TC_CASES = [  # B, S, T, H, KVH, hd, causal, window
+    (2, 200, 200, 4, 2, 64, True, 0),      # hd 64, S not a tile multiple
+    (1, 333, 333, 4, 1, 128, True, 100),   # hd 128, sliding window
+    (2, 130, 400, 4, 4, 256, False, 0),    # hd 256, S != T
+    (1, 500, 130, 8, 2, 128, True, 0),     # causal, S > T
+    (1, 300, 300, 2, 2, 256, False, 70),   # window without causal
+    (1, 190, 190, 4, 2, 32, True, 0),      # hd 32, padded to 64
+    (1, 190, 190, 4, 2, 160, True, 0),     # hd 160, padded to 256
+    (1, 150, 150, 2, 1, 36, True, 0),      # hd 36: copied element-wise
+]
+
+
+@pytest.mark.parametrize("case", TC_CASES)
+def test_flash_bf16_takes_the_tensor_core_route_on_card(cuda, case):
+    """bf16 goes through the tensor-core kernel at every head_dim, and on
+    unit-scale inputs meets chip_smoke phase 10's limits: 2.5e-2 and two
+    bf16 steps of every element."""
+    import chip_smoke
+    from repro_torch.kernels import flash_attention as fa
+    B, S, T, H, KVH, hd, causal, window = case
+    q, k, v = flash_inputs(25, B, S, T, H, KVH, hd, torch.bfloat16, cuda,
+                           mag=1.0)
+    before = dict(fa.flash_attention_kernel.route_launches)
+    got = fa.flash_attention_kernel(q, k, v, causal=causal, window=window)
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    after = fa.flash_attention_kernel.route_launches
+    assert after["bf16_tensor_cores"] == before["bf16_tensor_cores"] + 1
+    assert after["fp32_cuda_cores"] == before["fp32_cuda_cores"]
+    chip_smoke.flash_check(got, want, f"bf16 {case}")
+
+
+def test_flash_fp32_takes_the_cuda_core_route_on_card(cuda):
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = flash_inputs(26, 1, 100, 100, 4, 2, 64, torch.float32, cuda)
+    before = dict(fa.flash_attention_kernel.route_launches)
+    got = fa.flash_attention_kernel(q, k, v)
+    after = fa.flash_attention_kernel.route_launches
+    assert after["fp32_cuda_cores"] == before["fp32_cuda_cores"] + 1
+    assert after["bf16_tensor_cores"] == before["bf16_tensor_cores"]
+    want = fa.flash_attention_plain(q, k, v)
+    torch.testing.assert_close(got, want, atol=3e-5, rtol=3e-5)
+
+
+@pytest.mark.parametrize("kernel", ["flash_attention", "paged_attention"])
+def test_attention_wrappers_raise_on_a_launch_error_on_card(cuda, kernel,
+                                                            monkeypatch):
+    """A launcher that reports an error makes the wrapper raise and count
+    nothing: no fallback to the plain version or another kernel."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+
+    class Refusing:
+        def __getattr__(self, name):
+            return lambda *args: 9  # cudaErrorInvalidConfiguration
+
+    monkeypatch.setitem(_build._LOADED, kernel, Refusing())
+    if kernel == "flash_attention":
+        fn, args = fa.flash_attention_kernel, flash_inputs(
+            27, 1, 64, 64, 2, 1, 64, torch.bfloat16, cuda)
+    else:
+        fn, args = tpa.paged_attention, to_torch(
+            paged_case(27, 4, 2, 32), torch.bfloat16, cuda)
+    n = fn.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fn(*args)
+    assert fn.launches == n

@@ -1,7 +1,8 @@
 """chip_smoke's full-width flash-attention check, on the host: it passes
 an output that differs from the plain version only in summation order and
 bf16 rounding, and fails one that misses a KV tile or rounds p to bf16.
-tools/flash_mutants.py's broken kernels still apply to the kernel source.
+tools/flash_mutants.py's broken kernels still apply to the kernel sources
+(flash and paged attention), and phase 6's reading agrees with its check.
 """
 import sys
 from pathlib import Path
@@ -69,3 +70,27 @@ def test_flash_reading_passes_rounding_and_fails_wrong_outputs(dtype):
 def test_flash_mutants_apply_to_the_kernel_source(name):
     src = (ROOT / chip_smoke.FA_SOURCE).read_text()
     assert flash_mutants.mutate(src, name) != src
+
+
+@pytest.mark.parametrize("name", sorted(flash_mutants.PAGED_MUTANTS))
+def test_paged_mutants_apply_to_the_kernel_source(name):
+    src = (ROOT / chip_smoke.PA_SOURCE).read_text()
+    assert flash_mutants.mutate(src, name) != src
+
+
+@pytest.mark.parametrize("scale", [0.5, 1.0, 1.5, 3.0])
+def test_pa_reading_agrees_with_the_phase_6_check(scale):
+    """`pa_reading`'s share passes 1 exactly where `assert_close` (phase 6's
+    check) raises: |diff| <= tol + tol |want| elementwise."""
+    rng = np.random.default_rng(12)
+    want = torch.from_numpy(rng.standard_normal((4, 8, 32)))
+    tol = 2e-2
+    got = want + scale * tol * (1 + want.abs()) * torch.from_numpy(
+        rng.uniform(-1, 1, want.shape))
+    _, share = chip_smoke.pa_reading(got, want, tol)
+    try:
+        chip_smoke.assert_close(got, want, tol, "reading")
+        raised = False
+    except AssertionError:
+        raised = True
+    assert raised == (share > 1.0), share
