@@ -12,9 +12,16 @@ Phases (each raises on failure; nothing is caught and carried on):
      together;
   3. the CUDA kernel against its plain PyTorch version on the card, all 31
      outputs bit for bit, over the first rounds of the session stream at
-     the paper's width (32 MiB heap, T=16, 8 classes, CAP=1024, C=512);
-  4. the four committed tapes replayed through kind ``fused`` on the card:
-     the reference's committed ``pallas`` digests, counts and telemetry,
+     the paper's width (32 MiB heap, T=16, 8 classes, CAP=1024, C=512),
+     with the batched run-carve refill on and off (both versions take the
+     same setting); the share of core-rounds whose backend took each of
+     the reference's three branches (skip, run-carve, serial walk),
+     computed with the ported helpers on the pre-round state
+     (`tools/heap_mutants.py` shows that the kernel takes the run-carve
+     on just those core-rounds);
+  4. the four committed tapes replayed through kind ``fused`` on the card
+     with the batched refill on and off (``PIM_MALLOC_BATCH_REFILL``): the
+     reference's committed ``pallas`` digests, counts and telemetry,
      conservation residual 0;
   5. the main path: a 512-core session of 64 rounds through
      `heap.step`, its stream made from ``--seed`` (malloc / free / realloc /
@@ -24,7 +31,8 @@ Phases (each raises on failure; nothing is caught and carried on):
      read just after; then the conservation residual of every core,
      kernel and plain-version timings (CUDA events, and the kernel's own
      device time from a torch.profiler trace, over the launches the trace
-     recorded), and the device busy share of a few steps;
+     recorded; the kernel with the batched refill on and off on the same
+     rounds, in turns), and the device busy share of a few steps;
   6. the paged-attention kernels (split and merge) against their plain
      version on the card (fp32 to 2e-5, bf16 to 2e-2, atol = rtol): MHA,
      GQA and MQA at head_dim 32 and 128 with seq_len 0, 1, a page boundary
@@ -37,7 +45,9 @@ Phases (each raises on failure; nothing is caught and carried on):
      and 64 greedy decode steps through `launch.serve.serve`, page ids from
      a ``fused`` PagePool on the card; both kernels' launch counters are
      reset just before and read just after (paged attention 40 x 64, the
-     heap step once per pool round); then the pool's counters, every
+     heap step once per pool round); then the pool's counters (how many
+     threads reached the heap's backend: a round with none takes the
+     skip branch), every
      step's logits finite, the last step's layer-0 attention == the plain
      version, and timings: prefill, decode per step, the paged-attention
      kernels per call (CUDA events; device time from torch.profiler, the
@@ -52,7 +62,9 @@ Phases (each raises on failure; nothing is caught and carried on):
      ``--seed``, log-uniform over 4 KiB - 1 MiB, ~3 % each 0, negative and
      above 2^30) with the counter reset just before and read just after;
      every batch == the plain version bit for bit, the free bytes of every
-     tree == heap minus the blocks served; timings and bound;
+     tree == heap minus the blocks served; timings and bound, and the
+     kernel's time at B=1 (the tree's copy in and out and one walk), which
+     splits its time between the copies and the walk;
   9. the freelist op through `kernels.ops.freelist_op` at the allocator's
      width (16 threads x 512 cores = 8192 thread caches, 8 classes, CAP
      1024: 256 MiB of stacks): 8 chained ops with op in {-1, 0, 1} and
@@ -234,20 +246,29 @@ def geometry(cfg):
                 size_classes=p.size_classes)
 
 
-def phase_kernel_vs_plain(cfg, state, tape, rounds, device):
-    """Kernel and plain version on the same inputs, round by round; the
-    carried state advances through heap.step. Returns max |difference|."""
+def phase_kernel_vs_plain(cfg, state, tape, rounds, device,
+                          batch_refill=True):
+    """Kernel and plain version on the same inputs, round by round, both
+    with `batch_refill`; the carried state advances through heap.step.
+    Returns (max |difference|, core-rounds per backend branch: skip,
+    run-carve, serial)."""
     import torch
     from repro_torch.core import heap
     from repro_torch.kernels import heap_step
     sess = slot_file(tape, device)
     worst = 0
+    branches = [0, 0, 0]
     for r in range(rounds):
         req = sess.request(r)
         leaves = state_args(state)
-        plain = heap_step.protocol_round(*req, *leaves, **geometry(cfg))
+        plain = heap_step.protocol_round(*req, *leaves, **geometry(cfg),
+                                         batch_refill=batch_refill)
         kern = heap_step.fused_heap_step(*req, *(x.clone() for x in leaves),
-                                         **geometry(cfg))
+                                         **geometry(cfg),
+                                         batch_refill=batch_refill)
+        branch = round_branches(cfg, req, plain, leaves[0])
+        for b in range(3):
+            branches[b] += int((branch == b).sum())
         for name, a, b in zip(heap_step.FusedRoundOut._fields, kern, plain):
             if a.shape != b.shape:
                 raise AssertionError(f"round {r}, output {name}: shape "
@@ -259,26 +280,56 @@ def phase_kernel_vs_plain(cfg, state, tape, rounds, device):
                                      f"output {name}: max |diff| {diff}")
         state, resp = heap.step(cfg, state, req)
         sess.record(r, req, resp)
-    return worst
+    return worst, branches
 
 
-def phase_tapes(device):
-    """The committed tapes through kind fused; returns kernel launches."""
+def round_branches(cfg, req, rec, longest):
+    """int32[C]: the backend branch each core's round takes (0 skip, 1
+    run-carve, 2 serial walk), by the ported helpers, from the round's
+    records (which threads need the backend, which bypass) and the
+    pre-round trees."""
+    from repro_torch.kernels import heap_step
+    bypass = rec.m_bypass.bool()
+    need = rec.m_refill.bool() | bypass
+    return heap_step.backend_branch(need, bypass, req.size, longest,
+                                    heap_bytes=cfg.pm.heap_bytes,
+                                    block_bytes=cfg.pm.block_bytes)[0]
+
+
+def shares(branches):
+    n = sum(branches) or 1
+    return ", ".join(f"{k} {100 * v / n:.2f} % ({v})" for k, v in
+                     zip(("skip", "run-carve", "serial"), branches))
+
+
+def phase_tapes(device, batch_refill=True):
+    """The committed tapes through kind fused, the batched refill set by
+    the environment as a user sets it; returns kernel launches."""
+    import os
     from repro_torch.kernels import heap_step
     from repro_torch.workloads import replay, trace
     before = heap_step.fused_heap_step.launches
     total_rounds = 0
-    for name in TAPES:
-        tape = trace.Trace.load(str(ROOT / "benchmarks" / "tapes" /
-                                    f"{name}.json"))
-        _, _, rep = replay.replay(tape, "fused", device=device)
-        errs = replay.check_trace(tape, results={"fused": rep})
-        if errs:
-            raise AssertionError(f"tape {name}: " + "; ".join(errs))
-        total_rounds += tape.rounds
-        print(f"tape {name}: {tape.rounds} rounds, ok={rep['ok_ops']}/"
-              f"{rep['ops']}, digest_full {rep['digest_full'][:16]}... "
-              f"== expect[pallas], residual 0")
+    env = os.environ.get("PIM_MALLOC_BATCH_REFILL")
+    os.environ["PIM_MALLOC_BATCH_REFILL"] = "1" if batch_refill else "0"
+    try:
+        for name in TAPES:
+            tape = trace.Trace.load(str(ROOT / "benchmarks" / "tapes" /
+                                        f"{name}.json"))
+            _, _, rep = replay.replay(tape, "fused", device=device)
+            errs = replay.check_trace(tape, results={"fused": rep})
+            if errs:
+                raise AssertionError(f"tape {name}: " + "; ".join(errs))
+            total_rounds += tape.rounds
+            print(f"tape {name} (batch_refill {batch_refill}): "
+                  f"{tape.rounds} rounds, ok={rep['ok_ops']}/{rep['ops']}, "
+                  f"digest_full {rep['digest_full'][:16]}... == "
+                  f"expect[pallas], residual 0")
+    finally:
+        if env is None:
+            del os.environ["PIM_MALLOC_BATCH_REFILL"]
+        else:
+            os.environ["PIM_MALLOC_BATCH_REFILL"] = env
     launched = heap_step.fused_heap_step.launches - before
     if device.type == "cuda" and launched != total_rounds:
         raise AssertionError(f"tape replay launched the kernel {launched} "
@@ -321,30 +372,33 @@ def round_ops(rec, cfg, cores):
 
 
 def time_kernel(cfg, fresh, reqs):
-    """Times of the kernel over the recorded rounds, each pass from a fresh
-    copy of the initial state (the kernel works in place).
+    """Times of the kernel over the recorded rounds, with the batched
+    refill on and off, each pass from a fresh copy of the initial state
+    (the kernel works in place).
 
-    Pass 1 (untimed, also the warm-up) keeps every round's records. Pass 2
-    launches back to back with a CUDA event between launches and keeps no
-    output, so the caching allocator recycles the records' memory instead
-    of allocating (a device allocation stalls the host inside the timed
-    window). Pass 3 repeats pass 2 under torch.profiler for the kernel's own
-    device time, without the host's enqueue gaps, averaged over the
-    launches the trace recorded. Returns (event ms per round, per-round
-    event ms, profiler device ms per launch or None, recorded launches,
-    pass 1's records)."""
+    Pass 1 (untimed, also the warm-up) keeps every round's records. Then
+    passes launch back to back with a CUDA event between launches and keep
+    no output, so the caching allocator recycles the records' memory
+    instead of allocating (a device allocation stalls the host inside the
+    timed window): on, off, off, on. Then one pass of each setting under
+    torch.profiler for the kernel's own device time, without the host's
+    enqueue gaps, averaged over the launches the trace recorded. Returns
+    ({batch_refill: (event ms per round over its two passes, per-round
+    event ms of both passes, profiler device ms per launch or None,
+    recorded launches)}, pass 1's records)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import heap_step
 
-    def run(keep, events=None):
+    def run(keep, refill, events=None):
         leaves = [x.clone() for x in state_args(fresh)]
         torch.cuda.synchronize()
         recs = []
         for r, req in enumerate(reqs):
             if events:
                 events[r].record()
-            out = heap_step.fused_heap_step(*req, *leaves, **geometry(cfg))
+            out = heap_step.fused_heap_step(*req, *leaves, **geometry(cfg),
+                                            batch_refill=refill)
             if keep:
                 recs.append(out)  # records are fresh tensors every launch
         if events:
@@ -352,18 +406,27 @@ def time_kernel(cfg, fresh, reqs):
         torch.cuda.synchronize()
         return recs
 
-    recs = run(keep=True)
-    events = [torch.cuda.Event(enable_timing=True)
-              for _ in range(len(reqs) + 1)]
-    run(keep=False, events=events)
-    ms = [events[r].elapsed_time(events[r + 1]) for r in range(len(reqs))]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run(keep=False)
-    dev_us, seen = kernel_events(prof)
-    dev_ms = dev_us / 1e3 / seen if seen else None
-    return (events[0].elapsed_time(events[-1]) / len(reqs), ms, dev_ms, seen,
-            recs)
+    recs = run(keep=True, refill=True)
+    run(keep=False, refill=False)
+    passes = {True: [], False: []}
+    for refill in (True, False, False, True):
+        events = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(len(reqs) + 1)]
+        run(keep=False, refill=refill, events=events)
+        passes[refill].append(
+            (events[0].elapsed_time(events[-1]) / len(reqs),
+             [events[r].elapsed_time(events[r + 1])
+              for r in range(len(reqs))]))
+    out = {}
+    for refill in (True, False):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run(keep=False, refill=refill)
+        dev_us, seen = kernel_events(prof)
+        out[refill] = (sum(p[0] for p in passes[refill]) / 2,
+                       [ms for p in passes[refill] for ms in p[1]],
+                       dev_us / 1e3 / seen if seen else None, seen)
+    return out, recs
 
 
 def kernel_events(prof, name="heap_step_kernel"):
@@ -450,18 +513,25 @@ def run(seed, device, cores=CORES, rounds=ROUNDS):
     result = {"cores": C, "threads": T, "rounds": R, "seed": seed}
 
     # ---- 3: kernel against plain version, full width ----------------------
-    t0 = time.perf_counter()
     fresh = heap.init(cfg, num_cores=C, device=device)
     state_mib = sum(x.numel() * 4 for x in state_args(fresh)) / 2 ** 20
-    worst = phase_kernel_vs_plain(cfg, clone_state(fresh), tape,
-                                  CHECK_ROUNDS, device)
-    print(f"kernel == plain version, all 31 outputs, {CHECK_ROUNDS} "
-          f"rounds at C={C} T={T} heap={cfg.heap_bytes >> 20} MiB "
-          f"({state_mib:.0f} MiB of state): max |diff| {worst} "
-          f"[{time.perf_counter() - t0:.1f} s]")
+    worst, branches = 0, {}
+    for refill in (True, False):
+        t0 = time.perf_counter()
+        w, branches[refill] = phase_kernel_vs_plain(
+            cfg, clone_state(fresh), tape, CHECK_ROUNDS, device,
+            batch_refill=refill)
+        worst = max(worst, w)
+        print(f"kernel == plain version, all 31 outputs, {CHECK_ROUNDS} "
+              f"rounds at C={C} T={T} heap={cfg.heap_bytes >> 20} MiB "
+              f"({state_mib:.0f} MiB of state), batch_refill {refill}: max "
+              f"|diff| {w} [{time.perf_counter() - t0:.1f} s]")
+    print(f"backend branch of the {C * CHECK_ROUNDS} core-rounds: "
+          f"{shares(branches[True])}")
 
     # ---- 4: committed tapes through the kernel ----------------------------
-    tape_launches = phase_tapes(device)
+    tape_launches = sum(phase_tapes(device, batch_refill=refill)
+                        for refill in (True, False))
     print(f"tapes: kernel launched {tape_launches} times")
 
     # ---- 5: the main path, counters reset just before ---------------------
@@ -496,8 +566,9 @@ def run(seed, device, cores=CORES, rounds=ROUNDS):
           f"step {1e3 * step_s / R:.3f} ms/round, "
           f"{ops / step_s:.4g} allocator ops/s")
 
-    kernel_ms, round_ms, device_ms, seen, recs = time_kernel(cfg, fresh,
-                                                             reqs)
+    timed, recs = time_kernel(cfg, fresh, reqs)
+    kernel_ms, round_ms, device_ms, seen = timed[True]
+    off_ms, _, off_device_ms, off_seen = timed[False]
     plain_rounds = min(PLAIN_ROUNDS, R)
     plain_ms = time_plain(cfg, fresh, reqs[:plain_rounds])
     nbytes = sum(round_bytes(rc, cfg, C) for rc in recs) / R
@@ -516,6 +587,10 @@ def run(seed, device, cores=CORES, rounds=ROUNDS):
           f"rounds; bound {max(bytes_ms, ops_ms):.6f} ms "
           f"({nbytes:.0f} B, {nops:.0f} int ops per round); longest "
           f"per-core chain {steps} LRU-and-tree steps in one round")
+    print(f"batch_refill off, same rounds, in turns with on: kernel "
+          f"{off_ms:.4f} ms/round (CUDA events), device time "
+          f"{off_device_ms} ms/launch over {off_seen} launches recorded "
+          f"(on: {kernel_ms:.4f} / {device_ms})")
     busy_ms, wall_ms, per_round, seen_steps, top = profile_steps(
         cfg, fresh, reqs[:PROFILE_ROUNDS])
     if busy_ms is None:
@@ -536,6 +611,9 @@ def run(seed, device, cores=CORES, rounds=ROUNDS):
                   profile_top=[list(t) for t in top],
                   kernel_ms=kernel_ms, kernel_round_ms=round_ms,
                   kernel_device_ms=device_ms, kernel_device_events=seen,
+                  kernel_off_ms=off_ms, kernel_off_device_ms=off_device_ms,
+                  kernel_off_device_events=off_seen,
+                  check_branches={str(k): v for k, v in branches.items()},
                   plain_ms=plain_ms,
                   bytes_per_round=nbytes, ops_per_round=nops,
                   bytes_bound_ms=bytes_ms, ops_bound_ms=ops_ms,
@@ -729,6 +807,17 @@ def phase_serve(seed, device):
     torch.cuda.synchronize()
     pa_launches = pa.paged_attention.launches
     heap_launches = heap_step.fused_heap_step.launches
+    # the pool's one core counts every thread that reached the backend (a
+    # refill or a bypass); a round with none takes the skip branch
+    backend_ops = {k: st["front_misses"] + st["bypass"] for k, st in
+                   (("prefill", res.prefill_stats), ("all", res.stats))}
+    print(f"serve: threads that reached the heap's backend in the "
+          f"{res.pool_rounds} pool rounds: {backend_ops['all']} "
+          f"({backend_ops['prefill']} in the {B} prefill rounds); "
+          + ("every pool round took the skip branch"
+             if backend_ops["all"] == 0 else
+             f"at most {min(backend_ops['all'], res.pool_rounds)} rounds "
+             f"took the run-carve or the serial walk"))
     if pa_launches != cfg.n_layers * steps:
         raise AssertionError(f"serve launched the paged-attention kernel "
                              f"{pa_launches} times, want {cfg.n_layers} x "
@@ -866,6 +955,7 @@ def phase_serve(seed, device):
     result = dict(
         arch=cfg.name, n_params=n_params, init_s=init_s, batch=B,
         prompt=S, decode_steps=steps, pool_rounds=res.pool_rounds,
+        pool_backend_ops=backend_ops["all"],
         pool_stats=st, pa_launches=pa_launches, heap_launches=heap_launches,
         peak_gib=peak_gib, prefill_ms=1e3 * pf_s,
         decode_ms_per_step=1e3 * dec_s / steps,
@@ -1030,19 +1120,28 @@ def phase_buddy(seed, device, cores=CORES, batches=BUDDY_BATCHES,
     nops = INT_STEP_OPS * steps / batches
     bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
     ops_ms = 1e3 * nops / INT_OPS_PER_S
+    # one request per core: the copy in and out and one walk (not counted)
+    one = sizes[0][:, :1].contiguous()
+    b1_ms, _, prof1 = time_calls(
+        lambda: ops.buddy_alloc_batch(tree0, one, **kw), n=20)
+    b1_dev_ms, b1_seen = device_ms(prof1, BUDDY_KERNEL)
     print(f"buddy kernel {kern_ms:.5f} ms/launch (CUDA events, back to "
           f"back), device time {dev_ms} ms/launch over {seen} launches "
           f"recorded; plain version {plain_ms:.3f} ms/launch; bound "
           f"{max(bytes_ms, ops_ms):.6f} ms ({nbytes} B; {nops:.0f} int ops "
           f"over {steps / batches:.0f} walk steps a launch, at most "
           f"{batch * 2 * cfg.depth} a core); no single PyTorch call "
-          f"computes it")
+          f"computes it; at B=1 (copy in, one walk, copy out) "
+          f"{b1_ms:.5f} ms/launch (CUDA events), device time {b1_dev_ms} "
+          f"ms/launch over {b1_seen} launches recorded")
     result = dict(cores=cores, batches=batches, batch=batch,
                   n_nodes=cfg.n_nodes, served=served, failed=failed,
                   launches=launches, kernel_ms=kern_ms,
                   kernel_device_ms=dev_ms, kernel_device_events=seen,
                   plain_ms=plain_ms, bytes=nbytes, int_ops=nops,
-                  walk_steps=steps, bytes_ms=bytes_ms, ops_ms=ops_ms)
+                  walk_steps=steps, bytes_ms=bytes_ms, ops_ms=ops_ms,
+                  b1_ms=b1_ms, b1_device_ms=b1_dev_ms,
+                  b1_device_events=b1_seen)
     entry = {
         "name": "buddy_alloc_batch", "route": "cuda", "source": BUDDY_SOURCE,
         "replaces": BUDDY_REPLACES, "launches": launches, "max_abs_err": 0,

@@ -38,6 +38,11 @@ class SystemConfig:
     pm: PimMallocConfig = None
     bc: BuddyCacheConfig = BuddyCacheConfig()
     dpu: DPUCost = DPUCost()
+    # the fused round's batched run-carve refill (kind ``fused``). None
+    # defers to PIM_MALLOC_BATCH_REFILL (default on); False forces the
+    # serial walk. Bitwise-identical either way: a speed knob, not a
+    # semantic one.
+    kernel_batch_refill: bool | None = None
 
     def __post_init__(self):
         heap._ensure_backends()
@@ -200,7 +205,7 @@ def _step_fused(cfg: SystemConfig, st: SystemState, req: AllocRequest):
         req.op, req.size, req.ptr, al.buddy.longest, al.counts, al.stacks,
         al.block_cls, al.block_free, al.big_log2, ca.tags, ca.last_used,
         ca.clock, heap_bytes=pmc.heap_bytes, block_bytes=pmc.block_bytes,
-        size_classes=pmc.size_classes)
+        size_classes=pmc.size_classes, batch_refill=cfg.kernel_batch_refill)
 
     b = lambda x: x.to(torch.bool)  # noqa: E731
     m_hit, m_refill, m_bypass, m_okb = (b(out.m_hit), b(out.m_refill),

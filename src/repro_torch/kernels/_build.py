@@ -27,7 +27,7 @@ _VP, _I = ctypes.c_void_p, ctypes.c_int
 # the C signature of each kernel's launcher: (name, argtypes)
 _SIGNATURES = {
     "heap_step": ("heap_step_launch",
-                  [_VP] * 12 + [ctypes.POINTER(_I), _VP] + [_I] * 7 + [_VP]),
+                  [_VP] * 12 + [ctypes.POINTER(_I), _VP] + [_I] * 8 + [_VP]),
     "paged_attention": ("paged_attention_launch",
                         [_VP] * 8 + [_I] * 10 + [_VP]),
     "buddy_traverse": ("buddy_traverse_launch", [_VP] * 4 + [_I] * 5 + [_VP]),

@@ -121,3 +121,79 @@ def buddy_alloc_batch_kernel(tree, sizes, *, heap_bytes: int,
 
 
 buddy_alloc_batch_kernel.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# run-carve helpers of the fused round's batched refill
+# (`heap_step.protocol_round`, ``batch_refill=True``): the counterparts of
+# the reference's `leftmost_block`, `run_blocks_free` and `carve_run`, on
+# an explicit leading core axis (trees [C, n_nodes], per-core b0 and n [C]).
+# Every gather is clamped and every write outside the tree lands in a park
+# column, as the reference's clipped gathers and drop-mode scatters do.
+# ---------------------------------------------------------------------------
+def leftmost_block(tree, *, heap_bytes: int, block_bytes: int, depth: int):
+    """[C] block index the serial leftmost-fit descent would carve next.
+
+    The descent of `core.buddy.alloc` at block granularity (the same
+    ``tree[left] >= block_bytes`` rule), so a run carved from here lands on
+    the leaves the serial walks would. Garbage where a tree has no free
+    block: callers gate on ``tree[:, 1] >= block_bytes``."""
+    nb = heap_bytes // block_bytes
+    node = torch.ones(tree.shape[0], dtype=torch.int32, device=tree.device)
+    for _ in range(depth):
+        left = 2 * node
+        go_left = tree.gather(1, left.long()[:, None])[:, 0] >= block_bytes
+        node = torch.where(go_left, left, left + 1)
+    return node - nb
+
+
+def run_blocks_free(tree, b0, n, *, window: int, heap_bytes: int,
+                    block_bytes: int):
+    """[C] bool: blocks ``b0 .. b0+n-1`` of each core are all free
+    (``0 <= n <= window``, ``b0 >= 0``).
+
+    A leaf may carry a stale ``longest`` after an ancestor was carved as a
+    bigger chunk, so a block is free iff the min over its leaf's whole root
+    path is >= ``block_bytes``; ancestors are clamped to the last node."""
+    nb = heap_bytes // block_bytes
+    depth = nb.bit_length() - 1
+    dev = tree.device
+    k = torch.arange(window, dtype=torch.int32, device=dev)
+    leaves = nb + b0[:, None] + k[None, :]
+    shifts = torch.arange(depth + 1, dtype=torch.int32, device=dev)
+    anc = torch.clamp(leaves[:, :, None] >> shifts, max=2 * nb - 1)
+    vals = tree.gather(1, anc.reshape(tree.shape[0], -1).long())
+    free = vals.reshape(anc.shape).amin(-1) >= block_bytes
+    return torch.where(k[None, :] < n[:, None], free, True).all(1)
+
+
+def carve_run(tree, b0, n, *, window: int, heap_bytes: int,
+              block_bytes: int):
+    """Carve blocks ``b0 .. b0+n-1`` of each core (all known free) in one
+    pass; returns the new trees, the input left as it was.
+
+    Bitwise-equal to ``n`` serial leftmost walks at block granularity:
+    the leaves are zeroed, then level by level every parent in
+    ``[p_lo, p_hi]`` (at most ``window + 1`` of them) is set to the max of
+    its children, the value the last serial up-walk through it writes."""
+    C, n_nodes = tree.shape
+    nb = heap_bytes // block_bytes
+    depth = nb.bit_length() - 1
+    dev = tree.device
+    park = torch.full((C, window + 1), n_nodes, dtype=torch.int32,
+                      device=dev)
+    t = torch.cat([tree, tree.new_zeros((C, 1))], 1)
+    k = torch.arange(window, dtype=torch.int32, device=dev)
+    leaf = nb + b0[:, None] + k[None, :]
+    keep = (k[None, :] < n[:, None]) & (leaf < n_nodes)
+    t.scatter_(1, torch.where(keep, leaf, park[:, :window]).long(), 0)
+    w = torch.arange(window + 1, dtype=torch.int32, device=dev)
+    for d in range(1, depth + 1):
+        p_lo = (nb + b0) >> d
+        p_hi = (nb + b0 + n - 1) >> d
+        win = p_lo[:, None] + w[None, :]
+        child = torch.clamp(2 * win, max=n_nodes - 2).long()
+        newval = torch.maximum(t.gather(1, child), t.gather(1, child + 1))
+        idx = torch.where((win <= p_hi[:, None]) & (win < n_nodes), win, park)
+        t.scatter_(1, idx.long(), newval)
+    return t[:, :n_nodes].contiguous()

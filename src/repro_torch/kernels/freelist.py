@@ -119,3 +119,25 @@ def freelist_op_kernel(stacks, counts, op, cls, ptr_in):
 
 
 freelist_op_kernel.launches = 0
+
+
+def bulk_refill(stacks, counts, sel, cls, rows, new_counts):
+    """Same-round freelist refill of many threads at once (the fused
+    round's batched refill); the counterpart of the reference's
+    `bulk_refill`, over any leading axes.
+
+    For every thread with ``sel``: ``stacks[..., cls, :width]`` becomes
+    ``rows`` (``width = rows.shape[-1]``) and ``counts[..., cls]`` becomes
+    ``new_counts``; other threads, classes and the stack slots past
+    ``width`` are left as they were. Returns new (stacks, counts)."""
+    NC, CAP = stacks.shape[-2:]
+    width = rows.shape[-1]
+    pick = sel[..., None] & (
+        torch.arange(NC, dtype=torch.int32, device=stacks.device)
+        == cls[..., None])
+    lane = torch.arange(CAP, device=stacks.device) < width
+    rows_cap = torch.nn.functional.pad(rows, (0, CAP - width))
+    stacks = torch.where(pick[..., None] & lane, rows_cap[..., None, :],
+                         stacks)
+    counts = torch.where(pick, new_counts[..., None], counts)
+    return stacks, counts

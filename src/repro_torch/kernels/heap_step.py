@@ -17,19 +17,25 @@ point). One round runs, for every core:
 core axis ``[C, ...]`` with masks (loops only over threads and tree depth).
 `fused_heap_step` is the wrapper the main path calls: for CUDA tensors it
 launches ``csrc/heap_step.cu`` (one CTA of 32 threads per core), for CPU
-tensors it runs `protocol_round`. Both are bit-for-bit equal to the
-reference's serial walk (the batched run-carve fast path of the reference
-is a bitwise-equal speed path that is not ported yet).
+tensors it runs `protocol_round`. Both follow the reference's batched
+refill (``batch_refill``, default on): a core whose backend ops all
+allocate one block from a free run is served by one run-carve instead of
+the serial walks (`backend_branch` decides, as the reference's three-way
+switch). Both settings are bit-for-bit equal to the reference's round.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+import os
 from typing import NamedTuple
 
 import torch
 
 from ..core.buddy import ilog2, next_pow2
 from ..core.buddy_cache import NODES_PER_WORD
+from . import buddy_traverse as bt
+from . import freelist as fl
 
 INVALID = -1
 N_STATE = 9     # leading FusedRoundOut fields that are state leaves
@@ -175,16 +181,52 @@ def _buddy_free(longest, lru, ptr, lg, big, *, heap_bytes, depth):
     return lvu, hh, mm
 
 
+def backend_branch(need, bypass, msizes, longest, *, heap_bytes: int,
+                   block_bytes: int):
+    """Which backend path each core's round takes, as the reference's
+    three-way switch decides it: int32[C] 0 = skip (no backend op), 1 =
+    run-carve (every needy thread allocates exactly one block, and the run
+    of blocks from the leftmost free one is free), 2 = the serial walk.
+    Returns (branch, b0, n_need, rank): the run's first block, the number
+    of needy threads and each thread's rank among them (mutex order)."""
+    nb = heap_bytes // block_bytes
+    depth = nb.bit_length() - 1
+    T = need.shape[-1]
+    need_i = need.to(torch.int32)
+    n_need = need_i.sum(1, dtype=torch.int32)
+    rank = torch.cumsum(need_i, 1, dtype=torch.int32) - need_i
+    alloc_size = torch.where(
+        bypass, next_pow2(torch.clamp(msizes, min=block_bytes)),
+        torch.full_like(msizes, block_bytes))
+    all_block = torch.where(need, alloc_size == block_bytes, True).all(1)
+    b0 = bt.leftmost_block(longest, heap_bytes=heap_bytes,
+                           block_bytes=block_bytes, depth=depth)
+    run_ok = bt.run_blocks_free(longest, b0, n_need, window=T,
+                                heap_bytes=heap_bytes,
+                                block_bytes=block_bytes)
+    eligible = (all_block & (longest[:, 1] >= block_bytes)
+                & (b0 + n_need <= nb) & run_ok)
+    branch = torch.where(n_need == 0, 0, torch.where(eligible, 1, 2))
+    return branch.to(torch.int32), b0, n_need, rank
+
+
 def protocol_round(op, size, ptr, longest, counts, stacks, block_cls,
                    block_free, big_log2, tags, last_used, clock, *,
-                   heap_bytes: int, block_bytes: int,
-                   size_classes: tuple) -> FusedRoundOut:
+                   heap_bytes: int, block_bytes: int, size_classes: tuple,
+                   batch_refill: bool = True) -> FusedRoundOut:
     """Plain PyTorch version of the fused round, over ``[C, ...]`` leaves.
 
     Takes op/size/ptr int32[C, T], the state leaves (longest [C, 2nb],
     counts [C, T, NC], stacks [C, T, NC, CAP], block_cls / block_free /
     big_log2 [C, nb], tags / last_used [C, E], clock [C]) and returns new
     tensors; the inputs are left unchanged.
+
+    ``batch_refill`` follows the reference's three-way switch per core
+    (`backend_branch`): a core whose round is eligible is served by one
+    run-carve (`buddy_traverse.carve_run`), a bulk freelist refill
+    (`freelist.bulk_refill`) and the serial walks' exact LRU access
+    sequence, instead of T serial walks. ``False`` always walks. Both are
+    bitwise-identical.
     """
     C, T = op.shape
     dev = op.device
@@ -196,6 +238,7 @@ def protocol_round(op, size, ptr, longest, counts, stacks, block_cls,
     max_sub = block_bytes // min(size_classes)
     max_class = max(size_classes)
     log2_min_class = min(size_classes).bit_length() - 1
+    log2_block = block_bytes.bit_length() - 1  # ilog2 of one block
     class_sizes = torch.tensor(size_classes, dtype=i32, device=dev)
     longest, counts, stacks = longest.clone(), counts.clone(), stacks.clone()
     block_cls, big_log2 = block_cls.clone(), big_log2.clone()
@@ -257,13 +300,21 @@ def protocol_round(op, size, ptr, longest, counts, stacks, block_cls,
     bypass = m_active & (msizes > max_class) & ~too_big
     need = refill | bypass
 
-    # ---- malloc phase B: serial backend (mutex order = thread order) ------
+    # ---- malloc phase B: the backend (mutex order = thread order) ---------
+    if batch_refill:
+        branch, b0, n_need, rank = backend_branch(
+            need, bypass, msizes, longest, heap_bytes=heap_bytes,
+            block_bytes=block_bytes)
+    else:
+        branch = torch.full_like(zc, 2)
+    fast = branch == 1
     m_ptr_b, m_bpos, m_okb = z - 1, z - 1, z.clone()
     m_lvd, m_lvu, m_hits, m_miss = z.clone(), z.clone(), z.clone(), z.clone()
     border = zc.clone()
     sub_idx = torch.arange(max_sub, dtype=i32, device=dev)
+    serial_need = need & (branch == 2)[:, None]
     for t in range(T):
-        need_t = need[:, t]
+        need_t = serial_need[:, t]
         if not bool(need_t.any()):
             continue  # no core uses the backend on this thread: a no-op
         refill_t, bypass_t = refill[:, t], bypass[:, t]
@@ -305,6 +356,54 @@ def protocol_round(op, size, ptr, longest, counts, stacks, block_cls,
         m_lvu[:, t] = torch.where(need_t, lvu, zc)
         m_hits[:, t], m_miss[:, t] = hh, mm
         border += need_t.to(i32)
+    if bool(fast.any()):
+        # the run-carve cores: needy thread k (in mutex order) carves block
+        # b0 + k; the serial walks' LRU accesses are replayed exactly: per
+        # needy thread the root, the descent to its leaf, the up-walk
+        blocks = b0[:, None] + rank
+        leaf = nb + blocks
+        fneed = need & fast[:, None]
+        for t in range(T):
+            act = fneed[:, t]
+            if not bool(act.any()):
+                continue
+            path = ([torch.ones_like(zc)]
+                    + [leaf[:, t] >> s for s in range(depth - 1, -1, -1)]
+                    + [leaf[:, t] >> s for s in range(1, depth + 1)])
+            hh, mm = zc.clone(), zc.clone()
+            for node in path:
+                h, m = lru.access(torch.where(act, node, minus1))
+                hh, mm = hh + h, mm + m
+            m_hits[:, t] = torch.where(act, hh, m_hits[:, t])
+            m_miss[:, t] = torch.where(act, mm, m_miss[:, t])
+        carved = bt.carve_run(longest, b0, n_need, window=T,
+                              heap_bytes=heap_bytes, block_bytes=block_bytes)
+        longest = torch.where(fast[:, None], carved, longest)
+        off = blocks * block_bytes
+        csize = csize_of(c)
+        sub = block_bytes // csize
+        rows = torch.where(sub_idx < sub[..., None],
+                           off[..., None] + sub_idx * csize[..., None],
+                           INVALID)
+        do_refill = refill & fast[:, None]
+        stacks, counts = fl.bulk_refill(stacks, counts, do_refill, c, rows,
+                                        sub - 1)
+        do_bypass = bypass & fast[:, None]
+        for t in range(T):
+            b = torch.where(fneed[:, t], blocks[:, t], zc)
+            _put(block_cls, b, c[:, t], do_refill[:, t])
+            _put(bfree, b, sub[:, t] - 1, do_refill[:, t])
+            _put(big_log2, b, torch.full_like(zc, log2_block),
+                 do_bypass[:, t])
+        fc = fast[:, None]
+        m_ptr_b = torch.where(
+            fc, torch.where(refill, off + (sub - 1) * csize,
+                            torch.where(bypass, off, z - 1)), m_ptr_b)
+        m_bpos = torch.where(fc, torch.where(need, rank, z - 1), m_bpos)
+        m_okb = torch.where(fc, need.to(i32), m_okb)
+        walked = torch.where(need, z + depth, z)  # to a leaf and back
+        m_lvd = torch.where(fc, walked, m_lvd)
+        m_lvu = torch.where(fc, walked, m_lvu)
     mptrs = torch.where(hit, ptr_a, m_ptr_b)
     mok = m_active & (mptrs >= 0)
 
@@ -381,10 +480,27 @@ def _check_leaves(op, state, *, T, nb, E):
         raise ValueError("counts/stacks must be [C, T, NC] / [C, T, NC, CAP]")
 
 
+def batch_refill_default() -> bool:
+    """The batched refill's default, from ``PIM_MALLOC_BATCH_REFILL`` (on
+    unless it is 0, false or off), as the reference resolves it."""
+    return os.environ.get("PIM_MALLOC_BATCH_REFILL", "1").lower() not in (
+        "0", "false", "off")
+
+
+@functools.lru_cache(maxsize=None)
+def _launch_geometry(heap_bytes: int, block_bytes: int, size_classes: tuple):
+    """What a launch needs that depends on the geometry alone: (nb, the
+    smallest stack capacity, the class sizes as a ctypes array). The class
+    sizes go to the kernel by value (a host array): no per-round
+    host-to-device copy, which would synchronise the stream."""
+    csizes = (ctypes.c_int * len(size_classes))(*size_classes)
+    return heap_bytes // block_bytes, block_bytes // min(size_classes), csizes
+
+
 def fused_heap_step(op, size, ptr, longest, counts, stacks, block_cls,
                     block_free, big_log2, tags, last_used, clock, *,
-                    heap_bytes: int, block_bytes: int,
-                    size_classes: tuple) -> FusedRoundOut:
+                    heap_bytes: int, block_bytes: int, size_classes: tuple,
+                    batch_refill: bool | None = None) -> FusedRoundOut:
     """One fused protocol round for C cores (clock is int32[C]).
 
     **Updates the nine state tensors in place**, on either device: the
@@ -395,14 +511,20 @@ def fused_heap_step(op, size, ptr, longest, counts, stacks, block_cls,
     needs.) For CUDA tensors this launches the hand-written kernel
     (``csrc/heap_step.cu``, one CTA per core); for CPU tensors it runs the
     plain `protocol_round` and copies its state back into the inputs. Any
-    other device raises. `fused_heap_step.launches` counts kernel launches.
+    other device raises. ``batch_refill`` (None: `batch_refill_default`)
+    chooses between the run-carve and the serial walk inside either
+    version; both give the same outputs. `fused_heap_step.launches` counts
+    kernel launches.
     """
+    if batch_refill is None:
+        batch_refill = batch_refill_default()
     state = (longest, counts, stacks, block_cls, block_free, big_log2, tags,
              last_used, clock)
     if op.device.type == "cpu":
         out = protocol_round(op, size, ptr, *state, heap_bytes=heap_bytes,
                              block_bytes=block_bytes,
-                             size_classes=size_classes)
+                             size_classes=size_classes,
+                             batch_refill=batch_refill)
         for dst, src in zip(state, out[:N_STATE]):
             dst.copy_(src)
         return FusedRoundOut(*state, *out[N_STATE:])
@@ -410,20 +532,18 @@ def fused_heap_step(op, size, ptr, longest, counts, stacks, block_cls,
         raise ValueError(f"fused_heap_step runs on cuda or cpu, not "
                          f"{op.device}")
     C, T = op.shape
-    nb = heap_bytes // block_bytes
+    nb, max_sub, csizes = _launch_geometry(heap_bytes, block_bytes,
+                                           tuple(size_classes))
     E = tags.shape[-1]
     if T > 32 or E > 32:
         raise ValueError(f"the kernel maps threads and cache entries onto "
                          f"one warp: T={T}, E={E} must be <= 32")
     _check_leaves(op, dict(zip(FusedRoundOut._fields, state), op=op,
                            size=size, ptr=ptr), T=T, nb=nb, E=E)
-    if stacks.shape[-1] < block_bytes // min(size_classes):
+    if stacks.shape[-1] < max_sub:
         raise ValueError("stack capacity below one carved block")
     from . import _build
     lib = _build.load("heap_step")
-    # the class sizes go to the kernel by value (a host array): no per-round
-    # host-to-device copy, which would synchronise the stream
-    csizes = (ctypes.c_int * len(size_classes))(*size_classes)
     rec = torch.empty((N_RECORDS, C, T), dtype=torch.int32, device=op.device)
     vp = ctypes.c_void_p
     err = lib.heap_step_launch(
@@ -432,8 +552,8 @@ def fused_heap_step(op, size, ptr, longest, counts, stacks, block_cls,
         vp(block_cls.data_ptr()), vp(block_free.data_ptr()),
         vp(big_log2.data_ptr()), vp(tags.data_ptr()),
         vp(last_used.data_ptr()), vp(clock.data_ptr()), csizes,
-        vp(rec.data_ptr()), C, T, len(size_classes), stacks.shape[-1], E,
-        heap_bytes, block_bytes,
+        vp(rec.data_ptr()), C, T, len(csizes), stacks.shape[-1], E,
+        heap_bytes, block_bytes, int(bool(batch_refill)),
         vp(torch.cuda.current_stream(op.device).cuda_stream))
     if err != 0:
         raise RuntimeError(f"heap_step kernel launch failed: CUDA error {err}")

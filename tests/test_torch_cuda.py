@@ -169,24 +169,105 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("threads,heap_bytes", [(T, HEAP), (16, 1 << 20)])
-def test_kernel_matches_plain_on_card(cuda, threads, heap_bytes):
+@pytest.mark.parametrize("batch_refill", [True, False])
+@pytest.mark.parametrize("threads,heap_bytes", [
+    (T, HEAP), (16, 1 << 20),  # trees of 7 and 9 levels
+    (16, 1 << 25)])            # 14 levels: the paper's 32 MiB heap
+def test_kernel_matches_plain_on_card(cuda, threads, heap_bytes,
+                                      batch_refill):
     """The kernel against the plain version on the card, bit for bit, on
-    the mixed stream; every path of the round is reached."""
+    the mixed stream, with the batched refill on and off; every path of
+    the round is reached. At 32 MiB the walks are the paper's depth:
+    descents, up-walks and big frees of 4 and 8 KiB blocks run through all
+    14 levels of the tree."""
     def run_kernel(args):
         ts = [torch.from_numpy(np.array(a)).to(cuda) for a in args]
-        return ths.fused_heap_step(*ts, **geom(heap_bytes))
+        return ths.fused_heap_step(*ts, **geom(heap_bytes),
+                                   batch_refill=batch_refill)
 
     def run_plain(*args):
         ts = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
               for a in args]
-        return ths.protocol_round(*ts, **geom(heap_bytes))
+        return ths.protocol_round(*ts, **geom(heap_bytes),
+                                  batch_refill=batch_refill)
 
     launches = ths.fused_heap_step.launches
     tally = drive(run_plain, run_kernel, rounds=30, seed=5, threads=threads,
                   heap_bytes=heap_bytes)
     assert ths.fused_heap_step.launches == launches + 30
     assert tally["free_big"] and tally["refill"] and tally["realloc_moved"]
+
+
+def test_kernel_takes_every_backend_branch_on_card(cuda, monkeypatch):
+    """Crafted rounds through `heap.step` (kind fused) on the card with
+    the batched refill on and off, against the plain version's heaps on
+    the host: an all-hit round (skip), block bypasses and class refills
+    (run-carve of both flavours, and mixed), an odd bypass class (serial
+    walk), backend frees. Responses and state equal after every round, and
+    a count of the branches the host's batched round took (the kernel's
+    outputs equal it bit for bit) shows every branch, the run-carve of
+    each flavour on every core."""
+    from repro_torch import convert
+
+    def heaps(device):
+        return [heap.MultiCoreHeap(
+            system.SystemConfig(
+                kind="fused", heap_bytes=HEAP, num_threads=T,
+                pm=pim_malloc.PimMallocConfig(heap_bytes=HEAP, num_threads=T,
+                                              cap=CAP),
+                kernel_batch_refill=b), num_cores=C, device=device)
+            for b in (True, False)]
+
+    card, host = heaps(cuda), heaps("cpu")
+    kinds = {}
+    real = ths.backend_branch
+
+    def spy(need, bypass, msizes, longest, **kw):
+        out = real(need, bypass, msizes, longest, **kw)
+        if longest.device.type == "cpu":
+            refill = need & ~bypass
+            for c, b in enumerate(out[0].tolist()):
+                kind = ("skip", None, "serial")[b] if b != 1 else {
+                    (True, False): "carve-refill",
+                    (False, True): "carve-bypass"}.get(
+                    (bool(refill[c].any()), bool(bypass[c].any())),
+                    "carve-mixed")
+                kinds[kind] = kinds.get(kind, 0) + 1
+        return out
+
+    monkeypatch.setattr(ths, "backend_branch", spy)
+
+    def check(name, *args):
+        got = [getattr(h, name)(*args) for h in card]
+        want = [getattr(h, name)(*args) for h in host]
+        for g, w in zip(got, want):
+            for f in heap.AllocResponse._fields:
+                assert torch.equal(getattr(g, f).cpu(), getattr(w, f)), \
+                    f"{name}: {f}"
+        for hc, hh in zip(card, host):
+            for a, b in zip(convert.leaves(hc.state), convert.leaves(hh.state)):
+                assert torch.equal(a.cpu(), b), name
+        if name == "free":
+            kinds["free-backend"] = kinds.get("free-backend", 0) + int(
+                (got[0].path == 1).sum())
+        return got[0]
+
+    def rows(*sizes):
+        return np.tile(np.array(sizes, np.int32), (C, 1))
+
+    check("malloc", rows(*[32] * T))
+    blocks = check("malloc", rows(*[BLOCK] * T))
+    cls256 = (256).bit_length() - (16).bit_length()
+    while int(card[0].state.alloc.counts[0, 0, cls256]):
+        check("malloc", rows(*[256] * T))
+    check("malloc", rows(256, BLOCK, 256, BLOCK))
+    check("malloc", rows(0, 256, 0, 256))
+    check("malloc", rows(2 * BLOCK, 256, 2 * BLOCK, 16))
+    check("free", blocks.ptr.cpu().numpy())
+    for k in ("skip", "carve-refill", "carve-bypass", "carve-mixed",
+              "serial"):
+        assert kinds.get(k, 0) >= C, kinds
+    assert kinds["free-backend"] >= C * T, kinds
 
 
 def test_kernel_updates_state_in_place(cuda):
@@ -434,12 +515,16 @@ def buddy_case(seed, heap, min_block, cores, batch):
 
 @pytest.mark.parametrize("heap,min_block,cores,batch", [
     (1 << 14, 32, 1, 8), (1 << 16, 64, 4, 16), (1 << 18, 4096, 4, 130),
-    (1 << 25, 4096, 3, 200), (1 << 20, 64, 2, 64)])
+    (1 << 25, 4096, 3, 200), (1 << 20, 64, 2, 64),
+    (1 << 25, 4096, 4, 1), (1 << 25, 4096, 4, 128),  # phase 8's B=1, B=128
+    (1 << 16, 64, 2, 600),  # a long batch
+    (64, 64, 3, 5), (128, 64, 3, 5)])  # 2 nodes (8 B): copied by the warp
 def test_buddy_kernel_matches_plain_on_card(cuda, heap, min_block, cores,
                                             batch):
     """Three chained batches per geometry, up to the allocator's (32 MiB,
-    4 KiB: a 64 KiB tree, above the 48 KiB default shared memory) and the
-    largest tree the kernel takes (2^15 nodes)."""
+    4 KiB: a 64 KiB tree, above the 48 KiB default shared memory, copied
+    in five level chunks) and the largest tree the kernel takes (2^15
+    nodes), down to trees of 2 and 4 nodes."""
     from repro_torch.kernels import buddy_traverse as bt
     tree, sizes = buddy_case(21, heap, min_block, cores, batch)
     tree = tree.to(cuda)
@@ -454,6 +539,22 @@ def test_buddy_kernel_matches_plain_on_card(cuda, heap, min_block, cores,
         assert torch.equal(new, wnew), f"batch {r}: tree"
         tree = new
     assert bt.buddy_alloc_batch_kernel.launches == n + 3
+
+
+def test_buddy_kernel_copies_a_misaligned_tree_on_card(cuda):
+    """Trees whose rows do not start on 16 bytes (a view one int into its
+    storage) take the warp's copy instead of the bulk copy; same result."""
+    from repro_torch.kernels import buddy_traverse as bt
+    heap, mb = 1 << 20, 4096
+    tree, sizes = buddy_case(26, heap, mb, 3, 40)
+    store = torch.zeros(tree.numel() + 1, dtype=torch.int32, device=cuda)
+    odd = store[1:].view(tree.shape)
+    odd.copy_(tree.to(cuda))
+    assert odd.is_contiguous() and odd.data_ptr() % 16 != 0
+    kw = dict(heap_bytes=heap, min_block=mb)
+    offs, new = bt.buddy_alloc_batch_kernel(odd, sizes.to(cuda), **kw)
+    woffs, wnew = bt.buddy_alloc_batch_plain(tree, sizes, **kw)
+    assert torch.equal(offs.cpu(), woffs) and torch.equal(new.cpu(), wnew)
 
 
 def test_buddy_kernel_quirk_rows_on_card(cuda):

@@ -4,7 +4,8 @@
 an explicit core axis) is held against `repro.kernels.heap_step.
 protocol_round` under `jax.jit(jax.vmap(...))` — the pure-jnp body the
 Pallas kernel runs, as the reference's own CPU tests run it — with its
-batched refill both off and on. Both sides get the same inputs every round
+batched refill both off and on, each against the port's with its own off
+and on. Both sides get the same inputs every round
 (made from a seeded NumPy stream); all 31 outputs (9 state leaves, 22
 per-thread records) must be equal. The tolerance is exact equality: every
 output is int32.
@@ -36,18 +37,24 @@ def ref_round(batch_refill):
         jhs.protocol_round, batch_refill=batch_refill, **GEOM)))
 
 
-def run_port(args):
+def run_port(args, batch_refill=None):
     """The port's wrapper on copies of `args` (it updates its state
     arguments in place)."""
     return ths.fused_heap_step(*(torch.from_numpy(np.array(a)) for a in args),
-                               **GEOM)
+                               batch_refill=batch_refill, **GEOM)
 
 
 @pytest.mark.parametrize("batch_refill", [False, True])
 def test_protocol_round_matches_reference(batch_refill):
-    tally = drive(ref_round(batch_refill), run_port, rounds=40, seed=11)
-    missing = [k for k, v in tally.items() if v == 0]
-    assert not missing, f"stream never reached: {missing} ({tally})"
+    """The reference's round with its batched refill off or on, against
+    the port's with its own off and on (the stream reaches the run-carve:
+    test_torch_batch_refill.py)."""
+    for port_refill in (False, True):
+        tally = drive(ref_round(batch_refill),
+                      functools.partial(run_port, batch_refill=port_refill),
+                      rounds=40, seed=11)
+        missing = [k for k, v in tally.items() if v == 0]
+        assert not missing, f"stream never reached: {missing} ({tally})"
 
 
 def test_initial_state_matches_reference():

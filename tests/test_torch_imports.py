@@ -1,6 +1,6 @@
 """The port stands alone: importing every module of `repro_torch`,
-chip_smoke.py, tools/flash_mutants.py and tools/serve_phase.py pulls in
-neither JAX nor any module of the reference.
+chip_smoke.py and the tools (flash_mutants, heap_mutants, kernel_ab,
+serve_phase, warp_latency) pulls in neither JAX nor any module of the reference.
 
 Among them the kernel entry point `kernels.ops` with its oracles
 `kernels.ref` and the modules of the buddy, freelist and flash-attention
@@ -19,7 +19,10 @@ for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(m.name)
 import chip_smoke
 import flash_mutants
+import heap_mutants
+import kernel_ab
 import serve_phase
+import warp_latency
 from repro_torch.kernels import ops
 assert all(callable(getattr(ops, n)) for n in (
     "buddy_alloc_batch", "freelist_op", "paged_attention_op",

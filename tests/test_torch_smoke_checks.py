@@ -2,7 +2,9 @@
 an output that differs from the plain version only in summation order and
 bf16 rounding, and fails one that misses a KV tile or rounds p to bf16.
 tools/flash_mutants.py's broken kernels still apply to the kernel sources
-(flash and paged attention), and phase 6's reading agrees with its check.
+(flash and paged attention), and so do tools/heap_mutants.py's broken
+run-carves to the heap-step kernel; phase 6's reading agrees with its
+check.
 """
 import sys
 from pathlib import Path
@@ -16,6 +18,7 @@ sys.path[:0] = [str(ROOT), str(ROOT / "tools")]
 
 import chip_smoke  # noqa: E402
 import flash_mutants  # noqa: E402
+import heap_mutants  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 
 B, S, H, KVH, HD = 1, 384, 4, 2, 64
@@ -76,6 +79,20 @@ def test_flash_mutants_apply_to_the_kernel_source(name):
 def test_paged_mutants_apply_to_the_kernel_source(name):
     src = (ROOT / chip_smoke.PA_SOURCE).read_text()
     assert flash_mutants.mutate(src, name) != src
+
+
+@pytest.mark.parametrize("name", sorted(heap_mutants.MUTANTS))
+def test_heap_mutants_apply_to_the_kernel_source(name):
+    src = (ROOT / chip_smoke.KERNEL_SOURCE).read_text()
+    assert heap_mutants.mutate(src, name) != src
+
+
+@pytest.mark.parametrize("test_id,refill", [
+    ("t.py::test_kernel_matches_plain_on_card[4-262144-True]", True),
+    ("t.py::test_kernel_matches_plain_on_card[16-1048576-False]", False),
+    ("t.py::test_kernel_takes_every_backend_branch_on_card", None)])
+def test_heap_mutants_read_the_refill_setting_of_a_card_test(test_id, refill):
+    assert heap_mutants.refill_of(test_id) is refill
 
 
 @pytest.mark.parametrize("scale", [0.5, 1.0, 1.5, 3.0])
