@@ -33,6 +33,19 @@ Phases (each raises on failure; nothing is caught and carried on):
      device time from a torch.profiler trace, over the launches the trace
      recorded; the kernel with the batched refill on and off on the same
      rounds, in turns), and the device busy share of a few steps;
+ 5b. the paper's scan-based design points (``strawman``, ``sw``,
+     ``hwsw``: plain PyTorch rounds, no kernel of their own): the four
+     tapes through each, held to its own committed ``expect`` block, and
+     `check_trace` over all four kinds with phase 4's fused reports (lint
+     clean, fused == hwsw in full, sw == hwsw on ptr/ok/path/moved,
+     residual 0); then the first 16 rounds of phase 5's stream through
+     hwsw, sw, strawman (its first 8) and fused from fresh states at
+     C=512 in lockstep, each kind resolving its own slots: hwsw == fused
+     on every response field and state leaf bit for bit, sw == hwsw on
+     ptr/ok/path/moved and the allocator state, residual 0 on every core
+     of every kind; each kind's ms per `heap.step` round (host clock,
+     ending in a synchronise), and one more round under the profiler for
+     its device launches and busy share;
   6. the paged-attention kernels (split and merge) against their plain
      version on the card (fp32 to 2e-5, bf16 to 2e-2, atol = rtol): MHA,
      GQA and MQA at head_dim 32 and 128 with seq_len 0, 1, a page boundary
@@ -43,11 +56,11 @@ Phases (each raises on failure; nothing is caught and carried on):
   7. the serving path: granite-3-8b at full width (40 layers, bf16,
      weights from ``--seed`` on the card), 8 requests of 512 prompt tokens
      and 64 greedy decode steps through `launch.serve.serve`, page ids from
-     a ``fused`` PagePool on the card; both kernels' launch counters are
-     reset just before and read just after (paged attention 40 x 64, the
-     heap step once per pool round); then the pool's counters (how many
-     threads reached the heap's backend: a round with none takes the
-     skip branch), every
+     a PagePool of the reference's default kind ``sw`` on the card; both
+     kernels' launch counters are reset just before and read just after
+     (paged attention 40 x 64, the heap step 0: the pool's rounds are
+     plain PyTorch ops); then the pool's counters (how many threads
+     reached the heap's backend, 0 fails) and the pool rounds' time, every
      step's logits finite, the last step's layer-0 attention == the plain
      version, and timings: prefill, decode per step, the paged-attention
      kernels per call (CUDA events; device time from torch.profiler, the
@@ -121,6 +134,8 @@ ROUNDS = 64          # rounds of the main-path session
 CHECK_ROUNDS = 16    # session rounds held kernel against plain version
 PLAIN_ROUNDS = 8     # rounds the plain version is timed over
 PROFILE_ROUNDS = 10  # steps in the profiler window (2 of them warm-up)
+SCAN_KINDS = ("hwsw", "sw", "strawman")  # the reference's scan-based kinds
+STRAW_ROUNDS = 8     # session rounds strawman serves in phase 5b
 
 PA_SOURCE = "src/repro_torch/kernels/csrc/paged_attention.cu"
 PA_REPLACES = "src/repro/kernels/paged_attention.py:94"
@@ -302,9 +317,10 @@ def shares(branches):
                      zip(("skip", "run-carve", "serial"), branches))
 
 
-def phase_tapes(device, batch_refill=True):
+def phase_tapes(device, batch_refill=True, reports=None):
     """The committed tapes through kind fused, the batched refill set by
-    the environment as a user sets it; returns kernel launches."""
+    the environment as a user sets it; returns kernel launches, and fills
+    `reports` (if given) with each tape's fused report."""
     import os
     from repro_torch.kernels import heap_step
     from repro_torch.workloads import replay, trace
@@ -317,6 +333,8 @@ def phase_tapes(device, batch_refill=True):
             tape = trace.Trace.load(str(ROOT / "benchmarks" / "tapes" /
                                         f"{name}.json"))
             _, _, rep = replay.replay(tape, "fused", device=device)
+            if reports is not None:
+                reports[name] = rep
             errs = replay.check_trace(tape, results={"fused": rep})
             if errs:
                 raise AssertionError(f"tape {name}: " + "; ".join(errs))
@@ -493,21 +511,30 @@ def profile_steps(cfg, fresh, reqs):
         launches / n, kernel_events(prof)[1], top[:5]
 
 
-def run(seed, device, cores=CORES, rounds=ROUNDS):
-    import numpy as np
-    import torch
+def paper_cfg(kind):
+    """The paper's allocator (Table 3) behind heap kind `kind`."""
     from repro_torch.configs.paper_upmem import CONFIG
-    from repro_torch.core import heap, system as sysm, telemetry
+    from repro_torch.core import system as sysm
     from repro_torch.core.pim_malloc import PimMallocConfig
-    from repro_torch.kernels import heap_step
-
-    cfg = sysm.SystemConfig(
-        kind="fused", heap_bytes=CONFIG.heap_bytes,
+    return sysm.SystemConfig(
+        kind=kind, heap_bytes=CONFIG.heap_bytes,
         num_threads=CONFIG.num_threads,
         pm=PimMallocConfig(heap_bytes=CONFIG.heap_bytes,
                            num_threads=CONFIG.num_threads,
                            size_classes=CONFIG.size_classes,
-                           block_bytes=CONFIG.block_bytes))
+                           block_bytes=CONFIG.block_bytes),
+        straw=sysm.StrawmanConfig(heap_bytes=CONFIG.heap_bytes,
+                                  num_threads=CONFIG.num_threads,
+                                  min_block=CONFIG.min_block))
+
+
+def run(seed, device, cores=CORES, rounds=ROUNDS):
+    import numpy as np
+    import torch
+    from repro_torch.core import heap, telemetry
+    from repro_torch.kernels import heap_step
+
+    cfg = paper_cfg("fused")
     C, T, R = cores, cfg.num_threads, rounds
     tape = session_tape(np.random.default_rng(seed), R, C, T)
     result = {"cores": C, "threads": T, "rounds": R, "seed": seed}
@@ -530,7 +557,9 @@ def run(seed, device, cores=CORES, rounds=ROUNDS):
           f"{shares(branches[True])}")
 
     # ---- 4: committed tapes through the kernel ----------------------------
-    tape_launches = sum(phase_tapes(device, batch_refill=refill)
+    fused_reports = {}
+    tape_launches = sum(phase_tapes(device, batch_refill=refill,
+                                    reports=fused_reports if refill else None)
                         for refill in (True, False))
     print(f"tapes: kernel launched {tape_launches} times")
 
@@ -618,7 +647,7 @@ def run(seed, device, cores=CORES, rounds=ROUNDS):
                   bytes_per_round=nbytes, ops_per_round=nops,
                   bytes_bound_ms=bytes_ms, ops_bound_ms=ops_ms,
                   max_chain_steps=steps, state_mib=state_mib,
-                  tape_launches=tape_launches)
+                  tape_launches=tape_launches, fused_reports=fused_reports)
     kernels = [{
         "name": "fused_heap_step", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES, "launches": launches, "max_abs_err": worst,
@@ -627,6 +656,195 @@ def run(seed, device, cores=CORES, rounds=ROUNDS):
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None}]
     return result, kernels
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: the scan-based design points
+# ---------------------------------------------------------------------------
+def phase_scan_tapes(device, fused_reports):
+    """(a) The committed tapes through strawman, sw and hwsw, each held to
+    its own expect block, and `check_trace` over all four kinds (phase 4's
+    fused reports reused): lint clean, fused == hwsw in full, sw == hwsw
+    on the semantic fields, residual 0. Returns the rounds replayed."""
+    from repro_torch.workloads import replay, trace
+    replayed = 0
+    for name in TAPES:
+        tape = trace.Trace.load(str(ROOT / "benchmarks" / "tapes" /
+                                    f"{name}.json"))
+        lint = trace.trace_lint(tape)
+        if lint:
+            raise AssertionError(f"tape {name}: " + "; ".join(lint))
+        results = {k: replay.replay(tape, k, device=device)[2]
+                   for k in SCAN_KINDS}
+        results["fused"] = fused_reports[name]
+        errs = replay.check_trace(tape, results=results)
+        if errs:
+            raise AssertionError(f"tape {name}: " + "; ".join(errs))
+        replayed += tape.rounds * len(SCAN_KINDS)
+        print(f"tape {name}: " + ", ".join(
+            f"{k} ok={results[k]['ok_ops']}/{results[k]['ops']} "
+            f"{results[k]['digest_full'][:12]}..." for k in SCAN_KINDS)
+            + " == their expect blocks; fused == hwsw in full, sw == hwsw "
+            "on ptr/ok/path/moved, lint clean, residual 0")
+    return replayed
+
+
+def scan_mismatches(r, resps, states):
+    """Where the kinds of one session round disagree: hwsw against fused
+    on every response field and state leaf, sw against hwsw on the
+    semantic fields and the allocator state. Returns error strings."""
+    import torch
+    from repro_torch.convert import leaves
+    from repro_torch.workloads.trace import SEMANTIC_FIELDS
+    from repro_torch.core.heap import AllocResponse
+    errs = []
+    pairs = (("hwsw", "fused", AllocResponse._fields, leaves),
+             ("sw", "hwsw", SEMANTIC_FIELDS, lambda st: leaves(st.alloc)))
+    for a, b, fields, state_leaves in pairs:
+        if a not in resps or b not in resps:
+            continue
+        for f in fields:
+            if not torch.equal(getattr(resps[a], f), getattr(resps[b], f)):
+                errs.append(f"round {r}: {a} != {b} on response {f}")
+        la, lb = state_leaves(states[a]), state_leaves(states[b])
+        if len(la) != len(lb):
+            errs.append(f"round {r}: {a} and {b} states differ in layout")
+        for i, (x, y) in enumerate(zip(la, lb)):
+            if x.shape != y.shape or not torch.equal(x, y):
+                errs.append(f"round {r}: {a} != {b} on state leaf {i}")
+    return errs
+
+
+def check_residuals(kind, resid):
+    """Raise unless every core's conservation residual is 0."""
+    import numpy as np
+    bad = int(np.count_nonzero(resid))
+    if bad:
+        raise AssertionError(f"{kind}: conservation residual nonzero on "
+                             f"{bad} of {len(resid)} cores")
+
+
+def profile_round(cfg, state, req):
+    """One `heap.step` round under torch.profiler (device activity only:
+    a scan-based round makes tens of thousands of launches), continuing
+    from `state`: (state, device busy ms or None, wall ms, device
+    launches, the top kernels as (ms, launches, name))."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import heap
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = heap.step(cfg, state, req)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy, launches, top = 0.0, 0, []
+    for e in prof.key_averages():
+        us = device_us(e)
+        if us > 0:
+            busy += us
+            launches += e.count
+            top.append((us / 1e3, e.count, e.key[:60]))
+    top.sort(reverse=True)
+    return state, (busy / 1e3 if busy > 0 else None), 1e3 * wall, \
+        launches, top[:5]
+
+
+def phase_scan(seed, device, fused_reports, cores=CORES,
+               rounds=CHECK_ROUNDS, straw_rounds=STRAW_ROUNDS):
+    """Phase 5b: (a) the tapes through the scan-based kinds; (b) the first
+    `rounds` rounds of phase 5's stream through hwsw, sw, strawman (its
+    first `straw_rounds`) and fused from fresh states in lockstep, each
+    kind resolving its own slots, held by `scan_mismatches`, then the
+    residual of every core of every kind; (c) each kind's ms per
+    `heap.step` round (host clock, each step ending in a synchronise),
+    then one more round of the stream under the profiler for its device
+    launches and busy share. Returns the result dict."""
+    import numpy as np
+    import torch
+    from repro_torch.core import heap, telemetry
+    from repro_torch.kernels import heap_step
+    t_phase = time.perf_counter()
+    replayed = phase_scan_tapes(device, fused_reports)
+    t_tapes = time.perf_counter() - t_phase
+
+    t0 = time.perf_counter()
+    kinds = SCAN_KINDS + ("fused",)
+    cfgs = {k: paper_cfg(k) for k in kinds}
+    T = cfgs["fused"].num_threads
+    tape = session_tape(np.random.default_rng(seed), ROUNDS, cores, T)
+    states = {k: heap.init(cfgs[k], num_cores=cores, device=device)
+              for k in kinds}
+    sess = {k: slot_file(tape, device) for k in kinds}
+    served = {k: min(rounds, straw_rounds) if k == "strawman" else rounds
+              for k in kinds}
+    times = {k: [] for k in kinds}
+    t_setup = time.perf_counter() - t0
+    launches_before = heap_step.fused_heap_step.launches
+    t0 = time.perf_counter()
+    for r in range(rounds):
+        resps = {}
+        for k in kinds:
+            if r >= served[k]:
+                continue
+            req = sess[k].request(r)
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            states[k], resps[k] = heap.step(cfgs[k], states[k], req)
+            torch.cuda.synchronize()
+            times[k].append(time.perf_counter() - ts)
+            sess[k].record(r, req, resps[k])
+        errs = scan_mismatches(r, resps, states)
+        if errs:
+            raise AssertionError("; ".join(errs[:8]))
+    t_session = time.perf_counter() - t0
+    fused_launches = heap_step.fused_heap_step.launches - launches_before
+    if device.type == "cuda" and fused_launches != rounds:
+        raise AssertionError(f"the session's fused rounds launched the "
+                             f"heap kernel {fused_launches} times in "
+                             f"{rounds} rounds")
+    t0 = time.perf_counter()
+    for k in kinds:
+        check_residuals(k, telemetry.conservation_residuals(cfgs[k],
+                                                            states[k]))
+    t_resid = time.perf_counter() - t0
+    ops = {k: int((tape[0][:served[k]] != 0).sum()) for k in kinds}
+    print(f"session: {rounds} rounds at C={cores} T={T} (strawman "
+          f"{served['strawman']}): hwsw == fused on all "
+          f"{len(resps['fused']._fields)} response fields and every state "
+          f"leaf, sw == hwsw on ptr/ok/path/moved and the allocator state, "
+          f"residual 0 on every core of {', '.join(kinds)}")
+    out = {"tape_rounds": replayed, "rounds": rounds,
+           "straw_rounds": served["strawman"], "kinds": {}}
+    t0 = time.perf_counter()
+    for k in kinds:
+        r = served[k]  # the next round of the stream, under the profiler
+        req = sess[k].request(r)
+        states[k], busy, wall, launches, top = profile_round(
+            cfgs[k], states[k], req)
+        ms = 1e3 * sum(times[k]) / len(times[k])
+        busy_s = "not measured" if busy is None else \
+            f"{busy:.4f} of {wall:.3f} ms ({100 * busy / wall:.1f} %)"
+        print(f"{k}: {ms:.3f} ms per heap.step round (host clock, mean of "
+              f"{len(times[k])}, min {1e3 * min(times[k]):.3f}, max "
+              f"{1e3 * max(times[k]):.3f}), {ops[k] / sum(times[k]):.4g} "
+              f"allocator ops/s; round {r} under the profiler: {launches} "
+              f"device launches, device busy {busy_s}; top: " + "; ".join(
+                  f"{name} {t:.4f} ms x{c}" for t, c, name in top[:3]))
+        out["kinds"][k] = dict(
+            ms_per_round=ms, round_ms=[1e3 * t for t in times[k]],
+            ops_per_s=ops[k] / sum(times[k]), profile_busy_ms=busy,
+            profile_wall_ms=wall, launches_per_round=launches,
+            profile_top=[list(t) for t in top])
+    t_profile = time.perf_counter() - t0
+    del states
+    out.update(phase_s=time.perf_counter() - t_phase, tapes_s=t_tapes,
+               setup_s=t_setup, session_s=t_session, residual_s=t_resid,
+               profile_s=t_profile)
+    print(f"phase 5b took {out['phase_s']:.1f} s: tapes {t_tapes:.1f}, "
+          f"set-up {t_setup:.1f}, session {t_session:.1f}, residuals "
+          f"{t_resid:.1f}, profiles {t_profile:.1f}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -822,10 +1040,12 @@ def phase_serve(seed, device):
         raise AssertionError(f"serve launched the paged-attention kernel "
                              f"{pa_launches} times, want {cfg.n_layers} x "
                              f"{steps}")
-    if heap_launches != res.pool_rounds or heap_launches == 0:
-        raise AssertionError(f"serve launched the heap kernel "
-                             f"{heap_launches} times for {res.pool_rounds} "
-                             f"pool rounds")
+    # the pool serves on the reference's default kind, sw: plain PyTorch
+    # rounds, no heap kernel
+    if heap_launches != 0 or res.pool_kind != "sw" or res.pool_rounds == 0:
+        raise AssertionError(f"serve's pool ({res.pool_kind}, "
+                             f"{res.pool_rounds} rounds) launched the heap "
+                             f"kernel {heap_launches} times")
     st = res.stats
     if st["fails"] != 0 or st["front_hits"] <= 0:
         raise AssertionError(f"pool stats {st}")
@@ -841,13 +1061,18 @@ def phase_serve(seed, device):
           f"{cfg.d_model}, {n_params / 1e9:.3f} B params in {cfg.dtype} "
           f"(init {init_s:.2f} s), {B} x {S} prompt tokens, {steps} decode "
           f"steps, page {cfg.page_size}; paged-attention launches "
-          f"{pa_launches}, heap-step launches {heap_launches} for "
-          f"{res.pool_rounds} pool rounds; pool {st}; all logits finite; "
-          f"peak device memory {peak_gib:.2f} GiB")
+          f"{pa_launches}; pool kind {res.pool_kind}, heap-step launches "
+          f"{heap_launches} in {res.pool_rounds} pool rounds; pool {st}; "
+          f"all logits finite; peak device memory {peak_gib:.2f} GiB")
+    pool_ms = 1e3 * res.timings["pool_s"]
     print(f"serve timings: prefill {1e3 * pf_s:.2f} ms; decode "
           f"{1e3 * dec_s / steps:.3f} ms/step, {B * steps / dec_s:.2f} "
           f"tokens/s; waiting on the per-step length read-back "
-          f"{1e3 * res.timings['sync_s'] / steps:.3f} ms/step")
+          f"{1e3 * res.timings['sync_s'] / steps:.3f} ms/step; the "
+          f"{res.pool_rounds} pool rounds {pool_ms:.2f} ms "
+          f"({pool_ms / res.pool_rounds:.3f} ms each; the {B} prefill "
+          f"extents come before the prefill's clock, the decode pages "
+          f"inside the decode's)")
 
     # ---- the last step's layer-0 attention, kernel vs plain ----------------
     cache, p = res.cache, res.params
@@ -955,8 +1180,9 @@ def phase_serve(seed, device):
     result = dict(
         arch=cfg.name, n_params=n_params, init_s=init_s, batch=B,
         prompt=S, decode_steps=steps, pool_rounds=res.pool_rounds,
-        pool_backend_ops=backend_ops["all"],
-        pool_stats=st, pa_launches=pa_launches, heap_launches=heap_launches,
+        pool_backend_ops=backend_ops["all"], pool_kind=res.pool_kind,
+        pool_ms=pool_ms, pool_stats=st, pa_launches=pa_launches,
+        heap_launches=heap_launches,
         peak_gib=peak_gib, prefill_ms=1e3 * pf_s,
         decode_ms_per_step=1e3 * dec_s / steps,
         tokens_per_s=B * steps / dec_s,
@@ -1433,6 +1659,10 @@ def main(argv=None) -> int:
 
     result, kernels = run(args.seed, device)
 
+    # ---- 5b: the scan-based design points ----------------------------------
+    scan_result = phase_scan(args.seed, device,
+                             result.pop("fused_reports"))
+
     # ---- 6: paged attention, kernel against plain version -----------------
     t0 = time.perf_counter()
     worst = phase_paged_vs_plain(args.seed, device)
@@ -1457,7 +1687,8 @@ def main(argv=None) -> int:
     print(f"phases 8-10 took {time.perf_counter() - t0:.1f} s")
     if args.out:
         with open(args.out, "w") as f:
-            json.dump(dict(result, serve=serve_result, build_s=secs,
+            json.dump(dict(result, scan=scan_result, serve=serve_result,
+                           build_s=secs,
                            paged_vs_plain=worst, buddy=buddy_result,
                            freelist=fl_result, flash=fa_result, gpu=smi,
                            kernels=kernels), f, indent=1)

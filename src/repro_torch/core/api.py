@@ -11,24 +11,25 @@ one PIM core serving T hardware threads, through one surface:
     leaves);
   * ``request()``: the raw protocol entry point every method routes
     through (a subclass that overrides it sees every round);
-  * ``epoch_reset``: an ``OP_EPOCH_RESET`` round (idle on ``fused``);
+  * ``epoch_reset``: an ``OP_EPOCH_RESET`` round (idle on every kind the
+    port has: none has an arena frontend);
+  * ``gc``: merge fully free thread-cache blocks back into the buddy;
   * ``stats`` / ``telemetry()`` / ``last_info``: the allocator counters, a
     heap-health snapshot (`repro_torch.core.telemetry`), and the per-thread
     responses of the most recent round.
 
 Every call builds one `AllocRequest` and runs one `heap.step` round on a
 single-core state (the core axis of `heap.step` has length 1 here). The
-port of the reference's `repro.core.api`; ``gc`` waits for the scan-based
-design points (ROADMAP A1), and the ``wrap`` adapter and the Table-2
-``Allocator`` facade wait for ROADMAP A3. The default kind is ``fused``,
-the port's only kind.
+port of the reference's `repro.core.api`; the ``wrap`` adapter and the
+Table-2 ``Allocator`` facade wait for ROADMAP A3. The default kind is the
+reference's, ``sw``.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import device as _device
-from . import heap
+from . import heap, pim_malloc
 from .heap import AllocRequest, AllocResponse
 from .pim_malloc import PimMallocConfig
 from .system import SystemConfig, SystemState
@@ -46,7 +47,7 @@ class HeapClient:
     def __init__(self, heap_bytes: int = 32 * 1024 * 1024,
                  size_classes=(16, 32, 64, 128, 256, 512, 1024, 2048),
                  num_threads: int = 16, prepopulate: bool = True,
-                 kind: str = "fused", device="cuda"):
+                 kind: str = "sw", device="cuda"):
         self.device = _device.resolve(device)
         pm = PimMallocConfig(
             heap_bytes=heap_bytes, size_classes=tuple(size_classes),
@@ -125,12 +126,22 @@ class HeapClient:
 
     def epoch_reset(self, active=None) -> AllocResponse:
         """Retire the current allocation epoch (``OP_EPOCH_RESET``). The
-        ``fused`` kind has no arena frontend and answers the round as idle
+        port's kinds have no arena frontend and answer the round as idle
         (ok False, path -1), as the reference's non-arena kinds do."""
         return self.request(heap.epoch_reset_request(
             self.cfg.num_threads, self._mask(active), device=self.device))
 
-    # -- introspection ---------------------------------------------------------
+    # -- maintenance / introspection -------------------------------------------
+    def gc(self) -> None:
+        """Merge fully free thread-cache blocks back into the buddy
+        (`pim_malloc.gc`, up to ``max_gc`` blocks per call). Live bytes are
+        unchanged, so the telemetry carries over; ``strawman`` has no
+        thread caches and returns at once."""
+        if self.cfg.kind == "strawman":
+            return
+        self.state = self.state._replace(
+            alloc=pim_malloc.gc(self.cfg.pm, self.state.alloc))
+
     @property
     def kind(self) -> str:
         return self.cfg.kind
@@ -145,6 +156,9 @@ class HeapClient:
 
     @property
     def stats(self) -> dict:
+        """The allocator counters ({} for ``strawman``, which keeps none)."""
+        if self.cfg.kind == "strawman":
+            return {}
         return {k: int(v[0])
                 for k, v in self.state.alloc.stats._asdict().items()}
 

@@ -83,6 +83,11 @@ class BuddyConfig:
         # descent records root + one node per level; up-walk one per level
         return 2 * (self.depth + 1)
 
+    @property
+    def metadata_bytes(self) -> int:
+        """Paper metadata footprint: 2 bits per tree node."""
+        return (2 * self.n_nodes + 7) // 8
+
 
 class BuddyState(NamedTuple):
     longest: torch.Tensor  # int32[..., n_nodes]
@@ -147,21 +152,68 @@ def _take(longest: torch.Tensor, node: torch.Tensor) -> torch.Tensor:
 
 def _put(longest: torch.Tensor, node: torch.Tensor, val: torch.Tensor,
          mask: torch.Tensor) -> None:
-    """longest[c, node[c]] = val[c] where mask[c], in place; the callers
-    only mask in nodes that lie inside the tree."""
+    """longest[c, node[c]] = val[c] where mask[c], in place, on any
+    ``[C, N]`` table; the callers only mask in indices that lie inside
+    it."""
     i = torch.where(mask, node, torch.zeros_like(node)).long()[:, None]
     longest.scatter_(1, i, torch.where(mask, val, longest.gather(1, i)[:, 0])
                      [:, None])
+
+
+def _get(longest: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """longest[c, i[c]] for int64 indices known to lie inside the tree."""
+    return longest.gather(1, i[:, None])[:, 0]
+
+
+def _set(longest: torch.Tensor, i: torch.Tensor, val: torch.Tensor,
+         mask: torch.Tensor) -> None:
+    """longest[c, i[c]] = val[c] where mask[c], in place, for int64
+    indices known to lie inside the tree."""
+    longest.scatter_(1, i[:, None],
+                     torch.where(mask, val, _get(longest, i))[:, None])
+
+
+def _walk_up_(longest: torch.Tensor, node: torch.Tensor, active0,
+              depth: int, trace: list, coalesce_from=None):
+    """The up-walk from `node` (in the tree) on ``longest [C, n_nodes]``,
+    in place, while `active0`: each parent takes the larger of its
+    children's longest, or, with `coalesce_from` (the freed block's size),
+    their sum where both children are wholly free. Appends each step's
+    node (or -1) to `trace`; returns the levels walked [C]."""
+    minus1 = torch.full_like(node, INVALID)
+    n, lvu = node, torch.zeros_like(node)
+    nsize = coalesce_from
+    for _ in range(depth):
+        parent = n >> 1
+        active = active0 & (parent >= 1)
+        p = torch.clamp(parent, min=1)
+        pl = p.long()
+        lft, rgt = _get(longest, 2 * pl), _get(longest, 2 * pl + 1)
+        newval = torch.maximum(lft, rgt)
+        if nsize is not None:
+            psize = nsize << 1
+            newval = torch.where((lft == nsize) & (rgt == nsize), psize,
+                                 newval)
+            nsize = psize
+        _set(longest, pl, newval, active)
+        trace.append(torch.where(active, p, minus1))
+        lvu += active
+        n = torch.where(active, p, 0)
+    return lvu
 
 
 def _alloc_(cfg: BuddyConfig, longest: torch.Tensor, size: torch.Tensor,
             live=None):
     """One leftmost-fit allocation per core on ``longest [C, n_nodes]``,
     updated in place; `live` (bool [C], default all) additionally gates
-    the request. Returns (offset [C], BuddyEvent)."""
+    the request. Returns (offset [C], BuddyEvent).
+
+    Every node the walk reads lies inside the tree, except a leaf's left
+    child, read while the walk no longer descends, which is clamped (and
+    unused), as JAX clamps it."""
+    n_nodes = longest.shape[1]
     size = _round_size(cfg, size)
-    ok = (size <= cfg.heap_bytes) & (_take(longest, torch.ones_like(size))
-                                     >= size)
+    ok = (size <= cfg.heap_bytes) & (longest[:, 1] >= size)
     if live is not None:
         ok = ok & live
     one = torch.ones_like(size)
@@ -171,23 +223,15 @@ def _alloc_(cfg: BuddyConfig, longest: torch.Tensor, size: torch.Tensor,
     for _ in range(cfg.depth):
         descend = node_size > size
         left = 2 * node
-        go_left = _take(longest, left) >= size
-        node = torch.where(descend, torch.where(go_left, left, left + 1), node)
+        go_left = _get(longest, torch.clamp(left, max=n_nodes - 1).long()) \
+            >= size
+        node = torch.where(descend, left + ~go_left, node)
         trace.append(torch.where(descend, node, -one))
         node_size = torch.where(descend, node_size >> 1, node_size)
-        lvd += descend.to(torch.int32)
+        lvd += descend
     offset = node * node_size - cfg.heap_bytes
-    _put(longest, node, torch.zeros_like(node), ok)
-    n, lvu = node, torch.zeros_like(size)
-    for _ in range(cfg.depth):
-        parent = n >> 1
-        active = ok & (parent >= 1)
-        p = torch.clamp(parent, min=1)
-        newval = torch.maximum(_take(longest, 2 * p), _take(longest, 2 * p + 1))
-        _put(longest, p, newval, active)
-        trace.append(torch.where(active, p, -one))
-        lvu += active.to(torch.int32)
-        n = torch.where(active, p, torch.zeros_like(p))
+    _set(longest, node.long(), torch.zeros_like(node), ok)
+    lvu = _walk_up_(longest, node, ok, cfg.depth, trace)
     trace.append(-one)  # the trace's last slot is never written
     ev = BuddyEvent(ok=ok, levels_down=lvd, levels_up=lvu,
                     trace=torch.stack(trace, dim=-1))
@@ -195,29 +239,24 @@ def _alloc_(cfg: BuddyConfig, longest: torch.Tensor, size: torch.Tensor,
 
 
 def _free_(cfg: BuddyConfig, longest: torch.Tensor, offset: torch.Tensor,
-           size: torch.Tensor) -> BuddyEvent:
-    """Free one block per core on ``longest [C, n_nodes]``, in place."""
+           size: torch.Tensor, live=None) -> BuddyEvent:
+    """Free one block per core on ``longest [C, n_nodes]``, in place;
+    `live` (bool [C], default all) additionally gates the request, as the
+    reference commits a backend free only for a thread that used the
+    backend. The freed node is read with JAX's index rule (a garbage
+    offset may name any index); the up-walk stays inside the tree."""
     size = _round_size(cfg, size)
     node = torch.div(offset + cfg.heap_bytes, size, rounding_mode="floor")
     valid = (offset >= 0) & (offset < cfg.heap_bytes) & \
         (_take(longest, node) == 0)
+    if live is not None:
+        valid = valid & live
     _put(longest, node, size, valid)
-    one = torch.ones_like(size)
     trace = [node]
-    n, nsize, lvu = node, size, torch.zeros_like(size)
-    for _ in range(cfg.depth):
-        parent = n >> 1
-        active = valid & (parent >= 1)
-        p = torch.clamp(parent, min=1)
-        psize = nsize << 1
-        lft, rgt = _take(longest, 2 * p), _take(longest, 2 * p + 1)
-        both_free = (lft == nsize) & (rgt == nsize)
-        _put(longest, p, torch.where(both_free, psize, torch.maximum(lft, rgt)),
-             active)
-        trace.append(torch.where(active, p, -one))
-        lvu += active.to(torch.int32)
-        n, nsize = torch.where(active, p, torch.zeros_like(p)), psize
-    trace += [-one] * (cfg.trace_len - len(trace))
+    # an invalid free walks no level: start it inside the tree
+    lvu = _walk_up_(longest, torch.where(valid, node, 1), valid, cfg.depth,
+                    trace, coalesce_from=size)
+    trace += [torch.full_like(node, INVALID)] * (cfg.trace_len - len(trace))
     return BuddyEvent(ok=valid, levels_down=torch.zeros_like(size),
                       levels_up=lvu, trace=torch.stack(trace, dim=-1))
 

@@ -11,8 +11,9 @@ step); core i's requests never touch core j's state. `AllocResponse`
 returns pointers, result paths and the DPU cost model's per-thread
 accounting.
 
-Backends register through `register`; the port's one kind so far is
-``fused`` (`repro_torch.core.system`), the counterpart of the reference's
+Backends register through `register` (`repro_torch.core.system`): the
+paper's scan-based design points ``strawman``, ``sw`` and ``hwsw`` as
+plain PyTorch ops, and ``fused``, the counterpart of the reference's
 ``pallas`` kind: one fused CUDA kernel per round on the card, its plain
 PyTorch version on CPU tensors.
 """
@@ -172,8 +173,10 @@ def register(kind: str):
 
 
 def kinds() -> tuple:
+    """The registered kinds in registration order: ``('strawman', 'sw',
+    'hwsw', 'fused')``."""
     _ensure_backends()
-    return tuple(sorted(REGISTRY))
+    return tuple(REGISTRY)
 
 
 def _ensure_backends():
@@ -193,10 +196,11 @@ def step(cfg, state, request: AllocRequest):
     """Serve one ``[C, T]`` request round on the backend named by
     `cfg.kind`; returns (state, AllocResponse).
 
-    The step consumes `state`, on the card and on the CPU alike: the
-    ``fused`` kind updates its nine allocator and cache tensors in place
-    (see `repro_torch.kernels.heap_step.fused_heap_step`) and returns them
-    in the new state. A caller that needs the old state afterwards (a
+    The step consumes `state`, on the card and on the CPU alike: every
+    kind updates its allocator tensors in place (the ``fused`` kind its
+    nine allocator and cache tensors, see
+    `repro_torch.kernels.heap_step.fused_heap_step`) and returns them in
+    the new state. A caller that needs the old state afterwards (a
     snapshot, a rollback) keeps a clone of it."""
     _ensure_backends()
     return REGISTRY[cfg.kind](cfg, state, request)
@@ -210,6 +214,33 @@ def run_rounds(cfg, state, requests: AllocRequest):
         state, resp = step(cfg, state, AllocRequest(*(x[r] for x in requests)))
         resps.append(resp)
     return state, AllocResponse(*(torch.stack(f) for f in zip(*resps)))
+
+
+def run_alloc_free_rounds(cfg, state, sizes_rounds):
+    """Fig 6's (de)allocation loop over ``[R, C, T]`` sizes: each round
+    mallocs sizes[r], then frees the pointers it just received. Returns
+    (state, alloc responses, free responses), ``[R, C, T]`` leaves."""
+    ras, rfs = [], []
+    for sizes in sizes_rounds:
+        state, ra = step(cfg, state, malloc_request(sizes))
+        state, rf = step(cfg, state, free_request(ra.ptr))
+        ras.append(ra)
+        rfs.append(rf)
+    return (state, AllocResponse(*(torch.stack(f) for f in zip(*ras))),
+            AllocResponse(*(torch.stack(f) for f in zip(*rfs))))
+
+
+def multicore_init(cfg, num_cores: int, prepopulate: bool = True,
+                   device="cuda"):
+    """Stacked per-core states: every leaf gains a leading [C] axis."""
+    return init(cfg, prepopulate=prepopulate, num_cores=num_cores,
+                device=device)
+
+
+def multicore_step(cfg, states, requests: AllocRequest):
+    """`step` over the core axis: requests are ``[C, T]``-leaved (the
+    reference vmaps a per-core step; here the axis is explicit)."""
+    return step(cfg, states, requests)
 
 
 class MultiCoreHeap:

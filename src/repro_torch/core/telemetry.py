@@ -6,34 +6,66 @@ metadata state itself:
 
   * total buddy free bytes and the per-level histogram of maximal free
     blocks (external fragmentation),
-  * bytes parked in the thread-cache frontend (carved but not handed out),
+  * bytes parked in the thread-cache frontend (carved but not handed out;
+    0 for ``strawman``, which has none),
   * the conservation law both sides satisfy together:
 
         live_bytes + free_bytes + cached_frontend_bytes == heap_bytes
 
-Host-side NumPy over a state copied off the device: reporting code, not
-part of a round. Functions take ``[..., n]`` arrays, so one call covers
-all cores of a stacked state.
+Reporting code, not part of a round. The tree walk runs in PyTorch on the
+state's own device, a few cores at a time (a straw-man tree of a 32 MiB
+heap has 2^21 nodes per core), and the results come back as NumPy; one
+call covers all cores of a stacked state.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .buddy import BuddyConfig
+
+# nodes walked at once (cores x tree nodes): bounds the walk's memory
+CHUNK_NODES = 1 << 25
 
 
 def _np(x) -> np.ndarray:
     return x.detach().cpu().numpy() if hasattr(x, "detach") else np.asarray(x)
 
 
-def _node_levels(bcfg: BuddyConfig):
-    """(level[i], full_size[i]) for the 1-indexed longest[] array."""
-    n = bcfg.n_nodes
-    idx = np.arange(n)
-    level = np.zeros(n, np.int64)
-    level[1:] = np.floor(np.log2(idx[1:])).astype(np.int64)
-    full = np.where(idx > 0, bcfg.heap_bytes >> level, 0).astype(np.int64)
-    return level, full
+def _buddy_cfg(cfg) -> BuddyConfig:
+    """The tree geometry of a `SystemConfig`'s kind."""
+    return cfg.straw.buddy_cfg if cfg.kind == "strawman" else \
+        cfg.pm.buddy_cfg
+
+
+def _histogram(bcfg: BuddyConfig, longest: torch.Tensor) -> torch.Tensor:
+    """Maximal free blocks per level of ``longest [K, n]``: int64 [K,
+    depth + 1]."""
+    n, depth = bcfg.n_nodes, bcfg.depth
+    dev = longest.device
+    levels = torch.arange(depth + 1, device=dev)
+    level = torch.cat([levels[:1], levels.repeat_interleave(1 << levels)])
+    full = (bcfg.heap_bytes >> level).to(torch.int32)
+    ar = torch.arange(n, device=dev)
+    lc = torch.clamp(2 * ar, max=n - 1)
+    rc = torch.clamp(2 * ar + 1, max=n - 1)
+    half = full // 2
+    stale = (longest[:, lc] == half) & (longest[:, rc] == half)
+    is_blk = (ar > 0) & (longest == 0) & ((level == depth) | stale)
+    del stale
+    # covered[i]: some ancestor of i was allocated as a block, so the
+    # descendants it left stale at their full sizes are not free
+    covered = torch.zeros_like(is_blk)
+    for lvl in range(1, depth + 1):
+        lo, hi = 1 << lvl, min(1 << (lvl + 1), n)
+        up = covered[:, lo >> 1:hi >> 1] | is_blk[:, lo >> 1:hi >> 1]
+        covered[:, lo:hi] = up.repeat_interleave(2, dim=1)[:, :hi - lo]
+    truly_free = (ar > 0) & (longest == full) & ~covered
+    del covered, is_blk
+    maximal = truly_free.clone()
+    maximal[:, 2:] &= ~truly_free[:, 1:n // 2].repeat_interleave(2, dim=1)
+    return torch.stack([maximal[:, 1 << lvl:min(1 << (lvl + 1), n)].sum(-1)
+                        for lvl in range(depth + 1)], -1)
 
 
 def free_block_histogram(bcfg: BuddyConfig, longest) -> np.ndarray:
@@ -43,28 +75,13 @@ def free_block_histogram(bcfg: BuddyConfig, longest) -> np.ndarray:
     contained in a larger free block. The ``longest[]`` encoding leaves the
     descendants of an allocated node stale at their full sizes, so a node
     only counts as free when no ancestor is allocated as a block."""
-    longest = np.asarray(_np(longest), np.int64)
-    n = bcfg.n_nodes
-    level, full = _node_levels(bcfg)
-    ar = np.arange(n)
-    is_leaf = level == bcfg.depth
-    lc = np.minimum(2 * ar, n - 1)
-    rc = np.minimum(2 * ar + 1, n - 1)
-    stale = (longest[..., lc] == full // 2) & (longest[..., rc] == full // 2)
-    is_blk = (ar > 0) & (longest == 0) & (is_leaf | stale)
-
-    # covered[i]: some ancestor of i was allocated as a block
-    covered = np.zeros(longest.shape, bool)
-    for lvl in range(1, bcfg.depth + 1):
-        idx = np.arange(1 << lvl, min(1 << (lvl + 1), n))
-        covered[..., idx] = covered[..., idx >> 1] | is_blk[..., idx >> 1]
-
-    truly_free = (ar > 0) & (longest == full) & ~covered
-    parent_free = np.zeros(longest.shape, bool)
-    parent_free[..., 2:] = truly_free[..., ar[2:] >> 1]
-    maximal = truly_free & ~parent_free
-    return np.stack([(maximal & (level == lvl)).sum(-1)
-                     for lvl in range(bcfg.depth + 1)], -1).astype(np.int64)
+    t = torch.as_tensor(longest).to(torch.int32)
+    lead = t.shape[:-1]
+    t = t.reshape(-1, t.shape[-1])
+    step = max(1, CHUNK_NODES // bcfg.n_nodes)
+    out = torch.cat([_histogram(bcfg, t[i:i + step])
+                     for i in range(0, t.shape[0], step)])
+    return out.cpu().numpy().reshape(lead + (bcfg.depth + 1,))
 
 
 def free_bytes_from_histogram(bcfg: BuddyConfig, hist) -> np.ndarray:
@@ -73,7 +90,10 @@ def free_bytes_from_histogram(bcfg: BuddyConfig, hist) -> np.ndarray:
 
 
 def frontend_cached_bytes(cfg, state) -> np.ndarray:
-    """Bytes parked in the per-thread LIFO freelists, per core."""
+    """Bytes parked in the per-thread LIFO freelists, per core (0 for
+    ``strawman``)."""
+    if cfg.kind == "strawman":
+        return np.zeros(np.shape(_np(state.telem.live_bytes)), np.int64)
     counts = np.asarray(_np(state.alloc.counts), np.int64)
     class_sizes = np.asarray(cfg.pm.size_classes, np.int64)
     return (counts * class_sizes).sum((-2, -1))
@@ -81,7 +101,7 @@ def frontend_cached_bytes(cfg, state) -> np.ndarray:
 
 def conservation_residuals(cfg, state) -> np.ndarray:
     """``heap - (live + free + cached)`` for every core (0 when sound)."""
-    bcfg = cfg.pm.buddy_cfg
+    bcfg = _buddy_cfg(cfg)
     free_b = free_bytes_from_histogram(
         bcfg, free_block_histogram(bcfg, state.alloc.buddy.longest))
     live = np.asarray(_np(state.telem.live_bytes), np.int64)
@@ -96,8 +116,8 @@ def snapshot(cfg, state, core: int = 0) -> dict:
     ``utilization``, ``hwm_utilization``, ``largest_free_block``,
     ``external_frag``, ``free_blocks_per_level``, ``conservation_residual``.
     """
-    bcfg = cfg.pm.buddy_cfg
-    longest = _np(state.alloc.buddy.longest)[core]
+    bcfg = _buddy_cfg(cfg)
+    longest = state.alloc.buddy.longest[core]
     hist = free_block_histogram(bcfg, longest)
     free_b = int(free_bytes_from_histogram(bcfg, hist))
     cached = int(frontend_cached_bytes(cfg, state)[core])

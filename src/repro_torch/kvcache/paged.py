@@ -159,19 +159,18 @@ class PagePool:
 
     Pages are allocator 'bytes' at PAGE_UNIT per page; ptr -> page_id =
     ptr // PAGE_UNIT. Built on a `repro_torch.core.api.HeapClient` (kind
-    ``fused`` by default: the heap-step kernel on the card), so every call
-    also yields the DPU cost model's per-thread latencies
-    (``pool.client.last_info``).
+    ``sw`` by default, as in the reference; ``fused`` runs the heap-step
+    kernel on the card), so every call also yields the DPU cost model's
+    per-thread latencies (``pool.client.last_info``).
 
     Every page free routes through the protocol's free path: a stale or
     repeated page id reaches the backend and shows up in
-    `Stats.dropped_frees` instead of being absorbed host-side. ``gc``
-    waits for ROADMAP A1; the reference's deprecated ``alloc=`` hook is not
-    ported.
+    `Stats.dropped_frees` instead of being absorbed host-side. The
+    reference's deprecated ``alloc=`` hook is not ported (ROADMAP A3).
     """
 
     def __init__(self, n_pages: int, num_threads: int = 16,
-                 kind: str = "fused", client: api.HeapClient = None,
+                 kind: str = "sw", client: api.HeapClient = None,
                  device="cuda"):
         """``client`` injects a `HeapClient` whose heap spans
         n_pages * PAGE_UNIT bytes; otherwise one is built on `device`."""
@@ -267,6 +266,9 @@ class PagePool:
             self.free_extent(first_page, thread=thread)
             dropped += int(self.client.last_info.path[thread] == 2)
         return {"freed_pages": freed, "dropped_frees": dropped}
+
+    def gc(self) -> None:
+        self.client.gc()
 
     @property
     def stats(self) -> dict:

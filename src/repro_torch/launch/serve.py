@@ -7,8 +7,8 @@ The port of `repro.launch.serve`. It shows the paper's allocator as the
 serving substrate:
 
   * prefill allocates each request's page extent through a `PagePool`
-    (kind ``fused``: the heap-step kernel on the card), a frontend hit at
-    these sizes;
+    (the reference's default kind ``sw``: plain PyTorch rounds on the
+    card), a frontend hit at these sizes;
   * per-token page growth is served by the thread-cache frontend when any
     sequence crosses a page boundary;
   * attention consumes the page tables (``--impl kernel``: the
@@ -45,12 +45,16 @@ class ServeResult:
       step's logits were finite; page_ids: each request's prefill extent,
       int32 [B, P]; stats / prefill_stats: the pool's
       allocator counters at the end and after the extents;
-    pool_rounds: allocator rounds the pool served (one heap step each);
+    pool_kind: the pool's heap kind; pool_rounds: allocator rounds the
+      pool served (one heap step each);
     page_allocs: decode-time page allocations; alloc_us: their modeled DPU
-      time; timings: host-clock seconds (``prefill_s``, ``decode_s`` and
+      time; timings: host-clock seconds (``prefill_s``, ``decode_s``,
       ``sync_s``, the part of the decode loop spent waiting to read the
-      sequence lengths back); cache / params: the final cache and the
-      parameters, for inspection."""
+      sequence lengths back, and ``pool_s``, the pool rounds' own time,
+      each ending in a synchronise: the prefill extents before
+      ``prefill_s`` starts, the decode pages inside ``decode_s``);
+      cache / params: the final cache and the parameters, for
+      inspection."""
 
     tokens: torch.Tensor
     prompt: torch.Tensor
@@ -59,6 +63,7 @@ class ServeResult:
     page_ids: torch.Tensor
     stats: dict
     prefill_stats: dict
+    pool_kind: str
     pool_rounds: int
     page_allocs: int
     alloc_us: float
@@ -99,11 +104,14 @@ def serve(cfg: ArchConfig, *, batch: int, prompt_len: int,
         raise ValueError(f"batch {B} exceeds the pool's {T} hardware "
                          f"threads (a fleet of pools waits for ROADMAP A2)")
     rows = []
+    t0 = time.perf_counter()
     for b in range(B):
         pages = pool.alloc_pages(P, thread=b % T)
         if pages.shape[0] != P:
             raise RuntimeError(f"page pool exhausted at request {b}")
         rows.append(pages)
+    _sync(dev)
+    pool_s = time.perf_counter() - t0
     pool_rounds = B
     prefill_stats = pool.stats
 
@@ -145,7 +153,10 @@ def serve(cfg: ArchConfig, *, batch: int, prompt_len: int,
         sync_s += time.perf_counter() - ts
         need = (pos % page) == 0
         if need.any():
+            tp = time.perf_counter()
             _, resp = pool.alloc_page_batch(np.pad(need, (0, T - B)))
+            _sync(dev)
+            pool_s += time.perf_counter() - tp
             pool_rounds += 1
             page_allocs += int(need.sum())
             alloc_cyc += float(resp.latency_cyc.max())
@@ -159,11 +170,11 @@ def serve(cfg: ArchConfig, *, batch: int, prompt_len: int,
     return ServeResult(
         tokens=torch.cat(out, dim=1), prompt=tokens, logits=logits,
         logits_finite=bool(finite), page_ids=page_ids, stats=pool.stats,
-        prefill_stats=prefill_stats,
+        prefill_stats=prefill_stats, pool_kind=pool.client.kind,
         pool_rounds=pool_rounds, page_allocs=page_allocs,
         alloc_us=alloc_cyc / pool.client.cfg.dpu.freq_hz * 1e6,
         timings={"prefill_s": prefill_s, "decode_s": decode_s,
-                 "sync_s": sync_s},
+                 "sync_s": sync_s, "pool_s": pool_s},
         cache=cache, params=params)
 
 

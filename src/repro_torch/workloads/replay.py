@@ -1,7 +1,8 @@
 """Closed-loop tape replay through the port's backends.
 
     PYTHONPATH=src python -m repro_torch.workloads.replay \\
-        benchmarks/tapes/*.json [--check] [--device cuda|cpu]
+        benchmarks/tapes/*.json [--kinds all|sw,hwsw,...] [--check] \\
+        [--device cuda|cpu]
 
 Replays a recorded `Trace` round by round through `heap.step` on one core:
 each round's pointer operands are resolved on the device from a slot file
@@ -10,9 +11,17 @@ a real workload, not a transplant of foreign pointers.
 
 Every replay emits a heap-health report: op/ok/fail counts, dropped frees,
 modeled latency stats, and the telemetry of `repro_torch.core.telemetry`.
-``--check`` holds each kind to its committed ``expect`` digests (the port's
-``fused`` kind to the reference's ``pallas`` block, which equals ``hwsw``)
-and requires a zero conservation residual; exit code 1 on any violation.
+``--check`` verifies the cross-backend contract on each tape:
+
+  * the tape is clean by `trace_lint`;
+  * every kind's response stream matches its committed ``expect`` block
+    (the port's ``fused`` kind the reference's ``pallas`` block);
+  * ``fused`` == ``hwsw`` on the full response stream (kernel parity) and
+    ``sw`` == ``hwsw`` on the semantic fields (ptr/ok/path/moved: the
+    metadata cache may only change latencies and counters);
+  * the conservation residual is zero for every kind.
+
+Exit code 1 on any violation.
 """
 from __future__ import annotations
 
@@ -24,10 +33,11 @@ import torch
 
 from ..core import heap, system as sysm, telemetry
 from ..core.heap import AllocRequest, AllocResponse
-from .trace import Trace, response_digest
+from .trace import Trace, response_digest, trace_lint
 
-# the reference's expect block each port kind is held to
+# the reference's expect block each port kind is held to (else its own)
 EXPECT_KEY = {"fused": "pallas"}
+PARITY_PAIRS = (("fused", "hwsw", "full"), ("sw", "hwsw", "semantic"))
 
 
 def _make_cfg(trace: Trace, kind: str) -> sysm.SystemConfig:
@@ -79,14 +89,14 @@ def replay_rounds(cfg, state, op, size, ptr_ref, ptr_raw):
     return state, AllocResponse(*(torch.stack(f) for f in zip(*resps)))
 
 
-def replay(trace: Trace, kind: str = "fused", device="cuda"):
+def replay(trace: Trace, kind: str = "sw", device="cuda"):
     """Replay one tape on one backend, on one core.
 
     Returns (resps, state, report): the stacked [R, T] AllocResponse (on the
     device), the final SystemState, and the heap-health report dict."""
     cfg = _make_cfg(trace, kind)
     state = heap.init(cfg, device=device)
-    dev = state.alloc.counts.device
+    dev = state.telem.live_bytes.device
 
     def tape(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)[:, None]
@@ -130,18 +140,29 @@ def replay(trace: Trace, kind: str = "fused", device="cuda"):
         "digest_full": response_digest(resps),
         "digest_sem": response_digest(resps, semantic_only=True),
         "telemetry": telemetry.snapshot(cfg, state),
-        "stats_dropped_frees": int(state.alloc.stats.dropped_frees[0]),
     }
+    if kind != "strawman":
+        report["stats_dropped_frees"] = int(state.alloc.stats.dropped_frees[0])
     return resps, state, report
 
 
+def replay_all_kinds(trace: Trace, kinds=None, device="cuda") -> dict:
+    """{kind: (resps, report)} over the registry (or an explicit subset)."""
+    out = {}
+    for kind in (kinds or heap.kinds()):
+        resps, _, report = replay(trace, kind, device)
+        out[kind] = (resps, report)
+    return out
+
+
 def check_trace(trace: Trace, kinds=None, results=None, device="cuda") -> list:
-    """Hold each kind's replay to the committed expectations; returns error
-    strings. ``results`` reuses prior {kind: report} replays."""
-    errs = []
+    """Verify the cross-backend contract; returns error strings.
+    ``results`` reuses prior {kind: report} replays (else every kind
+    replays here)."""
+    errs = list(trace_lint(trace))
     if results is None:
-        results = {k: replay(trace, k, device)[2]
-                   for k in (kinds or heap.kinds())}
+        results = {k: rep for k, (_, rep) in
+                   replay_all_kinds(trace, kinds, device).items()}
     for kind, rep in results.items():
         exp_key = EXPECT_KEY.get(kind, kind)
         exp = trace.expect.get(exp_key)
@@ -161,21 +182,51 @@ def check_trace(trace: Trace, kinds=None, results=None, device="cuda") -> list:
         if rep["telemetry"]["conservation_residual"] != 0:
             errs.append(f"{trace.name}/{kind}: conservation residual "
                         f"{rep['telemetry']['conservation_residual']}")
+    for a, b, level in PARITY_PAIRS:
+        if a not in results or b not in results:
+            continue
+        key = "digest_full" if level == "full" else "digest_sem"
+        if results[a][key] != results[b][key]:
+            errs.append(f"{trace.name}: {a} != {b} on {level} response "
+                        "stream")
     return errs
+
+
+def attach_expectations(trace: Trace, kinds=None, device="cuda") -> dict:
+    """Replay on every kind (or `kinds`) and set `trace.expect` in the
+    reference's layout, each kind under its `EXPECT_KEY`, in memory
+    (nothing is written); returns the reports."""
+    reports = {}
+    trace.expect = {}
+    for kind, (_, rep) in replay_all_kinds(trace, kinds, device).items():
+        trace.expect[EXPECT_KEY.get(kind, kind)] = {
+            "digest_full": rep["digest_full"],
+            "digest_sem": rep["digest_sem"],
+            "ok_ops": rep["ok_ops"],
+            "dropped_frees": rep["dropped_frees"],
+            "live_bytes": rep["telemetry"]["live_bytes"],
+            "hwm_bytes": rep["telemetry"]["hwm_bytes"],
+        }
+        reports[kind] = rep
+    return reports
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("tapes", nargs="+", help="trace JSON files")
+    ap.add_argument("--kinds", default="all",
+                    help="comma-separated backend subset (default: all)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--check", action="store_true",
                     help="verify committed digests; exit 1 on any mismatch")
     args = ap.parse_args(argv)
+    kinds = None if args.kinds == "all" else tuple(args.kinds.split(","))
 
     failures = []
     for path in args.tapes:
         trace = Trace.load(path)
-        reports = {k: replay(trace, k, args.device)[2] for k in heap.kinds()}
+        reports = {k: rep for k, (_, rep) in
+                   replay_all_kinds(trace, kinds, args.device).items()}
         if args.check:
             errs = check_trace(trace, results=reports)
             failures.extend(errs)

@@ -1,4 +1,5 @@
-"""Allocation-trace tapes (schema ``pim-malloc-trace/v1``) and digests.
+"""Allocation-trace tapes (schema ``pim-malloc-trace/v1``), digests and the
+tape lint.
 
 A tape is a fixed-shape sequence of protocol rounds captured from a real
 allocation-heavy workload. Pointer operands are stored symbolically: each
@@ -16,6 +17,8 @@ import hashlib
 import json
 
 import numpy as np
+
+from ..core import heap
 
 TRACE_SCHEMA = "pim-malloc-trace/v1"
 
@@ -96,3 +99,79 @@ class Trace:
     def load(cls, path: str) -> "Trace":
         with open(path) as f:
             return cls.from_json(json.load(f))
+
+
+def trace_lint(trace: Trace) -> list:
+    """Machine-checkable well-formedness rules for a tape; returns
+    human-readable findings (empty == clean). The reference's rules:
+
+      ops        every op code is one of the protocol ops.
+      refs       a ``ptr_ref`` names a slot of a strictly earlier round and
+                 lies inside the tape.
+      race-A     within one round, two threads must not operate on the
+                 same pointer chain (a duplicate ``ptr_ref``): the outcome
+                 of racing same-chain ops is round-order-defined UB across
+                 backends.
+      race-B     a suspect free-class op (raw pointer operand with no
+                 producing slot) must not share a round with a
+                 metadata-creating op (MALLOC / CALLOC / growing REALLOC).
+      epoch      no small ref (a producer within the size classes,
+                 ``meta.max_size_class``, default 2048) may survive an
+                 EPOCH_RESET round: arena kinds retire it at round start.
+    """
+    errs = []
+    op, size, ref = trace.op, trace.size, trace.ptr_ref
+    raw = trace.ptr_raw
+    R, T = op.shape
+    known = (heap.OP_NOOP, heap.OP_MALLOC, heap.OP_FREE, heap.OP_REALLOC,
+             heap.OP_CALLOC, heap.OP_EPOCH_RESET)
+    bad_op = ~np.isin(op, known)
+    for r, t in zip(*np.nonzero(bad_op)):
+        errs.append(f"[lint:ops] round {r} thread {t}: unknown op code "
+                    f"{int(op[r, t])}")
+
+    has_ref = ref >= 0
+    this_round_base = (np.arange(R) * T)[:, None]
+    bad_ref = has_ref & ((ref >= this_round_base) | (ref >= R * T))
+    for r, t in zip(*np.nonzero(bad_ref)):
+        errs.append(f"[lint:refs] round {r} thread {t}: ptr_ref "
+                    f"{int(ref[r, t])} does not name an earlier round's slot")
+
+    creator = (op == heap.OP_MALLOC) | (op == heap.OP_CALLOC) | \
+        ((op == heap.OP_REALLOC) & (size > 0))
+    free_class = (op == heap.OP_FREE) | ((op == heap.OP_REALLOC) &
+                                         (size <= 0))
+    suspect = free_class & ~has_ref & (raw >= 0)
+    for r in range(R):
+        refs_r = ref[r][has_ref[r]]
+        uniq, counts = np.unique(refs_r, return_counts=True)
+        for s in uniq[counts > 1]:
+            ts = [int(t) for t in np.nonzero(ref[r] == s)[0]]
+            errs.append(f"[lint:race-A] round {r}: threads {ts} both operate "
+                        f"on the chain produced at slot {int(s)} — "
+                        "same-round pointer race (modeled UB)")
+        if suspect[r].any() and creator[r].any():
+            ts = [int(t) for t in np.nonzero(suspect[r])[0]]
+            cs = [int(t) for t in np.nonzero(creator[r])[0]]
+            errs.append(f"[lint:race-B] round {r}: suspect free-class ops on "
+                        f"threads {ts} (raw pointer, no producing slot) race "
+                        f"metadata-creating ops on threads {cs} — "
+                        "same-round pointer race (modeled UB)")
+
+    any_reset = (op == heap.OP_EPOCH_RESET).any(axis=1)
+    if any_reset.any():
+        cum = np.cumsum(any_reset)   # resets in rounds [0..r]
+        max_class = int(trace.meta.get("max_size_class", 2048))
+        for r, t in zip(*np.nonzero(has_ref & ~bad_ref)):
+            s = int(ref[r, t])
+            rs, ts = divmod(s, T)
+            psize = int(size[rs, ts])
+            # resets in (rs, r]: a reset applies at round start, before
+            # that round's allocs, so the producer's own round does not
+            # count
+            if 0 < psize <= max_class and cum[r] - cum[rs] > 0:
+                errs.append(
+                    f"[lint:epoch] round {r} thread {t}: ref to slot {s} "
+                    f"({psize} B, produced round {rs}) crosses an epoch "
+                    "reset — arena-managed pointers do not survive a reset")
+    return errs

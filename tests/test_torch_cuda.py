@@ -812,3 +812,107 @@ def test_attention_wrappers_raise_on_a_launch_error_on_card(cuda, kernel,
     with pytest.raises(RuntimeError, match="launch failed"):
         fn(*args)
     assert fn.launches == n
+
+
+# ---------------------------------------------------------------------------
+# the scan-based design points (strawman, sw, hwsw): plain PyTorch rounds
+# ---------------------------------------------------------------------------
+def scan_session(device, kinds, cores, rounds, seed=0):
+    """The first `rounds` rounds of chip_smoke's session stream at the
+    paper's width through `kinds` in lockstep, each kind resolving its own
+    slots; asserts `chip_smoke.scan_mismatches` finds nothing after every
+    round. Returns the final states and configs."""
+    import chip_smoke as cs
+    cfgs = {k: cs.paper_cfg(k) for k in kinds}
+    tape = cs.session_tape(np.random.default_rng(seed), rounds, cores,
+                           cfgs[kinds[0]].num_threads)
+    states = {k: heap.init(cfgs[k], num_cores=cores, device=device)
+              for k in kinds}
+    sess = {k: cs.slot_file(tape, device) for k in kinds}
+    for r in range(rounds):
+        resps = {}
+        for k in kinds:
+            req = sess[k].request(r)
+            states[k], resps[k] = heap.step(cfgs[k], states[k], req)
+            sess[k].record(r, req, resps[k])
+        assert cs.scan_mismatches(r, resps, states) == []
+    return states, cfgs
+
+
+def test_hwsw_equals_fused_and_sw_equals_hwsw_at_paper_width_on_card(cuda):
+    """512 cores of 32 MiB heaps, T=16: hwsw == fused on every response
+    field and state leaf, sw == hwsw on the semantic fields and the
+    allocator state, residual 0 on every core."""
+    from repro_torch.core import telemetry
+    states, cfgs = scan_session(cuda, ("hwsw", "fused", "sw"), 512, 3)
+    for k, st in states.items():
+        assert not np.any(telemetry.conservation_residuals(cfgs[k], st)), k
+
+
+def test_strawman_residual_zero_at_paper_width_on_card(cuda):
+    """The straw-man heap at 512 cores (2^21-node trees: 4 GiB): two
+    rounds of the session stream leave every core's residual 0."""
+    from repro_torch.core import telemetry
+    states, cfgs = scan_session(cuda, ("strawman",), 512, 2)
+    resid = telemetry.conservation_residuals(cfgs["strawman"],
+                                             states["strawman"])
+    assert resid.shape == (512,) and not np.any(resid)
+
+
+def test_cache_tie_rules_on_card(cuda):
+    """The LRU cache's tie rules on the card equal the CPU's (first
+    matching entry, first entry of least last_used), and so does the
+    trace sim."""
+    from repro_torch.core import buddy_cache as bc
+    tags = torch.tensor([[-1, -1, -1, -1], [3, 5, 3, 7], [2, 9, 4, 6],
+                         [-1, 8, -1, 1]], dtype=torch.int32)
+    lu = torch.tensor([[-1, -1, -1, -1], [4, 1, 1, 0], [2, 2, 2, 2],
+                       [-1, 5, -1, 3]], dtype=torch.int32)
+    clock = torch.tensor([0, 5, 3, 6], dtype=torch.int32)
+    rng = np.random.default_rng(0)
+    tr = torch.from_numpy(np.where(rng.random((4, 5, 9)) < 0.3, -1,
+                                   rng.integers(0, 200, (4, 5, 9)))
+                          .astype(np.int32))
+    cfg = bc.BuddyCacheConfig(n_entries=4)
+    outs = {}
+    for dev in ("cpu", cuda):
+        st = bc.BuddyCacheState(tags.to(dev), lu.to(dev), clock.to(dev))
+        node = torch.tensor([48, 50, 33, 0], dtype=torch.int32, device=dev)
+        st1, hit, dram = bc.buddy_cache_access(cfg, st, node)
+        st2, stats = bc.simulate_traces(
+            lambda s, n: bc.buddy_cache_access(cfg, s, n), st1, tr.to(dev))
+        outs[str(dev)] = [x.cpu() for x in (*st1, hit, dram, *st2, *stats)]
+    for a, b in zip(outs["cpu"], outs[str(cuda)]):
+        assert torch.equal(a, b)
+    # word 3 sits in entries 0 and 2 of core 1: the hit takes entry 0
+    assert outs["cpu"][1][1, 0] == 5
+
+
+@pytest.mark.parametrize("kind", ["strawman", "sw", "hwsw"])
+def test_scan_kind_on_card_equals_cpu(cuda, kind):
+    """The mixed stream of the kernel tests through a scan-based kind on
+    the card and on the CPU: every response field and state leaf equal."""
+    from repro_torch import convert
+    cfg = system.SystemConfig(
+        kind=kind, heap_bytes=HEAP, num_threads=T,
+        pm=pim_malloc.PimMallocConfig(heap_bytes=HEAP, num_threads=T,
+                                      cap=CAP))
+    hs = {d: heap.MultiCoreHeap(cfg, C, device=d) for d in ("cpu", cuda)}
+    rng = np.random.default_rng(9)
+    live = [[] for _ in range(C)]
+    for r in range(12):
+        op, size, ptr = mixed_round(rng, live)
+        resps = {d: h.step(heap.AllocRequest(*(torch.from_numpy(x)
+                                               for x in (op, size, ptr))))
+                 for d, h in hs.items()}
+        for f in heap.AllocResponse._fields:
+            assert torch.equal(getattr(resps["cpu"], f),
+                               getattr(resps[cuda], f).cpu()), (r, f)
+        for a, b in zip(convert.leaves(hs["cpu"].state),
+                        convert.leaves(hs[cuda].state)):
+            assert torch.equal(a, b.cpu()), r
+        got = resps["cpu"]
+        for c, t in np.ndindex(op.shape):
+            p = int(got.ptr[c, t])
+            if p >= 0 and op[c, t] in (1, 3, 4):
+                live[c].append(p)

@@ -1,10 +1,11 @@
 """The port stands alone: importing every module of `repro_torch`,
 chip_smoke.py and the tools (flash_mutants, heap_mutants, kernel_ab,
-serve_phase, warp_latency) pulls in neither JAX nor any module of the reference.
+scan_ops, serve_phase, warp_latency) pulls in neither JAX nor any module of the reference.
 
 Among them the kernel entry point `kernels.ops` with its oracles
-`kernels.ref` and the modules of the buddy, freelist and flash-attention
-kernels."""
+`kernels.ref`, the modules of the buddy, freelist and flash-attention
+kernels, the scan-based design points and the design-space model (whose
+constants the port keeps in its own copy)."""
 import subprocess
 import sys
 from pathlib import Path
@@ -21,9 +22,13 @@ import chip_smoke
 import flash_mutants
 import heap_mutants
 import kernel_ab
+import scan_ops
 import serve_phase
 import warp_latency
 from repro_torch.kernels import ops
+from repro_torch.core import design_space, heap
+assert heap.kinds() == ("strawman", "sw", "hwsw", "fused")
+assert design_space.STRATEGIES[-1] == "pim_meta_pim_exec"
 assert all(callable(getattr(ops, n)) for n in (
     "buddy_alloc_batch", "freelist_op", "paged_attention_op",
     "flash_attention_op", "buddy_alloc_batch_ref", "freelist_op_ref",
@@ -45,4 +50,4 @@ def test_port_imports_no_jax_and_no_reference():
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     n = int(out.stdout.split("N ")[1].split()[0])
-    assert n >= 39, out.stdout  # every module of the package was imported
+    assert n >= 40, out.stdout  # every module of the package was imported

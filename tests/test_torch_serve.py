@@ -12,9 +12,10 @@ carried across by `convert.params_from_reference`):
     K/V pages to 1e-5 * max|K/V| (|K| and |V| reach ~30, because the
     reference's init takes fan-in = shape[-2] = KVH for wk / wv, so one
     fp32 ulp there is ~2e-6), greedy tokens and seq_lens exact;
-  * `PagePool` / `HeapClient` (kind ``fused``) against the reference's
-    ``pallas`` kind: page ids, responses (latencies included), stats and
-    telemetry exact; page ids also against its ``sw`` kind;
+  * `PagePool` / `HeapClient` against the reference's: at the default
+    kind (``sw`` on both sides) and as ``fused`` against ``pallas``: page
+    ids, responses (latencies included), stats, telemetry and `gc`
+    exact; the two kinds' page ids against each other;
   * `serve` end to end against the reference's `serve.main` steps replayed
     here: tokens, page ids and pool stats exact;
   * the device rule: the entry points default to the card and raise here.
@@ -299,6 +300,8 @@ def _script(pool, np_):
     out.append(pool.evict(int(exts[2][0]), [int(exts[1][0]), -1],
                           thread=2))
     out.append(pool.stats)
+    pool.gc()  # merges fully free blocks back; live bytes unchanged
+    out += [pool.stats, pool.client.telemetry()]
     return out
 
 
@@ -313,28 +316,54 @@ def _assert_same(got, want, path="script"):
         assert got == want, path
 
 
+def _np(x):
+    return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
 def test_page_pool_matches_reference_pallas_and_sw():
     n_pages = 1 << 16  # the serve path's pool: a 1 MiB heap
-    want = _script(jpaged.PagePool(n_pages, kind="pallas"), np.asarray)
-    tpool = tpaged.PagePool(n_pages, device="cpu")
-    assert tpool.client.kind == "fused"
-    got = _script(tpool, lambda x: x.numpy() if isinstance(
-        x, torch.Tensor) else np.asarray(x))
-    assert len(got) == len(want)
-    for i, (g, w) in enumerate(zip(got, want)):
-        _assert_same(g, w, f"call {i}")
-    # the scan-based sw kind hands out the same pages
-    sw = _script(jpaged.PagePool(n_pages, kind="sw"), np.asarray)
+    jpool, tpool = jpaged.PagePool(n_pages), tpaged.PagePool(n_pages,
+                                                             device="cpu")
+    assert tpool.client.kind == jpool.client.kind == "sw"
+    got, want = _script(tpool, _np), _script(jpool, np.asarray)
+    fused = _script(tpaged.PagePool(n_pages, kind="fused", device="cpu"),
+                    _np)
+    pallas = _script(jpaged.PagePool(n_pages, kind="pallas"), np.asarray)
+    for g_all, w_all in ((got, want), (fused, pallas)):
+        assert len(g_all) == len(w_all)
+        for i, (g, w) in enumerate(zip(g_all, w_all)):
+            _assert_same(g, w, f"call {i}")
+    # the two kinds hand out the same pages
     for i in (0, 2, 4, 6, 8, 10, 13):
-        np.testing.assert_array_equal(got[i], sw[i], err_msg=f"call {i}")
-    assert got[-1]["front_hits"] > 0 and got[-1]["fails"] == 1
-    assert got[-1]["dropped_frees"] == 1
+        np.testing.assert_array_equal(got[i], fused[i], err_msg=f"call {i}")
+    stats = got[-3]
+    assert stats["front_hits"] > 0 and stats["fails"] == 1
+    assert stats["dropped_frees"] == 1
+    assert got[-2]["gc_blocks"] > 0
 
 
 def test_heap_client_matches_reference():
+    """At the default kind, the reference's ``sw`` on both sides."""
+    from repro.core import api as japi
+    jc = japi.HeapClient(heap_bytes=1 << 20)
+    tc = tapi.HeapClient(heap_bytes=1 << 20, device="cpu")
+    _client_script(jc, tc)
+    assert (tc.kind, tc.num_threads, tc.heap_bytes) == \
+        ("sw", jc.num_threads, jc.heap_bytes)
+
+
+def test_heap_client_fused_matches_reference_pallas():
     from repro.core import api as japi
     jc = japi.HeapClient(heap_bytes=1 << 20, kind="pallas")
-    tc = tapi.HeapClient(heap_bytes=1 << 20, device="cpu")
+    tc = tapi.HeapClient(heap_bytes=1 << 20, kind="fused", device="cpu")
+    _client_script(jc, tc)
+    assert tc.kind == "fused"
+
+
+def _client_script(jc, tc):
+    """Every call's result, the stats, the telemetry, then `gc` and the
+    state it leaves, the reference's client `jc` against the port's
+    `tc`."""
     assert jc.malloc(100, thread=3) == tc.malloc(100, thread=3)
     p = jc.calloc(4, 300, thread=1)
     assert p == tc.calloc(4, 300, thread=1)
@@ -362,8 +391,12 @@ def test_heap_client_matches_reference():
                                       np.asarray(getattr(je, f)), f)
     assert tc.stats == jc.stats
     assert tc.telemetry() == jc.telemetry()
-    assert (tc.kind, tc.num_threads, tc.heap_bytes) == \
-        ("fused", jc.num_threads, jc.heap_bytes)
+    jc.gc()
+    tc.gc()
+    assert tc.stats == jc.stats and tc.stats["gc_blocks"] > 0
+    assert tc.telemetry() == jc.telemetry()
+    for a, b in zip(convert.leaves(tc.state), jax.tree.leaves(jc.state)):
+        np.testing.assert_array_equal(a.numpy()[0], np.asarray(b))
 
 
 # ------------------------------------------------------------ serve e2e --

@@ -4,7 +4,9 @@ bf16 rounding, and fails one that misses a KV tile or rounds p to bf16.
 tools/flash_mutants.py's broken kernels still apply to the kernel sources
 (flash and paged attention), and so do tools/heap_mutants.py's broken
 run-carves to the heap-step kernel; phase 6's reading agrees with its
-check.
+check. Phase 5b's checks fail a doctored sw / hwsw / fused mismatch (and
+let sw differ from hwsw in latencies, which the metadata cache sets) and
+a nonzero residual.
 """
 import sys
 from pathlib import Path
@@ -111,3 +113,65 @@ def test_pa_reading_agrees_with_the_phase_6_check(scale):
     except AssertionError:
         raised = True
     assert raised == (share > 1.0), share
+
+
+def _scan_round():
+    """One mixed round through hwsw, fused and sw at a small geometry."""
+    from repro_torch.core import heap, pim_malloc, system
+    from test_torch_cuda import C, CAP, HEAP, T, mixed_round
+    rng = np.random.default_rng(4)
+    req = heap.AllocRequest(*(torch.from_numpy(x) for x in mixed_round(
+        rng, [[] for _ in range(C)])))
+    resps, states = {}, {}
+    for k in ("hwsw", "fused", "sw"):
+        cfg = system.SystemConfig(
+            kind=k, heap_bytes=HEAP, num_threads=T,
+            pm=pim_malloc.PimMallocConfig(heap_bytes=HEAP, num_threads=T,
+                                          cap=CAP))
+        st = heap.init(cfg, num_cores=C, device="cpu")
+        states[k], resps[k] = heap.step(cfg, st, req)
+    return resps, states
+
+
+def test_scan_checks_pass_the_kinds_and_fail_a_doctored_mismatch():
+    resps, states = _scan_round()
+    assert chip_smoke.scan_mismatches(0, resps, states) == []
+    # sw may differ from hwsw in what the metadata cache sets
+    lat = resps["sw"].latency_cyc + 1
+    assert chip_smoke.scan_mismatches(
+        0, dict(resps, sw=resps["sw"]._replace(latency_cyc=lat)),
+        states) == []
+    doctored = [
+        ("sw", "ptr", "sw != hwsw on response ptr"),
+        ("sw", "path", "sw != hwsw on response path"),
+        ("hwsw", "latency_cyc", "hwsw != fused on response latency_cyc"),
+        ("fused", "meta_misses", "hwsw != fused on response meta_misses")]
+    for kind, field, want in doctored:
+        bad = getattr(resps[kind], field).clone()
+        bad.view(-1)[0] += 1
+        errs = chip_smoke.scan_mismatches(
+            3, dict(resps, **{kind: resps[kind]._replace(**{field: bad})}),
+            states)
+        assert f"round 3: {want}" in errs, (kind, field, errs)
+    # a state leaf: sw's allocator, hwsw's cache
+    sw = states["sw"]
+    counts = sw.alloc.counts.clone()
+    counts[0, 0, 0] += 1
+    errs = chip_smoke.scan_mismatches(0, resps, dict(
+        states, sw=sw._replace(alloc=sw.alloc._replace(counts=counts))))
+    assert any(e.startswith("round 0: sw != hwsw on state leaf") for e in
+               errs), errs
+    hw = states["hwsw"]
+    tags = hw.cache.tags.clone()
+    tags[1, 0] = 12345
+    errs = chip_smoke.scan_mismatches(0, resps, dict(
+        states, hwsw=hw._replace(cache=hw.cache._replace(tags=tags))))
+    assert any(e.startswith("round 0: hwsw != fused on state leaf") for e in
+               errs), errs
+
+
+def test_scan_residual_check_fails_a_nonzero_residual():
+    chip_smoke.check_residuals("sw", np.zeros(512, np.int64))
+    with pytest.raises(AssertionError, match="nonzero on 1 of 512 cores"):
+        chip_smoke.check_residuals("strawman",
+                                   np.eye(1, 512, 7, dtype=np.int64)[0] * 32)
