@@ -46,6 +46,30 @@ Phases (each raises on failure; nothing is caught and carried on):
      of every kind; each kind's ms per `heap.step` round (host clock,
      ending in a synchronise), and one more round under the profiler for
      its device launches and busy share;
+ 5c. the layered and checked design points and the sharded tier (plain
+     PyTorch rounds; the arena kinds' spills over ``fused`` launch the
+     heap kernel): (a) the four tapes through ``sanitizer``, ``arena`` and
+     ``tlregion``, the arena kinds over ``hwsw`` and over ``fused``, each
+     held to its kind's committed expect block, residual 0; (b) the first
+     16 rounds of phase 5's stream with every 8th round an EPOCH_RESET on
+     every core (lint clean), through arena and tlregion over each
+     backend from fresh states in lockstep at C=512: over fused == over
+     hwsw on every response field and state leaf every round, residual 0,
+     the heap kernel's launches (counter set to 0 just before, read just
+     after) and the share of core-rounds on which, by the responses, no
+     thread needed its backend; (c) the sanitizer on the same stream
+     without resets (every tag 0, FIFO quarantine, residual 0) and on a
+     seeded misuse stream of 32 rounds, reset at round 24 (double frees,
+     frees through pointers retired by moving reallocs, realloc after
+     free, frees of blocks that left the quarantine, wild and misaligned
+     pointers, stale pointers after a reset): the reports == the
+     generator's counts on every core (the quarantine's parked and
+     evicted counts included), FIFO quarantine, residual 0, and its first
+     8 cores on the card == on the CPU; (d)
+     ShardedHeap(R=4, C=128) == MultiCoreHeap(C=512) per (rank, core) on
+     hwsw and fused over 8 rounds, and `fleet_pressure`; (e) each new
+     kind's ms per round (host clock) and one profiled round (launches,
+     busy share), and the phase's peak device memory;
   6. the paged-attention kernels (split and merge) against their plain
      version on the card (fp32 to 2e-5, bf16 to 2e-2, atol = rtol): MHA,
      GQA and MQA at head_dim 32 and 128 with seq_len 0, 1, a page boundary
@@ -136,6 +160,14 @@ PLAIN_ROUNDS = 8     # rounds the plain version is timed over
 PROFILE_ROUNDS = 10  # steps in the profiler window (2 of them warm-up)
 SCAN_KINDS = ("hwsw", "sw", "strawman")  # the reference's scan-based kinds
 STRAW_ROUNDS = 8     # session rounds strawman serves in phase 5b
+REGION_KINDS = ("arena", "tlregion")  # the region frontends (phase 5c)
+INNERS = ("hwsw", "fused")  # the backends their spills go to
+RESET_EVERY = 8      # every 8th round of phase 5c's stream resets
+SHARD_RANKS = 4      # ShardedHeap ranks in phase 5c (x CORES / 4 cores)
+SHARD_ROUNDS = 8     # session rounds of the sharded tier
+SMALL_CORES = 8      # the sanitizer's card-against-CPU check
+MISUSE_ROUNDS = 32   # rounds of the sanitizer's misuse stream (phase 5c)
+OP_EPOCH_RESET = 5   # the protocol's reset op (repro_torch.core.heap)
 
 PA_SOURCE = "src/repro_torch/kernels/csrc/paged_attention.cu"
 PA_REPLACES = "src/repro/kernels/paged_attention.py:94"
@@ -199,9 +231,13 @@ FA_FULL = (("flash_attention", "granite-3-8b prefill",
             (1, 8192, 8192, 32, 8, 128, True, 0)))
 
 
-def session_tape(rng, rounds, cores, threads):
+def session_tape(rng, rounds, cores, threads, reset_every=None):
     """A [R, C, T] tape of ops, sizes and slot refs: each thread frees or
-    reallocates only slots it produced earlier and has not released."""
+    reallocates only slots it produced earlier and has not released. With
+    `reset_every`, every such round (the 8th, 16th, ... for 8) is an
+    EPOCH_RESET round on every thread of every core, after which no ref
+    reaches a slot produced before it; the other rounds take their ops
+    and sizes from the same draws."""
     import numpy as np
     shape = (rounds, cores, threads)
     kind = rng.choice(5, size=shape, p=[0.40, 0.30, 0.15, 0.10, 0.05])
@@ -212,6 +248,10 @@ def session_tape(rng, rounds, cores, threads):
     ref = np.full(shape, -1, np.int32)
     live = [[[] for _ in range(threads)] for _ in range(cores)]
     for r in range(rounds):
+        if reset_every and r % reset_every == reset_every - 1:
+            op[r] = OP_EPOCH_RESET
+            live = [[[] for _ in range(threads)] for _ in range(cores)]
+            continue
         for c in range(cores):
             for t in range(threads):
                 k, own = kind[r, c, t], live[c][t]
@@ -234,12 +274,14 @@ def session_tape(rng, rounds, cores, threads):
     return op, size, ref
 
 
-def slot_file(tape, device):
-    """The session tape on the device, its refs resolved by a SlotFile."""
+def slot_file(tape, device, cores=None):
+    """An [R, C, T] tape (op, size, ref[, raw]) on the device, its first
+    `cores` cores (all by default), its refs resolved by a SlotFile."""
     import torch
     from repro_torch.workloads.replay import SlotFile
-    op, size, ref = (torch.from_numpy(a).to(device) for a in tape)
-    return SlotFile(op, size, ref, torch.full_like(ref, -1))
+    op, size, ref, *raw = (torch.from_numpy(a[:, :cores].copy()).to(device)
+                           for a in tape)
+    return SlotFile(op, size, ref, raw[0] if raw else torch.full_like(ref, -1))
 
 
 def state_args(state):
@@ -511,8 +553,9 @@ def profile_steps(cfg, fresh, reqs):
         launches / n, kernel_events(prof)[1], top[:5]
 
 
-def paper_cfg(kind):
-    """The paper's allocator (Table 3) behind heap kind `kind`."""
+def paper_cfg(kind, **kw):
+    """The paper's allocator (Table 3) behind heap kind `kind` (`kw`: more
+    `SystemConfig` fields, e.g. ``arena_inner``)."""
     from repro_torch.configs.paper_upmem import CONFIG
     from repro_torch.core import system as sysm
     from repro_torch.core.pim_malloc import PimMallocConfig
@@ -525,7 +568,7 @@ def paper_cfg(kind):
                            block_bytes=CONFIG.block_bytes),
         straw=sysm.StrawmanConfig(heap_bytes=CONFIG.heap_bytes,
                                   num_threads=CONFIG.num_threads,
-                                  min_block=CONFIG.min_block))
+                                  min_block=CONFIG.min_block), **kw)
 
 
 def run(seed, device, cores=CORES, rounds=ROUNDS):
@@ -693,25 +736,40 @@ def scan_mismatches(r, resps, states):
     """Where the kinds of one session round disagree: hwsw against fused
     on every response field and state leaf, sw against hwsw on the
     semantic fields and the allocator state. Returns error strings."""
-    import torch
     from repro_torch.convert import leaves
     from repro_torch.workloads.trace import SEMANTIC_FIELDS
-    from repro_torch.core.heap import AllocResponse
     errs = []
-    pairs = (("hwsw", "fused", AllocResponse._fields, leaves),
+    pairs = (("hwsw", "fused", None, None),
              ("sw", "hwsw", SEMANTIC_FIELDS, lambda st: leaves(st.alloc)))
     for a, b, fields, state_leaves in pairs:
-        if a not in resps or b not in resps:
-            continue
-        for f in fields:
-            if not torch.equal(getattr(resps[a], f), getattr(resps[b], f)):
-                errs.append(f"round {r}: {a} != {b} on response {f}")
-        la, lb = state_leaves(states[a]), state_leaves(states[b])
-        if len(la) != len(lb):
-            errs.append(f"round {r}: {a} and {b} states differ in layout")
-        for i, (x, y) in enumerate(zip(la, lb)):
-            if x.shape != y.shape or not torch.equal(x, y):
-                errs.append(f"round {r}: {a} != {b} on state leaf {i}")
+        if a in resps and b in resps:
+            errs += pair_mismatches(r, a, b, resps[a], resps[b], states[a],
+                                    states[b], fields, state_leaves)
+    return errs
+
+
+def pair_mismatches(r, a, b, resp_a, resp_b, st_a, st_b, fields=None,
+                    state_leaves=None):
+    """Where two runs of one round disagree: the response `fields` (all by
+    default) and the leaves `state_leaves(state)` (every leaf by default),
+    bit for bit, shapes included. Returns error strings naming run `a`
+    against run `b`."""
+    import torch
+    from repro_torch.convert import leaves
+    fields = resp_a._fields if fields is None else fields
+    state_leaves = leaves if state_leaves is None else state_leaves
+    errs = []
+    for f in fields:
+        x, y = getattr(resp_a, f), getattr(resp_b, f)
+        if x.shape != y.shape or not torch.equal(x, y.to(x.device)):
+            errs.append(f"round {r}: {a} != {b} on response {f}")
+    la, lb = state_leaves(st_a), state_leaves(st_b)
+    if len(la) != len(lb):
+        errs.append(f"round {r}: {a} and {b} states differ in layout")
+    for i, (x, y) in enumerate(zip(la, lb)):
+        if x.shape != y.shape or not torch.equal(x, y.to(x.device)):
+            errs.append(f"round {r}: {a} != {b} on state leaf {i} "
+                        f"{tuple(x.shape)}")
     return errs
 
 
@@ -722,6 +780,73 @@ def check_residuals(kind, resid):
     if bad:
         raise AssertionError(f"{kind}: conservation residual nonzero on "
                              f"{bad} of {len(resid)} cores")
+
+
+def sync(device):
+    import torch
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def kind_run(cfg, tape, device, cores=None):
+    """A lockstep run of heap kind `cfg` from a fresh state over the first
+    `cores` cores (all by default) of an [R, C, T] tape (op, size, ref[,
+    raw]): [its step, its state, the slot file resolving its refs]."""
+    import functools
+    from repro_torch.core import heap
+    cores = tape[0].shape[1] if cores is None else cores
+    return [functools.partial(heap.step, cfg),
+            heap.init(cfg, num_cores=cores, device=device),
+            slot_file(tape, device, cores)]
+
+
+def heap_object_run(h, lead, tape, device):
+    """A lockstep run of a `MultiCoreHeap` or `ShardedHeap` `h` whose
+    state leaves lead with the axes `lead` ((C,) or (R, C)), over an
+    [R, C, T] tape whose C is all of h's cores: its requests reshaped to
+    `lead`, its responses and state leaves folded back onto one core axis
+    (views)."""
+    from repro_torch.convert import leaves
+    from repro_torch.core.heap import AllocRequest
+
+    def fold(x):
+        return x.reshape((math.prod(lead),) + x.shape[len(lead):])
+
+    def step(_, req):
+        resp = h.step(AllocRequest(*(x.reshape(lead + (-1,)) for x in req)))
+        return (tuple(fold(x) for x in leaves(h.state)),
+                type(resp)(*(fold(x) for x in resp)))
+
+    return [step, None, slot_file(tape, device)]
+
+
+def lockstep(runs, rounds, device, check=None, times=None, served=None,
+             what="lockstep"):
+    """Step runs {name: [step, state, slot file]} (`step(state, req)` ->
+    (state, response)) over `rounds` rounds in lockstep, each resolving
+    its own slots; a run stops after `served[name]` rounds where given.
+    Each step ends in a synchronise; with `times` its host-clock seconds
+    go to `times[name]`. After every round `check(r, reqs, resps,
+    states)`, over the runs that stepped, returns error strings, and the
+    first round with any raises."""
+    for r in range(rounds):
+        reqs, resps = {}, {}
+        for name, run in runs.items():
+            if served is not None and r >= served[name]:
+                continue
+            step, state, sess = run
+            reqs[name] = req = sess.request(r)
+            sync(device)
+            t0 = time.perf_counter()
+            run[1], resps[name] = step(state, req)
+            sync(device)
+            if times is not None:
+                times[name].append(time.perf_counter() - t0)
+            sess.record(r, req, resps[name])
+        errs = check(r, reqs, resps, {n: runs[n][1] for n in resps}) \
+            if check is not None else []
+        if errs:
+            raise AssertionError(f"{what}: " + "; ".join(errs[:8]))
 
 
 def profile_round(cfg, state, req):
@@ -750,8 +875,43 @@ def profile_round(cfg, state, req):
         launches, top[:5]
 
 
+def profiled(cfg, state, req, device):
+    """(state, (busy ms, wall ms, launches, top)) of one more round under
+    the profiler on the card; the round runs unprofiled elsewhere."""
+    from repro_torch.core import heap
+    if device.type != "cuda":
+        state, _ = heap.step(cfg, state, req)
+        return state, (None, 0.0, 0, [])
+    state, busy, wall, launches, top = profile_round(cfg, state, req)
+    return state, (busy, wall, launches, top)
+
+
+def print_times(label, times, prof, smi=None, ops=None):
+    """The host-clock round times of one kind (and its allocator ops/s
+    over `ops` ops, where given) and its profiled round; returns them."""
+    ms = [1e3 * t for t in times]
+    mean = sum(ms) / len(ms)
+    busy, wall, launches, top = prof
+    busy_s = "not measured" if busy is None else \
+        f"{busy:.4f} of {wall:.3f} ms ({100 * busy / wall:.1f} %)"
+    rate = "" if ops is None else \
+        f", {ops / sum(times):.4g} allocator ops/s"
+    card = "" if smi is None else f" [{smi}]"
+    print(f"{label}: {mean:.3f} ms per heap.step round (host clock, mean "
+          f"of {len(ms)}, min {min(ms):.3f}, max {max(ms):.3f}){rate}; one "
+          f"more round under the profiler: {launches} device launches, "
+          f"device busy {busy_s}; top: " + "; ".join(
+              f"{name} {t:.4f} ms x{c}" for t, c, name in top[:3]) + card)
+    out = dict(ms_per_round=mean, round_ms=ms, profile_busy_ms=busy,
+               profile_wall_ms=wall, launches_per_round=launches,
+               profile_top=[list(t) for t in top])
+    if ops is not None:
+        out["ops_per_s"] = ops / sum(times)
+    return out
+
+
 def phase_scan(seed, device, fused_reports, cores=CORES,
-               rounds=CHECK_ROUNDS, straw_rounds=STRAW_ROUNDS):
+               rounds=CHECK_ROUNDS, straw_rounds=STRAW_ROUNDS, smi=None):
     """Phase 5b: (a) the tapes through the scan-based kinds; (b) the first
     `rounds` rounds of phase 5's stream through hwsw, sw, strawman (its
     first `straw_rounds`) and fused from fresh states in lockstep, each
@@ -761,8 +921,8 @@ def phase_scan(seed, device, fused_reports, cores=CORES,
     then one more round of the stream under the profiler for its device
     launches and busy share. Returns the result dict."""
     import numpy as np
-    import torch
-    from repro_torch.core import heap, telemetry
+    from repro_torch.core import telemetry
+    from repro_torch.core.heap import AllocResponse
     from repro_torch.kernels import heap_step
     t_phase = time.perf_counter()
     replayed = phase_scan_tapes(device, fused_reports)
@@ -773,30 +933,16 @@ def phase_scan(seed, device, fused_reports, cores=CORES,
     cfgs = {k: paper_cfg(k) for k in kinds}
     T = cfgs["fused"].num_threads
     tape = session_tape(np.random.default_rng(seed), ROUNDS, cores, T)
-    states = {k: heap.init(cfgs[k], num_cores=cores, device=device)
-              for k in kinds}
-    sess = {k: slot_file(tape, device) for k in kinds}
+    runs = {k: kind_run(cfgs[k], tape, device) for k in kinds}
     served = {k: min(rounds, straw_rounds) if k == "strawman" else rounds
               for k in kinds}
     times = {k: [] for k in kinds}
     t_setup = time.perf_counter() - t0
     launches_before = heap_step.fused_heap_step.launches
     t0 = time.perf_counter()
-    for r in range(rounds):
-        resps = {}
-        for k in kinds:
-            if r >= served[k]:
-                continue
-            req = sess[k].request(r)
-            torch.cuda.synchronize()
-            ts = time.perf_counter()
-            states[k], resps[k] = heap.step(cfgs[k], states[k], req)
-            torch.cuda.synchronize()
-            times[k].append(time.perf_counter() - ts)
-            sess[k].record(r, req, resps[k])
-        errs = scan_mismatches(r, resps, states)
-        if errs:
-            raise AssertionError("; ".join(errs[:8]))
+    lockstep(runs, rounds, device, times=times, served=served,
+             check=lambda r, reqs, resps, states:
+             scan_mismatches(r, resps, states), what="session")
     t_session = time.perf_counter() - t0
     fused_launches = heap_step.fused_heap_step.launches - launches_before
     if device.type == "cuda" and fused_launches != rounds:
@@ -806,44 +952,549 @@ def phase_scan(seed, device, fused_reports, cores=CORES,
     t0 = time.perf_counter()
     for k in kinds:
         check_residuals(k, telemetry.conservation_residuals(cfgs[k],
-                                                            states[k]))
+                                                            runs[k][1]))
     t_resid = time.perf_counter() - t0
     ops = {k: int((tape[0][:served[k]] != 0).sum()) for k in kinds}
     print(f"session: {rounds} rounds at C={cores} T={T} (strawman "
           f"{served['strawman']}): hwsw == fused on all "
-          f"{len(resps['fused']._fields)} response fields and every state "
-          f"leaf, sw == hwsw on ptr/ok/path/moved and the allocator state, "
-          f"residual 0 on every core of {', '.join(kinds)}")
+          f"{len(AllocResponse._fields)} response fields and every state "
+          f"leaf, sw == hwsw on ptr/ok/path/moved and the "
+          f"allocator state, residual 0 on every core of {', '.join(kinds)}")
     out = {"tape_rounds": replayed, "rounds": rounds,
            "straw_rounds": served["strawman"], "kinds": {}}
     t0 = time.perf_counter()
     for k in kinds:
-        r = served[k]  # the next round of the stream, under the profiler
-        req = sess[k].request(r)
-        states[k], busy, wall, launches, top = profile_round(
-            cfgs[k], states[k], req)
-        ms = 1e3 * sum(times[k]) / len(times[k])
-        busy_s = "not measured" if busy is None else \
-            f"{busy:.4f} of {wall:.3f} ms ({100 * busy / wall:.1f} %)"
-        print(f"{k}: {ms:.3f} ms per heap.step round (host clock, mean of "
-              f"{len(times[k])}, min {1e3 * min(times[k]):.3f}, max "
-              f"{1e3 * max(times[k]):.3f}), {ops[k] / sum(times[k]):.4g} "
-              f"allocator ops/s; round {r} under the profiler: {launches} "
-              f"device launches, device busy {busy_s}; top: " + "; ".join(
-                  f"{name} {t:.4f} ms x{c}" for t, c, name in top[:3]))
-        out["kinds"][k] = dict(
-            ms_per_round=ms, round_ms=[1e3 * t for t in times[k]],
-            ops_per_s=ops[k] / sum(times[k]), profile_busy_ms=busy,
-            profile_wall_ms=wall, launches_per_round=launches,
-            profile_top=[list(t) for t in top])
+        # the next round of the stream, under the profiler
+        runs[k][1], prof = profiled(cfgs[k], runs[k][1],
+                                    runs[k][2].request(served[k]), device)
+        out["kinds"][k] = print_times(k, times[k], prof, smi, ops=ops[k])
     t_profile = time.perf_counter() - t0
-    del states
+    del runs
     out.update(phase_s=time.perf_counter() - t_phase, tapes_s=t_tapes,
                setup_s=t_setup, session_s=t_session, residual_s=t_resid,
                profile_s=t_profile)
     print(f"phase 5b took {out['phase_s']:.1f} s: tapes {t_tapes:.1f}, "
           f"set-up {t_setup:.1f}, session {t_session:.1f}, residuals "
           f"{t_resid:.1f}, profiles {t_profile:.1f}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 5c: the region frontends, the sanitizer and the sharded tier
+# ---------------------------------------------------------------------------
+def lint_cores(tape, heap_bytes):
+    """`trace_lint` on every core's [R, T] column of an [R, C, T] tape;
+    returns the findings."""
+    import numpy as np
+    from repro_torch.workloads.trace import Trace, trace_lint
+    op, size, ref = tape[:3]
+    raw = tape[3] if len(tape) > 3 else np.full_like(ref, -1)
+    errs = []
+    for c in range(op.shape[1]):
+        t = Trace(name=f"core{c}", heap_bytes=heap_bytes,
+                  num_threads=op.shape[2], recorded_kind="hwsw",
+                  description="", op=op[:, c], size=size[:, c],
+                  ptr_ref=ref[:, c], ptr_raw=raw[:, c])
+        errs += [f"core {c}: {e}" for e in trace_lint(t)]
+    return errs
+
+
+def spill_backend(req, resp):
+    """Inferred from the arena's responses, not read from the heap
+    kernel: (core-rounds on which no thread needed the spill backend,
+    the share the fused round skips; threads that needed it). A thread
+    needs it when its alloc-class op was answered by a refill, a bypass
+    or a failed backend walk (paths 1-3; the stream has no size above the
+    heap)."""
+    from repro_torch.core import heap
+    alloc_class = (req.op == heap.OP_MALLOC) | (req.op == heap.OP_CALLOC) \
+        | ((req.op == heap.OP_REALLOC) & (req.size > 0))
+    need = alloc_class & (resp.path >= 1) & (resp.path <= 3)
+    return int((~need.any(-1)).sum()), int(need.sum())
+
+
+def region_tapes(device):
+    """(a) The committed tapes through sanitizer, arena and tlregion, the
+    region kinds over each spill backend: every report held to its kind's
+    committed expect block (digests, ok ops, dropped frees, live and hwm
+    bytes) and residual 0. Returns (rounds replayed, heap-kernel
+    launches)."""
+    from repro_torch.kernels import heap_step
+    from repro_torch.workloads import replay, trace
+    runs = [("sanitizer", "hwsw")] + [(k, i) for k in REGION_KINDS
+                                      for i in INNERS]
+    before = heap_step.fused_heap_step.launches
+    replayed = 0
+    for name in TAPES:
+        tape = trace.Trace.load(str(ROOT / "benchmarks" / "tapes" /
+                                    f"{name}.json"))
+        digests = []
+        for kind, inner in runs:
+            rep = replay.replay(tape, kind, device=device,
+                                arena_inner=inner)[2]
+            errs = replay.check_trace(tape, results={kind: rep})
+            if errs:
+                raise AssertionError(f"tape {name} {kind} over {inner}: "
+                                     + "; ".join(errs))
+            replayed += tape.rounds
+            digests.append(f"{kind}/{inner} {rep['digest_full'][:12]}...")
+        print(f"tape {name}: " + ", ".join(digests) + " == their expect "
+              "blocks (digests, ok ops, dropped frees, live and hwm "
+              "bytes), residual 0")
+    return replayed, heap_step.fused_heap_step.launches - before
+
+
+def region_session(seed, device, smi, cores=CORES, rounds=CHECK_ROUNDS):
+    """(b) Phase 5's stream with every RESET_EVERY-th round a reset on
+    every core, through arena and tlregion over hwsw and over fused from
+    fresh states in lockstep; over fused == over hwsw on every field and
+    leaf every round; residual 0 on every core; the heap kernel's launches
+    (counter set to 0 just before, read just after) and the skip share
+    inferred from the responses; each run's round times and one profiled
+    round. Returns the result."""
+    import numpy as np
+    from repro_torch.core import telemetry
+    from repro_torch.kernels import heap_step
+    names = [(k, i) for k in REGION_KINDS for i in INNERS]
+    cfgs = {ki: paper_cfg(ki[0], arena_inner=ki[1]) for ki in names}
+    T = cfgs[names[0]].num_threads
+    heap_bytes = cfgs[names[0]].heap_bytes
+    tape = session_tape(np.random.default_rng(seed), rounds + 1, cores, T,
+                        reset_every=RESET_EVERY)
+    lint = lint_cores(tape, heap_bytes)
+    if lint:
+        raise AssertionError("phase 5c stream: " + "; ".join(lint[:5]))
+    runs = {ki: kind_run(cfgs[ki], tape, device) for ki in names}
+    times = {ki: [] for ki in names}
+    skipped = {k: 0 for k in REGION_KINDS}
+    spills = {k: 0 for k in REGION_KINDS}
+
+    def check(r, reqs, resps, states):
+        errs = []
+        for k in REGION_KINDS:
+            f, h = (k, "fused"), (k, "hwsw")
+            sk, sp = spill_backend(reqs[f], resps[f])
+            skipped[k] += sk
+            spills[k] += sp
+            errs += pair_mismatches(r, f"{k}/fused", f"{k}/hwsw", resps[f],
+                                    resps[h], states[f], states[h])
+        return errs
+
+    heap_step.fused_heap_step.launches = 0
+    lockstep(runs, rounds, device, check, times, what="arena session")
+    launches = heap_step.fused_heap_step.launches
+    if device.type == "cuda" and launches != 2 * rounds:
+        raise AssertionError(f"the arena kinds' fused spills launched the "
+                             f"heap kernel {launches} times in {rounds} "
+                             f"rounds of two kinds")
+    for ki in names:
+        check_residuals(f"{ki[0]} over {ki[1]}",
+                        telemetry.conservation_residuals(cfgs[ki],
+                                                         runs[ki][1]))
+    resets = int((tape[0][:rounds] == OP_EPOCH_RESET).any(-1).any(-1).sum())
+    epochs = {k: runs[(k, "fused")][1].epoch.unique().tolist()
+              for k in REGION_KINDS}
+    print(f"arena session: {rounds} rounds at C={cores} T={T} "
+          f"({resets} reset rounds on every core; lint clean), arena and "
+          f"tlregion over fused == over hwsw on all 9 response fields and "
+          f"every state leaf (cls_map, bump, epoch {epochs}, the LRU "
+          f"state, the telemetry) every round, residual 0 on every core; "
+          f"the heap kernel launched {launches} times for the spills "
+          f"({', '.join(f'{k} {v}' for k, v in spills.items())} spilled "
+          f"threads reached its backend); inferred from the responses "
+          f"(paths 1-3 of alloc-class ops), no thread needed its backend "
+          f"on " + ", ".join(
+              f"{k} {100 * skipped[k] / (cores * rounds):.2f} % "
+              f"({skipped[k]} of {cores * rounds})" for k in REGION_KINDS)
+          + " of the core-rounds")
+    out = {"rounds": rounds, "cores": cores, "launches": launches,
+           "skipped_core_rounds": skipped, "spilled_threads": spills,
+           "runs": {}}
+    for ki in names:
+        runs[ki][1], prof = profiled(cfgs[ki], runs[ki][1],
+                                     runs[ki][2].request(rounds), device)
+        out["runs"][f"{ki[0]}/{ki[1]}"] = print_times(
+            f"{ki[0]} over {ki[1]}", times[ki], prof, smi)
+    del runs
+    return out
+
+
+# the reports a misuse stream predicts: the tags, then the quarantine's
+MISUSE_KEYS = ("double_free", "use_after_free", "realloc_after_free",
+               "wild_ops", "epoch_stale", "epoch_resets")
+RING_KEYS = ("quarantined", "evicted")
+SMALL_BYTES = 2048   # the largest size class: its frees stay thread-local
+
+
+def misuse_tape(rng, rounds, cores, threads, heap_bytes, reset_round,
+                p_misuse=0.06, p_move=0.05):
+    """Phase 5's traffic with misuse injected at known (round, core,
+    thread) slots: (op, size, ref, raw) int32 [R, C, T], the expected
+    report counts {key: int64 [C]} of MISUSE_KEYS and RING_KEYS, and the
+    injections by target {name: int64 [C]}.
+
+    Injected, each into a slot that would carry a session op: a second
+    free of a slot freed in the previous round (double_free, the block
+    still quarantined); a realloc of such a slot (realloc_after_free); a
+    free of a slot retired by a moving realloc in the previous round
+    (use_after_free; the moves are forced: a small block grows to 8 KiB,
+    a bigger one shrinks to 16 B); a free of a slot whose block left the
+    quarantine in the previous round (evicted_free: its shadow is FREE
+    again, so it is tagged wild); a free of an unmapped in-heap,
+    out-of-heap or misaligned pointer (wild_ops); after the reset round
+    (every thread of every core), a free of a slot live before it
+    (epoch_stale). A slot is the target of one injection at most.
+
+    The generator keeps its own model of each core's quarantine ring:
+    every session free enters in thread order (assuming every session
+    alloc is served, which the caller checks), and past capacity the
+    oldest leaves. Only blocks of a malloc of at most SMALL_BYTES are
+    targets once evicted: their release goes to the evicting thread's own
+    freelist, so no other thread can take the block in that round."""
+    import collections
+    import numpy as np
+    from repro_torch.core.sanitizer import quarantine_slots
+    shape = (rounds, cores, threads)
+    kind = rng.choice(5, size=shape, p=[0.40, 0.30, 0.15, 0.10, 0.05])
+    lo, hi = math.log(16), math.log(16 * 1024)
+    sizes = np.exp(rng.uniform(lo, hi, size=shape)).astype(np.int32)
+    op = np.zeros(shape, np.int32)
+    size = np.zeros(shape, np.int32)
+    ref = np.full(shape, -1, np.int32)
+    raw = np.full(shape, -1, np.int32)
+    want = {k: np.zeros(cores, np.int64) for k in MISUSE_KEYS + RING_KEYS}
+    targets = {k: np.zeros(cores, np.int64) for k in (
+        "double_free", "realloc_after_free", "use_after_free",
+        "evicted_free", "wild_ops", "epoch_stale")}
+    tag_of = {"evicted_free": "wild_ops"}
+    cap = quarantine_slots(threads)
+    ring = [collections.deque() for _ in range(cores)]
+    small = [set() for _ in range(cores)]  # slots of mallocs <= SMALL_BYTES
+    hit = [set() for _ in range(cores)]    # slots already targeted
+    live = [[{} for _ in range(threads)] for _ in range(cores)]
+    freed = [[] for _ in range(cores)]   # freed in the previous round
+    moved = [[] for _ in range(cores)]   # retired by a move, previous round
+    evicted = [[] for _ in range(cores)]  # left the ring, previous round
+    stale = [[] for _ in range(cores)]   # live at the reset
+    wild = (heap_bytes - 16, heap_bytes + 64, 24)
+    for r in range(rounds):
+        if r == reset_round:
+            op[r] = OP_EPOCH_RESET
+            want["epoch_resets"] += 1
+            stale = [[s for own in live[c] for s in own]
+                     for c in range(cores)]
+            live = [[{} for _ in range(threads)] for _ in range(cores)]
+            freed = [[] for _ in range(cores)]
+            moved = [[] for _ in range(cores)]
+            evicted = [[] for _ in range(cores)]
+            continue
+        now_freed = [[] for _ in range(cores)]
+        now_moved = [[] for _ in range(cores)]
+        now_evicted = [[] for _ in range(cores)]
+        for c in range(cores):
+            for t in range(threads):
+                slot = r * threads + t
+                own = live[c][t]
+                u = rng.random()
+                if u < p_misuse:
+                    pools = {"double_free": freed[c],
+                             "realloc_after_free": freed[c],
+                             "use_after_free": moved[c],
+                             "evicted_free": evicted[c],
+                             "epoch_stale": stale[c]}
+                    options = ["wild_ops"] + [m for m, p in pools.items()
+                                              if p]
+                    m = options[rng.integers(len(options))]
+                    targets[m][c] += 1
+                    want[tag_of.get(m, m)][c] += 1
+                    op[r, c, t] = 2
+                    if m == "wild_ops":
+                        raw[r, c, t] = wild[rng.integers(len(wild))]
+                    else:
+                        pool = pools[m]
+                        ref[r, c, t] = pool.pop(rng.integers(len(pool)))
+                        hit[c].add(int(ref[r, c, t]))
+                        if m == "realloc_after_free":
+                            op[r, c, t], size[r, c, t] = 3, 64
+                    continue
+                if u < p_misuse + p_move and own:
+                    old = list(own)[rng.integers(len(own))]
+                    new_size = 8192 if own.pop(old) <= 2048 else 16
+                    op[r, c, t], size[r, c, t] = 3, new_size
+                    ref[r, c, t] = old
+                    own[slot] = new_size
+                    now_moved[c].append(old)
+                    continue
+                k = kind[r, c, t]
+                if k in (1, 2) and not own:
+                    k = 0
+                if k == 0:
+                    op[r, c, t], size[r, c, t] = 1, sizes[r, c, t]
+                    own[slot] = int(sizes[r, c, t])
+                    if sizes[r, c, t] <= SMALL_BYTES:
+                        small[c].add(slot)
+                elif k == 1:
+                    old = list(own)[rng.integers(len(own))]
+                    own.pop(old)
+                    op[r, c, t], ref[r, c, t] = 2, old
+                    now_freed[c].append(old)
+                    want["quarantined"][c] += 1
+                    if len(ring[c]) >= cap:
+                        out = ring[c].popleft()
+                        want["evicted"][c] += 1
+                        if out in small[c] and out not in hit[c]:
+                            now_evicted[c].append(out)
+                    ring[c].append(old)
+                elif k == 2:
+                    old = list(own)[rng.integers(len(own))]
+                    own.pop(old)
+                    op[r, c, t], size[r, c, t] = 3, sizes[r, c, t]
+                    ref[r, c, t] = old
+                    own[slot] = int(sizes[r, c, t])
+                elif k == 3:
+                    op[r, c, t], size[r, c, t] = 4, sizes[r, c, t]
+                    own[slot] = int(sizes[r, c, t])
+        freed, moved, evicted = now_freed, now_moved, now_evicted
+    return (op, size, ref, raw), want, targets
+
+
+class QuarantineModel:
+    """The quarantine ring on the host: every legitimate free of a round
+    (a free-class op with a pointer, answered ok) enters in thread order,
+    and past capacity the oldest leaves. `check` holds the state's ring
+    (oldest first from q_head), its length and the eviction count to it:
+    the ring evicts in FIFO order."""
+
+    def __init__(self, cores, capacity):
+        import collections
+        self.rings = [collections.deque() for _ in range(cores)]
+        self.evicted = [0] * cores
+        self.capacity = capacity
+
+    def update(self, req, resp):
+        import numpy as np
+        op, size, ptr = (x.cpu().numpy() for x in req)
+        ok = resp.ok.cpu().numpy()
+        legit = ((op == 2) | ((op == 3) & (size <= 0))) & (ptr >= 0) & ok
+        for c, t in zip(*np.nonzero(legit)):
+            ring = self.rings[c]
+            if len(ring) >= self.capacity:
+                ring.popleft()
+                self.evicted[c] += 1
+            ring.append(int(ptr[c, t]))
+
+    def check(self, state):
+        import numpy as np
+        q_ptr = state.q_ptr.cpu().numpy()
+        head = state.q_head.cpu().numpy()
+        q_len = state.q_len.cpu().numpy()
+        evicted = state.reports.evicted.cpu().numpy()
+        errs = []
+        for c, ring in enumerate(self.rings):
+            got = np.roll(q_ptr[c], -int(head[c]))[:int(q_len[c])].tolist()
+            if got != list(ring) or int(evicted[c]) != self.evicted[c]:
+                errs.append(f"core {c}: quarantine {got[:4]}... (evicted "
+                            f"{int(evicted[c])}) != FIFO model "
+                            f"{list(ring)[:4]}... ({self.evicted[c]})")
+        return errs
+
+
+def san_mismatches(reports, want):
+    """Where the sanitizer's per-core report counters differ from the
+    expected counts {key: [C]}; returns error strings."""
+    import numpy as np
+    errs = []
+    for k in want:
+        got = getattr(reports, k).cpu().numpy()
+        bad = np.flatnonzero(got != want[k])
+        if len(bad):
+            c = int(bad[0])
+            errs.append(f"{k}: {len(bad)} cores differ from the injected "
+                        f"counts (core {c}: {int(got[c])} != "
+                        f"{int(want[k][c])})")
+    return errs
+
+
+def run_stream(cfg, tape, device, rounds, times=None, model=None):
+    """Step a fresh `cfg` state over `rounds` rounds of an [R, C, T] tape
+    (op, size, ref[, raw]) on `device`, timing each round into `times`
+    and feeding `model` if given; returns (state, the slot file)."""
+    runs = {"run": kind_run(cfg, tape, device)}
+
+    def feed(r, reqs, resps, states):
+        if model is not None:
+            model.update(reqs["run"], resps["run"])
+        return []
+
+    lockstep(runs, rounds, device, feed,
+             None if times is None else {"run": times})
+    return runs["run"][1], runs["run"][2]
+
+
+def check_devices(cfg, tape, dev_a, dev_b, rounds, cores):
+    """The first `cores` cores of an [R, C, T] tape on two devices in
+    lockstep, each resolving its own slots; raises where they differ in
+    any response field or state leaf of any round."""
+    a, b = str(dev_a), str(dev_b)
+    runs = {d: kind_run(cfg, tape, torch_dev, cores)
+            for d, torch_dev in ((a, dev_a), (b, dev_b))}
+    lockstep(runs, rounds, dev_a, lambda r, reqs, resps, states:
+             pair_mismatches(r, a, b, resps[a], resps[b], states[a],
+                             states[b]), what=f"{cfg.kind} {a} != {b}")
+
+
+def sanitizer_phase(seed, device, smi, cores=CORES, rounds=CHECK_ROUNDS,
+                    misuse_rounds=MISUSE_ROUNDS, small=SMALL_CORES):
+    """(c) The sanitizer: phase 5's stream without resets (every tag 0,
+    residual 0, round times and one profiled round), then the misuse
+    stream of `misuse_rounds` at `cores`, reset 3/4 of the way (the
+    reports == the generator's counts on every core, the quarantine's
+    parked and evicted counts included; FIFO eviction; residual 0) and
+    its first `small` cores on the card == on the CPU, every field and
+    leaf every round. Returns the result."""
+    import numpy as np
+    import torch
+    from repro_torch.core import sanitizer, telemetry
+    cfg = paper_cfg("sanitizer")
+    T = cfg.num_threads
+    clean = session_tape(np.random.default_rng(seed), rounds + 1, cores, T)
+    times = []
+    model = QuarantineModel(cores, sanitizer.quarantine_slots(T))
+    state, sess = run_stream(cfg, clean, device, rounds, times=times,
+                             model=model)
+    # every tag of every round adds to one of the cumulative counters
+    counts = {k: int(getattr(state.reports, k).sum())
+              for k in sanitizer.SanReports._fields}
+    bad = sum(counts[k] for k in MISUSE_KEYS)
+    if bad or int(state.tags.abs().sum()):
+        raise AssertionError(f"sanitizer tagged a clean stream: {counts}")
+    errs = model.check(state)
+    if errs:
+        raise AssertionError("sanitizer clean stream: " + "; ".join(errs[:6]))
+    check_residuals("sanitizer", telemetry.conservation_residuals(cfg,
+                                                                  state))
+    state, prof = profiled(cfg, state, sess.request(rounds), device)
+    print(f"sanitizer, clean stream ({rounds} rounds at C={cores}): every "
+          f"tag 0, {counts['quarantined']} frees quarantined, "
+          f"{counts['evicted']} evicted in FIFO order on every core, "
+          f"residual 0 on every core")
+    out = {"clean": print_times("sanitizer", times, prof, smi)}
+    del state, sess
+
+    reset_round = misuse_rounds * 3 // 4
+    tape, want, targets = misuse_tape(np.random.default_rng(seed + 1),
+                                      misuse_rounds, cores, T,
+                                      cfg.heap_bytes, reset_round)
+    model = QuarantineModel(cores, sanitizer.quarantine_slots(T))
+    state, _ = run_stream(cfg, tape, device, misuse_rounds, model=model)
+    # the expected counts assume every session alloc was served: a failed
+    # one would leave a slot NULL (fails also counts tagged reallocs)
+    inner_fails = int((state.alloc.stats.fails
+                       - state.reports.realloc_after_free).sum())
+    if inner_fails:
+        raise AssertionError(f"sanitizer misuse stream: {inner_fails} "
+                             f"session allocs failed")
+    errs = san_mismatches(state.reports, want) + model.check(state)
+    if errs:
+        raise AssertionError("sanitizer misuse stream: "
+                             + "; ".join(errs[:6]))
+    check_residuals("sanitizer (misuse)",
+                    telemetry.conservation_residuals(cfg, state))
+    injected = {k: int(v.sum()) for k, v in targets.items()}
+    ring = {k: int(want[k].sum()) for k in RING_KEYS}
+    ring["evicting_cores"] = int((want["evicted"] > 0).sum())
+    print(f"sanitizer, misuse stream ({misuse_rounds} rounds at C={cores}, "
+          f"reset at round {reset_round}): reports == the generator's "
+          f"counts on every core (injected {injected}; evicted_free counts "
+          f"as wild_ops), quarantine FIFO on every core ("
+          f"{ring['quarantined']} parked, {ring['evicted']} evicted, on "
+          f"{ring['evicting_cores']} of {cores} cores), residual 0")
+    out.update(injected=injected, ring=ring)
+    del state
+    if device.type == "cuda":
+        check_devices(cfg, tape, device, torch.device("cpu"), misuse_rounds,
+                      small)
+        print(f"sanitizer misuse stream at C={small}: card == CPU on every "
+              f"response field and state leaf of every round")
+    return out
+
+
+def sharded_phase(seed, device, cores=CORES, ranks=SHARD_RANKS,
+                  rounds=SHARD_ROUNDS):
+    """(d) `ShardedHeap(R=ranks, C=cores / ranks)` against
+    `MultiCoreHeap(C=cores)` on hwsw and fused over `rounds` rounds of
+    phase 5's stream, each resolving its own slots: equal per (rank, core)
+    on every response field and state leaf every round; then
+    `fleet_pressure` of the sharded state. Returns the result."""
+    import numpy as np
+    from repro_torch.core import heap, telemetry
+    per = cores // ranks
+    tape = session_tape(np.random.default_rng(seed), rounds, cores,
+                        paper_cfg("hwsw").num_threads)
+    out = {}
+    for kind in ("hwsw", "fused"):
+        cfg = paper_cfg(kind)
+        sh = heap.ShardedHeap(cfg, num_ranks=ranks, num_cores=per,
+                              device=device)
+        mc = heap.MultiCoreHeap(cfg, num_cores=cores, device=device)
+        runs = {"sharded": heap_object_run(sh, (ranks, per), tape, device),
+                "multicore": heap_object_run(mc, (cores,), tape, device)}
+        lockstep(runs, rounds, device, lambda r, reqs, resps, states:
+                 pair_mismatches(r, "sharded", "multicore",
+                                 resps["sharded"], resps["multicore"],
+                                 states["sharded"], states["multicore"]),
+                 what=kind)
+        fp = telemetry.fleet_pressure(sh.state)
+        div = telemetry.hwm_divergence(fp["rank_hwm"])
+        out[kind] = {"rank_live": fp["rank_live"].tolist(),
+                     "rank_hwm": fp["rank_hwm"].tolist(),
+                     "divergence": div}
+        print(f"sharded {kind}: ShardedHeap(R={ranks}, C={per}) == "
+              f"MultiCoreHeap(C={cores}) per (rank, core) on every field and "
+              f"leaf over {rounds} rounds; fleet_pressure rank_hwm "
+              f"{fp['rank_hwm'].tolist()} B, divergence ratio "
+              f"{div['ratio']:.3f} (trigger {div['trigger']})")
+        del sh, mc, runs
+    return out
+
+
+def phase_regions(seed, device, smi, cores=CORES, rounds=CHECK_ROUNDS):
+    """Phase 5c: (a) the tapes through sanitizer, arena and tlregion;
+    (b) the arena session with resets over both spill backends; (c) the
+    sanitizer's clean and misuse streams; (d) the sharded tier; (e) each
+    new kind's round times, profiled round and the phase's peak device
+    memory. Returns the result dict."""
+    import torch
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.zeros(1, device=device)  # the allocator keeps stats from here
+        torch.cuda.reset_peak_memory_stats(device)
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    replayed, tape_launches = region_tapes(device)
+    out = {"tape_rounds": replayed, "tape_launches": tape_launches,
+           "tapes_s": time.perf_counter() - t0}
+    print(f"tapes: {replayed} rounds replayed, the heap kernel launched "
+          f"{tape_launches} times by the fused spills "
+          f"[{out['tapes_s']:.1f} s]")
+    t0 = time.perf_counter()
+    out["arena"] = region_session(seed, device, smi, cores, rounds)
+    out["arena_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["sanitizer"] = sanitizer_phase(seed, device, smi, cores, rounds)
+    out["sanitizer_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["sharded"] = sharded_phase(seed, device, cores)
+    out["sharded_s"] = time.perf_counter() - t0
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2 ** 30 \
+        if cuda else None
+    peak = "not measured" if out["peak_gib"] is None else \
+        f"{out['peak_gib']:.2f} GiB"
+    print(f"phase 5c took {out['phase_s']:.1f} s: tapes "
+          f"{out['tapes_s']:.1f}, arena {out['arena_s']:.1f}, sanitizer "
+          f"{out['sanitizer_s']:.1f}, sharded {out['sharded_s']:.1f}; peak "
+          f"device memory {peak} [{smi}]")
     return out
 
 
@@ -1661,7 +2312,10 @@ def main(argv=None) -> int:
 
     # ---- 5b: the scan-based design points ----------------------------------
     scan_result = phase_scan(args.seed, device,
-                             result.pop("fused_reports"))
+                             result.pop("fused_reports"), smi=smi)
+
+    # ---- 5c: region frontends, sanitizer, sharded tier ---------------------
+    region_result = phase_regions(args.seed, device, smi)
 
     # ---- 6: paged attention, kernel against plain version -----------------
     t0 = time.perf_counter()
@@ -1687,7 +2341,8 @@ def main(argv=None) -> int:
     print(f"phases 8-10 took {time.perf_counter() - t0:.1f} s")
     if args.out:
         with open(args.out, "w") as f:
-            json.dump(dict(result, scan=scan_result, serve=serve_result,
+            json.dump(dict(result, scan=scan_result, regions=region_result,
+                           serve=serve_result,
                            build_s=secs,
                            paged_vs_plain=worst, buddy=buddy_result,
                            freelist=fl_result, flash=fa_result, gpu=smi,

@@ -1,4 +1,4 @@
-"""Allocator client surface: `HeapClient`.
+"""Allocator client surface: `HeapClient` and the Table-2 facade.
 
 `HeapClient` is the one stateful client object consumers build on
 (`repro_torch.kvcache.PagePool` first). It drives one registered heap kind,
@@ -11,8 +11,9 @@ one PIM core serving T hardware threads, through one surface:
     leaves);
   * ``request()``: the raw protocol entry point every method routes
     through (a subclass that overrides it sees every round);
-  * ``epoch_reset``: an ``OP_EPOCH_RESET`` round (idle on every kind the
-    port has: none has an arena frontend);
+  * ``epoch_reset``: an ``OP_EPOCH_RESET`` round (the arena kinds retire
+    their epoch, the ``sanitizer`` its live shadow starts, every other
+    kind answers it as idle);
   * ``gc``: merge fully free thread-cache blocks back into the buddy;
   * ``stats`` / ``telemetry()`` / ``last_info``: the allocator counters, a
     heap-health snapshot (`repro_torch.core.telemetry`), and the per-thread
@@ -20,9 +21,14 @@ one PIM core serving T hardware threads, through one surface:
 
 Every call builds one `AllocRequest` and runs one `heap.step` round on a
 single-core state (the core axis of `heap.step` has length 1 here). The
-port of the reference's `repro.core.api`; the ``wrap`` adapter and the
-Table-2 ``Allocator`` facade wait for ROADMAP A3. The default kind is the
+port of the reference's `repro.core.api`. The default kind is the
 reference's, ``sw``.
+
+`Allocator` is the paper-facing facade (Table 2): ``initAllocator`` /
+``pimMalloc`` / ``pimFree`` / ``pimRealloc`` / ``pimCalloc`` and their
+Batch variants are aliases over the client surface. `HeapClient.wrap`
+adapts legacy duck-typed handles (the deprecated ``PagePool(alloc=)``
+hook) onto it.
 """
 from __future__ import annotations
 
@@ -57,6 +63,25 @@ class HeapClient:
         self.state: SystemState = heap.init(self.cfg, prepopulate,
                                             num_cores=1, device=self.device)
         self.last_info: AllocResponse | None = None
+
+    @classmethod
+    def wrap(cls, handle) -> "HeapClient":
+        """Adapt a legacy allocator handle onto the client surface.
+
+        Accepts a `HeapClient` (returned as it is), a zero-argument factory
+        returning one, or any duck-typed object with ``cfg`` and
+        ``request()`` (the old ``PagePool(alloc=)`` contract); anything
+        else raises TypeError."""
+        if isinstance(handle, HeapClient):
+            return handle
+        if callable(handle) and not hasattr(handle, "request"):
+            return cls.wrap(handle())
+        if not hasattr(handle, "request") or not hasattr(handle, "cfg"):
+            raise TypeError(
+                f"cannot adapt {type(handle).__name__!r} to HeapClient: "
+                "need a HeapClient, a zero-arg factory returning one, or "
+                "an object with .cfg and .request(AllocRequest)")
+        return _HandleAdapter(handle)
 
     # -- protocol entry point ------------------------------------------------
     def request(self, req: AllocRequest) -> AllocResponse:
@@ -125,18 +150,28 @@ class HeapClient:
             self._i32(nmemb), self._i32(sizes), self._mask(active)))
 
     def epoch_reset(self, active=None) -> AllocResponse:
-        """Retire the current allocation epoch (``OP_EPOCH_RESET``). The
-        port's kinds have no arena frontend and answer the round as idle
-        (ok False, path -1), as the reference's non-arena kinds do."""
+        """Retire the current allocation epoch (``OP_EPOCH_RESET``).
+
+        On ``arena`` any active thread clears the whole shared bump region
+        (idempotent across threads in one round); on ``tlregion`` each
+        active thread clears only its own region. Every pointer the arena
+        handed out this epoch is invalid afterwards (the ``trace_lint``
+        rule). The ``sanitizer`` retires every LIVE shadow start to STALE
+        and tags later uses ``epoch_stale``; the other kinds answer the
+        round as idle (ok False, path -1)."""
         return self.request(heap.epoch_reset_request(
             self.cfg.num_threads, self._mask(active), device=self.device))
 
     # -- maintenance / introspection -------------------------------------------
     def gc(self) -> None:
         """Merge fully free thread-cache blocks back into the buddy
-        (`pim_malloc.gc`, up to ``max_gc`` blocks per call). Live bytes are
-        unchanged, so the telemetry carries over; ``strawman`` has no
-        thread caches and returns at once."""
+        (`pim_malloc.gc`, up to ``max_gc`` blocks per call). Works on every
+        pim-style kind: they share the `PimMallocState` layout in
+        ``.alloc`` (the sanitizer's shadow and quarantine describe live
+        allocations, which gc never moves; the arena region lies outside
+        the thread caches). Live bytes are unchanged, so the telemetry
+        carries over; ``strawman`` has no thread caches and returns at
+        once."""
         if self.cfg.kind == "strawman":
             return
         self.state = self.state._replace(
@@ -167,3 +202,70 @@ class HeapClient:
         conservation residual (see `repro_torch.core.telemetry.snapshot`)."""
         from . import telemetry
         return telemetry.snapshot(self.cfg, self.state)
+
+
+class _HandleAdapter(HeapClient):
+    """`HeapClient.wrap` shim: forwards the protocol to a duck-typed handle
+    while exposing the whole client surface (the deprecation path of the
+    old ``PagePool(alloc=)`` hook). Requests are built on the handle's
+    ``device`` (the card when it names none)."""
+
+    def __init__(self, handle):  # no heap of its own
+        self._handle = handle
+        self.cfg = handle.cfg
+        self.device = _device.resolve(getattr(handle, "device", "cuda"))
+        self.last_info = getattr(handle, "last_info", None)
+
+    def request(self, req: AllocRequest) -> AllocResponse:
+        resp = self._handle.request(req)
+        self.last_info = resp
+        return resp
+
+    @property
+    def state(self):
+        return self._handle.state
+
+    def gc(self) -> None:
+        if hasattr(self._handle, "gc"):
+            self._handle.gc()
+
+
+class Allocator(HeapClient):
+    """A per-PIM-core allocator handle under the paper's Table 2 names
+    (pimMalloc / pimFree / pimRealloc / pimCalloc and the Batch variants),
+    thin aliases over the `HeapClient` surface."""
+
+    # -- Table 2 API ---------------------------------------------------------
+    def pimMalloc(self, size: int, thread: int = 0) -> int:
+        return self.malloc(size, thread=thread)
+
+    def pimFree(self, ptr: int, thread: int = 0) -> None:
+        self.free(ptr, thread=thread)
+
+    def pimRealloc(self, ptr: int, size: int, thread: int = 0) -> int:
+        return self.realloc(ptr, size, thread=thread)
+
+    def pimCalloc(self, nmemb: int, size: int, thread: int = 0) -> int:
+        return self.calloc(nmemb, size, thread=thread)
+
+    # -- batched (one request per hardware thread) ---------------------------
+    def pimMallocBatch(self, sizes) -> torch.Tensor:
+        return self.malloc_batch(sizes).ptr
+
+    def pimFreeBatch(self, ptrs) -> None:
+        self.free_batch(ptrs)
+
+    def pimReallocBatch(self, ptrs, sizes) -> torch.Tensor:
+        return self.realloc_batch(ptrs, sizes).ptr
+
+    def pimCallocBatch(self, nmemb, sizes) -> torch.Tensor:
+        return self.calloc_batch(nmemb, sizes).ptr
+
+
+def initAllocator(heap_bytes: int, size_classes=None, **kw) -> Allocator:
+    """Table 2's initAllocator: an `Allocator` over a ``heap_bytes`` heap
+    (keyword arguments as `HeapClient`'s: ``num_threads``, ``kind``,
+    ``device``, ...)."""
+    if size_classes is None:
+        size_classes = (16, 32, 64, 128, 256, 512, 1024, 2048)
+    return Allocator(heap_bytes=heap_bytes, size_classes=size_classes, **kw)

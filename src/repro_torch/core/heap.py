@@ -12,13 +12,21 @@ returns pointers, result paths and the DPU cost model's per-thread
 accounting.
 
 Backends register through `register` (`repro_torch.core.system`): the
-paper's scan-based design points ``strawman``, ``sw`` and ``hwsw`` as
-plain PyTorch ops, and ``fused``, the counterpart of the reference's
-``pallas`` kind: one fused CUDA kernel per round on the card, its plain
-PyTorch version on CPU tensors.
+paper's scan-based design points ``strawman``, ``sw`` and ``hwsw`` and the
+wrappers ``sanitizer``, ``arena`` and ``tlregion`` as plain PyTorch ops,
+and ``fused``, the counterpart of the reference's ``pallas`` kind: one
+fused CUDA kernel per round on the card, its plain PyTorch version on CPU
+tensors.
+
+Three tiers serve the protocol: `step` on ``[C, T]`` requests,
+`MultiCoreHeap` (C cores behind one entry point) and `ShardedHeap` (R
+ranks of C cores, ``[R, C, T]`` requests). On one device the rank axis is
+a batch axis folded onto the core axis, which is exact because cores are
+independent.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple
 
 import torch
@@ -133,9 +141,10 @@ def realloc_request(ptrs, sizes, active=None) -> AllocRequest:
 
 def epoch_reset_request(num_threads: int, active=None,
                         device="cuda") -> AllocRequest:
-    """EPOCH_RESET: bulk-retire an arena frontend's epoch. Backends without
-    an arena frontend (the port's ``fused`` kind) serve it as an idle round
-    (ok=False, path -1), so mixed-kind tapes replay everywhere."""
+    """EPOCH_RESET: bulk-retire an arena frontend's epoch (kinds ``arena``
+    and ``tlregion``). Backends without an arena frontend serve it as an
+    idle round (ok=False, path -1), so mixed-kind tapes replay everywhere;
+    the ``sanitizer`` retires every live shadow start."""
     z = torch.zeros((num_threads,), dtype=torch.int32,
                     device=_device.resolve(device))
     on = _mask(active, z)
@@ -174,7 +183,7 @@ def register(kind: str):
 
 def kinds() -> tuple:
     """The registered kinds in registration order: ``('strawman', 'sw',
-    'hwsw', 'fused')``."""
+    'hwsw', 'sanitizer', 'arena', 'tlregion', 'fused')``."""
     _ensure_backends()
     return tuple(REGISTRY)
 
@@ -290,3 +299,132 @@ class MultiCoreHeap:
 
     def calloc(self, nmemb, sizes, active=None) -> AllocResponse:
         return self._v(calloc_request, nmemb, sizes, active=active)
+
+
+# ---------------------------------------------------------------------------
+# the fleet tier: R ranks of C cores
+# ---------------------------------------------------------------------------
+def _fold(tree, n: int):
+    """Leaves ``[R, C, ...]`` as views ``[R * C, ...]``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.reshape((n,) + tree.shape[2:])
+    return type(tree)(*(_fold(x, n) for x in tree))
+
+
+def _unfold(tree, R: int, C: int):
+    if isinstance(tree, torch.Tensor):
+        return tree.reshape((R, C) + tree.shape[1:])
+    return type(tree)(*(_unfold(x, R, C) for x in tree))
+
+
+def _clone(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    return type(tree)(*(_clone(x) for x in tree))
+
+
+def sharded_init(cfg, num_ranks: int, num_cores: int,
+                 prepopulate: bool = True, device="cuda"):
+    """Fleet state: every leaf gains leading ``[R, C]`` axes (R copies of
+    the `multicore_init` state), on `device` (the card by default)."""
+    st = multicore_init(cfg, num_cores, prepopulate=prepopulate,
+                        device=device)
+
+    def rep(x):
+        if isinstance(x, torch.Tensor):
+            return x.unsqueeze(0).expand((num_ranks,) + x.shape).contiguous()
+        return type(x)(*(rep(y) for y in x))
+
+    return rep(st)
+
+
+def sharded_step(cfg, states, requests: AllocRequest):
+    """`step` over ``[R, C, T]`` requests and ``[R, C, ...]`` states: the
+    rank axis folded onto the core axis (``[R * C, ...]`` views), stepped,
+    and unfolded. Exact, since every core is independent; like `step` it
+    consumes `states`."""
+    R, C = requests.op.shape[:2]
+    states, resp = step(cfg, _fold(states, R * C),
+                        AllocRequest(*_fold(requests, R * C)))
+    return _unfold(states, R, C), _unfold(resp, R, C)
+
+
+def sharded_inner(cfg, mesh=None):
+    """The fleet round's step fn([R, C]-state, [R, C, T]-request) and its
+    mesh: ``(sharded_step bound to cfg, None)``. ``mesh`` None or False
+    both mean this one-device path; a mesh of devices raises, since the
+    multi-GPU tier is not ported yet."""
+    if mesh is not None and mesh is not False:
+        raise NotImplementedError(
+            "ShardedHeap over a device mesh: multi-GPU not ported yet "
+            "(pass mesh=None or mesh=False for the one-device rank axis)")
+    return functools.partial(sharded_step, cfg), None
+
+
+class ShardedHeap:
+    """R ranks x C cores of independent heaps behind one ``[R, C, T]``
+    entry point, on one device: the rank axis is a batch axis folded onto
+    the core axis, so results equal `MultiCoreHeap`'s per (rank, core).
+
+    ``mesh`` None or False selects this path (anything else raises:
+    multi-GPU is not ported yet). With ``donate`` (the default) each round
+    updates the state in place; without it the round works on a copy and
+    the old state tensors are left as they were. The builders' ``active``
+    mask is ``[R]`` or ``[R, C]`` (or a scalar): it selects ranks or
+    cores, never thread slots."""
+
+    def __init__(self, cfg, num_ranks: int, num_cores: int, mesh=None,
+                 prepopulate: bool = True, donate: bool = True,
+                 device="cuda"):
+        self.cfg = cfg
+        self.num_ranks = num_ranks
+        self.num_cores = num_cores
+        self._step, self.mesh = sharded_inner(cfg, mesh=mesh)
+        self.device = _device.resolve(device)
+        self.state = sharded_init(cfg, num_ranks, num_cores,
+                                  prepopulate=prepopulate,
+                                  device=self.device)
+        self.donate = donate
+
+    @property
+    def num_threads(self) -> int:
+        return self.cfg.num_threads
+
+    @property
+    def shape(self) -> tuple:
+        """(R, C, T): one slot per hardware thread in the fleet."""
+        return (self.num_ranks, self.num_cores, self.cfg.num_threads)
+
+    def step(self, request: AllocRequest) -> AllocResponse:
+        """Serve an ``[R, C, T]`` request batch; advances the state."""
+        request = AllocRequest(*(_i32(x, self.device) for x in request))
+        state = self.state if self.donate else _clone(self.state)
+        self.state, resp = self._step(state, request)
+        return resp
+
+    def _grid_mask(self, active):
+        """An ``[R]`` or ``[R, C]`` mask as ``[R, C, 1]``: it masks ranks
+        or cores, never thread slots."""
+        if active is None:
+            return None
+        m = torch.as_tensor(active, dtype=torch.bool, device=self.device)
+        m = m.reshape(m.shape + (1,) * (2 - m.dim()))
+        return torch.broadcast_to(
+            m, (self.num_ranks, self.num_cores)).reshape(
+                self.num_ranks, self.num_cores, 1)
+
+    def _vv(self, build, *args, active=None):
+        args = [_i32(a, self.device) for a in args]
+        return self.step(build(*args, active=self._grid_mask(active)))
+
+    def malloc(self, sizes, active=None) -> AllocResponse:
+        return self._vv(malloc_request, sizes, active=active)
+
+    def free(self, ptrs, active=None) -> AllocResponse:
+        return self._vv(free_request, ptrs, active=active)
+
+    def realloc(self, ptrs, sizes, active=None) -> AllocResponse:
+        return self._vv(realloc_request, ptrs, sizes, active=active)
+
+    def calloc(self, nmemb, sizes, active=None) -> AllocResponse:
+        return self._vv(calloc_request, nmemb, sizes, active=active)

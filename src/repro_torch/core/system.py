@@ -9,17 +9,28 @@ The port of `repro.core.system`:
              backend, the coarse SW metadata buffer (Section 4.1).
   hwsw     : PIM-malloc-HW/SW, the same frontend and backend, the backend's
              metadata served by the 16-entry LRU buddy cache (Section 4.2).
+  sanitizer: hwsw wrapped in a shadow map and a quarantine ring
+             (`repro_torch.core.sanitizer`): double free, use after free,
+             realloc after free and wild pointers become deterministic
+             tagged reports.
+  arena    : a shared bump-pointer region in front of the full hwsw stack
+             (`repro_torch.core.arena`): small allocs in O(1), whole
+             epochs retired by one EPOCH_RESET op, the rest spilled to the
+             backend (``arena_inner``: ``hwsw`` or ``fused``).
+  tlregion : the arena frontend with one region per thread: no
+             cross-thread atomic on the bump path, per-thread resets.
   fused    : hwsw semantics served by ONE fused round per call
              (`repro_torch.kernels.heap_step`): the hand-written CUDA kernel
              on the card, its plain PyTorch version on CPU tensors. The
              counterpart of the reference's ``pallas`` kind, and
              bitwise-equal to ``hwsw``.
 
-The first three are the reference's scan-based rounds (`_protocol_round`
-over `pim_malloc` or the straw-man allocator, then one metadata-cache pass
-over the round's backend ops in mutex order) as plain PyTorch ops on an
+The scan-based rounds (`_protocol_round` over `pim_malloc` or the
+straw-man allocator, then one metadata-cache pass over the round's backend
+ops in mutex order) and the three wrapper kinds are plain PyTorch ops on an
 explicit core axis, on whichever device the state lives; they launch no
-kernel of their own.
+kernel of their own, except the arena kinds' spills when ``arena_inner``
+is ``fused``.
 
 A step serves one mixed-op round for C cores at once (``[C, T]`` requests),
 persists the metadata-cache state across rounds, and returns per-thread
@@ -48,7 +59,10 @@ from .heap import (OP_CALLOC, OP_FREE, OP_MALLOC, OP_NOOP, OP_REALLOC,
 from .pim_malloc import INVALID, PimMallocConfig
 
 # kinds whose backend metadata goes through the LRU buddy cache
-HW_CACHE_KINDS = ("hwsw", "fused")
+HW_CACHE_KINDS = ("hwsw", "fused", "sanitizer", "arena", "tlregion")
+# the backends an arena kind can spill to (the reference's "pallas" is the
+# port's "fused")
+ARENA_INNER = ("hwsw", "fused")
 
 
 # --------------------------------------------------------------------------
@@ -188,12 +202,19 @@ class SystemConfig:
     # serial walk. Bitwise-identical either way: a speed knob, not a
     # semantic one.
     kernel_batch_refill: bool | None = None
+    # kinds ``arena`` / ``tlregion`` only: the backend their spills go to,
+    # ``hwsw`` (the scan-based rounds) or ``fused`` (the fused round: the
+    # heap-step kernel on the card). Bitwise-identical either way.
+    arena_inner: str = "hwsw"
 
     def __post_init__(self):
         heap._ensure_backends()
         if self.kind not in heap.REGISTRY:
             raise ValueError(f"unknown kind {self.kind!r} "
                              f"(registered: {tuple(heap.REGISTRY)})")
+        if self.arena_inner not in ARENA_INNER:
+            raise ValueError(f"unknown arena_inner {self.arena_inner!r} "
+                             f"(one of {ARENA_INNER})")
         if self.pm is None:
             object.__setattr__(self, "pm", PimMallocConfig(
                 heap_bytes=self.heap_bytes, num_threads=self.num_threads))
@@ -266,6 +287,11 @@ def system_init(cfg: SystemConfig, prepopulate: bool = True,
     ...]`` leaves, on `device` (the card unless the caller asks for the
     CPU; raises without a GPU)."""
     device = _device.resolve(device)
+    if cfg.kind in ("arena", "tlregion"):
+        # the layered frontend owns its region carve: the freelists start
+        # empty and refill from spills on demand
+        from . import arena
+        return _stack(arena.init_state(cfg, device=device), num_cores)
     z = torch.zeros((), dtype=torch.int32, device=device)
     if cfg.kind == "strawman":
         alloc = strawman_init(cfg.straw, device=device)
@@ -274,6 +300,9 @@ def system_init(cfg: SystemConfig, prepopulate: bool = True,
                                 device=device)
     one = SystemState(alloc=alloc, cache=cfg.cache_init(device),
                       telem=HeapTelemetry(live_bytes=z, hwm_bytes=z))
+    if cfg.kind == "sanitizer":
+        from . import sanitizer
+        one = sanitizer.init_state(cfg, one)
     return _stack(one, num_cores)
 
 
@@ -480,6 +509,33 @@ def _step_pim(cfg: SystemConfig, st: SystemState, req: AllocRequest):
         free_path_fn=lambda ev: ev.path)
 
 
+@heap.register("sanitizer")
+def _step_sanitizer(cfg: SystemConfig, st, req: AllocRequest):
+    """The shadow-heap wrapper over the hwsw design point: every
+    FREE/REALLOC operand is classified against a 16 B-granule shadow map,
+    legitimate frees wait in a FIFO quarantine, only clean work reaches
+    `_step_pim`, and poisoned operands get deterministic tagged reports
+    (`repro_torch.core.sanitizer`)."""
+    from . import sanitizer
+    return sanitizer.step(cfg, st, req, _step_pim)
+
+
+@heap.register("tlregion")
+@heap.register("arena")
+def _step_arena(cfg: SystemConfig, st, req: AllocRequest):
+    """The layered design points: a bump-pointer frontend over the pim
+    stack (`repro_torch.core.arena`). Small allocs bump into a region
+    carved out of the heap at init, OP_EPOCH_RESET retires whole epochs,
+    and everything else (big allocs, non-arena pointers, spills when the
+    region is full) goes to `_step_pim`, or to `_step_fused` (the
+    heap-step kernel on the card) when ``cfg.arena_inner == "fused"``.
+    ``arena`` shares one region; ``tlregion`` gives each thread its
+    own."""
+    from . import arena
+    inner = _step_fused if cfg.arena_inner == "fused" else _step_pim
+    return arena.step(cfg, st, req, inner)
+
+
 @heap.register("fused")
 def _step_fused(cfg: SystemConfig, st: SystemState, req: AllocRequest):
     """The fused-kernel design point: hwsw semantics, one kernel launch.
@@ -487,7 +543,8 @@ def _step_fused(cfg: SystemConfig, st: SystemState, req: AllocRequest):
     The whole round runs in `fused_heap_step`; this wrapper rebuilds the
     state tree from its outputs, folds its per-thread records into the
     allocator stats, and prices the round. The nine allocator and cache
-    tensors of `st` are updated in place, on either device."""
+    tensors of `st` are updated in place, on either device. Nothing here
+    reads ``cfg.kind``: the arena kinds spill through it too."""
     from ..kernels import heap_step
 
     pmc = cfg.pm

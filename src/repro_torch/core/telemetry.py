@@ -6,13 +6,15 @@ metadata state itself:
 
   * total buddy free bytes and the per-level histogram of maximal free
     blocks (external fragmentation),
-  * bytes parked in the thread-cache frontend (carved but not handed out;
-    0 for ``strawman``, which has none),
+  * bytes parked in the frontend (carved but not handed out: the thread
+    caches, 0 for ``strawman``, which has none, and the arena kinds'
+    unplaced region bytes),
   * the conservation law both sides satisfy together:
 
         live_bytes + free_bytes + cached_frontend_bytes == heap_bytes
 
-Reporting code, not part of a round. The tree walk runs in PyTorch on the
+`fleet_pressure` and `hwm_divergence` read a fleet's ``[R, C]``
+telemetry. Reporting code, not part of a round. The tree walk runs in PyTorch on the
 state's own device, a few cores at a time (a straw-man tree of a 32 MiB
 heap has 2^21 nodes per core), and the results come back as NumPy; one
 call covers all cores of a stacked state.
@@ -90,13 +92,66 @@ def free_bytes_from_histogram(bcfg: BuddyConfig, hist) -> np.ndarray:
 
 
 def frontend_cached_bytes(cfg, state) -> np.ndarray:
-    """Bytes parked in the per-thread LIFO freelists, per core (0 for
-    ``strawman``)."""
+    """Bytes parked in the frontend, per core: free sub-blocks in the
+    per-thread LIFO freelists (0 for ``strawman``), plus, for the
+    ``arena`` / ``tlregion`` kinds, every arena byte not placed (unbumped
+    space and retired holes: neither live nor buddy-free, so the frontend
+    owns them until the next epoch reset). The arena's placements are
+    summed on the map's device; only per-core totals come back."""
     if cfg.kind == "strawman":
         return np.zeros(np.shape(_np(state.telem.live_bytes)), np.int64)
     counts = np.asarray(_np(state.alloc.counts), np.int64)
     class_sizes = np.asarray(cfg.pm.size_classes, np.int64)
-    return (counts * class_sizes).sum((-2, -1))
+    cached = (counts * class_sizes).sum((-2, -1))
+    if cfg.kind in ("arena", "tlregion"):
+        from . import arena
+        cached = cached + arena.arena_bytes(cfg) - _np(
+            arena.arena_live_bytes(cfg, state.cls_map)).astype(np.int64)
+    return cached
+
+
+def fleet_pressure(state) -> dict:
+    """Per-rank heap-pressure signal from a fleet state's telemetry.
+
+    ``state.telem`` carries per-core live / high-water counters with
+    leading ``[R, C]`` axes. Returns host arrays: ``live`` / ``hwm`` as
+    ``[R, C]`` int64 plus the per-rank maxima (the hottest core of a rank
+    stalls its whole round barrier)."""
+    live = np.asarray(_np(state.telem.live_bytes), np.int64)
+    hwm = np.asarray(_np(state.telem.hwm_bytes), np.int64)
+    if live.ndim != 2:
+        raise ValueError(f"fleet_pressure wants [R, C] telemetry, "
+                         f"got shape {live.shape}")
+    return {
+        "live": live,
+        "hwm": hwm,
+        "rank_live": live.max(axis=1),
+        "rank_hwm": hwm.max(axis=1),
+    }
+
+
+def hwm_divergence(rank_hwm, ratio: float = 2.0, min_bytes: int = 1) -> dict:
+    """Whether per-rank high-water marks have diverged.
+
+    ``trigger`` is True when the hottest rank's HWM exceeds ``ratio`` times
+    ``max(coldest, min_bytes)`` and is at least ``min_bytes`` (a floor, so
+    an idle fleet whose coldest rank sits at 0 triggers nothing). Host
+    code over any array-like."""
+    h = np.asarray(_np(rank_hwm), np.int64).reshape(-1)
+    if h.shape[0] == 0:
+        raise ValueError("empty rank_hwm")
+    hot = int(np.argmax(h))
+    cold = int(np.argmin(h))
+    floor = max(int(h[cold]), int(min_bytes))
+    return {
+        "hottest_rank": hot,
+        "coldest_rank": cold,
+        "hottest_hwm": int(h[hot]),
+        "coldest_hwm": int(h[cold]),
+        "ratio": float(h[hot]) / float(floor),
+        "trigger": bool(h[hot] >= int(min_bytes)
+                        and float(h[hot]) > ratio * floor),
+    }
 
 
 def conservation_residuals(cfg, state) -> np.ndarray:

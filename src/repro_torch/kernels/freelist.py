@@ -141,3 +141,109 @@ def bulk_refill(stacks, counts, sel, cls, rows, new_counts):
                          stacks)
     counts = torch.where(pick, new_counts[..., None], counts)
     return stacks, counts
+
+
+# ---------------------------------------------------------------------------
+# the arena frontend's helpers (the bump-pointer fast path ahead of the
+# buddy mutex phase, see `repro_torch.core.arena`): plain PyTorch ops over
+# an explicit leading core axis, the counterparts of the reference's
+# pure-jnp `arena_*` helpers (not Pallas kernels there either)
+# ---------------------------------------------------------------------------
+# map elements a reset pass reads at once: bounds its temporaries
+RESET_CHUNK = 1 << 24
+
+
+def drop_set_(table, idx, val, on):
+    """``table[c, idx[c, t]] = val[c, t]`` where ``on[c, t]``, in place, on
+    a ``[C, n]`` table; a lane that is not ``on`` writes nothing (the
+    reference's drop-mode scatter through a park slot at index n).
+
+    Indices of ``on`` lanes are clamped into the table, as the reference's
+    are. A masked lane is sent to the index of its core's first ``on``
+    lane with that lane's value, or, in a core without one, writes back
+    what the core's slot 0 holds: every duplicate index then carries one
+    value, so the scatter is deterministic on either device. Returns
+    `table`."""
+    n = table.shape[-1]
+    val = torch.as_tensor(val, dtype=table.dtype,
+                          device=table.device).expand(idx.shape)
+    i = idx.clamp(0, n - 1)
+    first = on.to(torch.int8).argmax(-1, keepdim=True)
+    any_on = on.any(-1, keepdim=True)
+    i0 = torch.where(any_on, i.gather(-1, first), 0)
+    v0 = torch.where(any_on, val.gather(-1, first), table[:, :1])
+    table.scatter_(-1, torch.where(on, i, i0).long(),
+                   torch.where(on, val, v0))
+    return table
+
+
+def arena_bump_shared(bump, cand, gneed, limit: int):
+    """Shared-arena bump allocation; contenders serialize in thread order.
+
+    bump int32 [C] granules consumed; cand bool [C, T] attempts this
+    round; gneed int32 [C, T] granules wanted. A failed fit consumes no
+    space, so a later, smaller request can still be served: a loop of T
+    steps on ``[C]`` tensors (no cumsum gives that exactly). Returns
+    (new bump [C], start granule int32 [C, T] (-1 on fail), served bool
+    [C, T])."""
+    g0, served = [], []
+    for t in range(cand.shape[-1]):
+        need = gneed[:, t]
+        fits = cand[:, t] & (bump + need <= limit)
+        g0.append(torch.where(fits, bump, -1))
+        served.append(fits)
+        bump = bump + torch.where(fits, need, 0)
+    return (bump.to(torch.int32), torch.stack(g0, -1).to(torch.int32),
+            torch.stack(served, -1))
+
+
+def arena_bump_tl(bump, cand, gneed, region_gran: int):
+    """Per-thread-region bump allocation (the tlregion fast path): no
+    cross-thread serialization. bump int32 [C, T], each an offset inside
+    thread t's private region of ``region_gran`` granules. Returns (new
+    bump, absolute start granule int32 [C, T] (-1 on fail), served)."""
+    T = bump.shape[-1]
+    fits = cand & (bump + gneed <= region_gran)
+    base = torch.arange(T, dtype=torch.int32, device=bump.device) \
+        * region_gran
+    g0 = torch.where(fits, base + bump, -1).to(torch.int32)
+    return (bump + torch.where(fits, gneed, 0)).to(torch.int32), g0, fits
+
+
+def arena_mark(cls_map, g, cls, on):
+    """Record arena placements: ``cls_map[c, g] = cls`` where ``on``
+    (drop-mode, see `drop_set_`). Updates ``cls_map [C, n]`` in place and
+    returns it."""
+    return drop_set_(cls_map, g, cls, on)
+
+
+def arena_hole(cls_map, g, on):
+    """Retire arena blocks: ``cls_map[c, g] = -1`` where ``on`` (bump
+    space is not reclaimed until the next epoch reset: holes stay holes).
+    In place; returns `cls_map`."""
+    return drop_set_(cls_map, g, -1, on)
+
+
+def arena_region_reset(cls_map, class_sizes, region_mask):
+    """Bulk epoch reset: clear every placement where ``region_mask`` holds.
+
+    ``cls_map`` is ``[C, ...]`` (``[C, n]``, or a thread-region view
+    ``[C, T, region_gran]``) and ``region_mask`` broadcasts against it
+    (``[C, 1]`` for a whole map, ``[C, T, 1]`` per thread region).
+    Updates the map in place and returns (cls_map, freed int32 [C]): the
+    rounded bytes being retired, the telemetry delta. Class indices are
+    clamped into the class table, as the reference clamps them; the pass
+    runs a few cores at a time to bound its temporaries."""
+    C = cls_map.shape[0]
+    nc = class_sizes.shape[0]
+    mask = torch.broadcast_to(region_mask, cls_map.shape)
+    per_core = max(1, cls_map[0].numel())
+    step = max(1, RESET_CHUNK // per_core)
+    freed = []
+    for c0 in range(0, C, step):
+        m, k = cls_map[c0:c0 + step], mask[c0:c0 + step]
+        live = k & (m >= 0)
+        b = torch.where(live, class_sizes[m.clamp(0, nc - 1).long()], 0)
+        freed.append(b.flatten(1).sum(1, dtype=torch.int32))
+        m.masked_fill_(k, -1)
+    return cls_map, torch.cat(freed).to(torch.int32)

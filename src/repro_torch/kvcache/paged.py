@@ -165,18 +165,32 @@ class PagePool:
 
     Every page free routes through the protocol's free path: a stale or
     repeated page id reaches the backend and shows up in
-    `Stats.dropped_frees` instead of being absorbed host-side. The
-    reference's deprecated ``alloc=`` hook is not ported (ROADMAP A3).
+    `Stats.dropped_frees` instead of being absorbed host-side.
     """
 
     def __init__(self, n_pages: int, num_threads: int = 16,
                  kind: str = "sw", client: api.HeapClient = None,
-                 device="cuda"):
+                 alloc=None, device="cuda"):
         """``client`` injects a `HeapClient` whose heap spans
-        n_pages * PAGE_UNIT bytes; otherwise one is built on `device`."""
+        n_pages * PAGE_UNIT bytes; otherwise one is built on `device`.
+
+        ``alloc`` is the deprecated injection hook: an Allocator-compatible
+        handle (or a zero-argument factory returning one). It is still
+        accepted, with a DeprecationWarning, and adapted through
+        `HeapClient.wrap`."""
         if n_pages <= 0 or n_pages & (n_pages - 1):
             raise ValueError(f"n_pages must be a power of two, got {n_pages}")
         self.n_pages = n_pages
+        if alloc is not None:
+            import warnings
+            warnings.warn(
+                "PagePool(alloc=...) is deprecated: pass client=HeapClient "
+                "(or any HeapClient subclass); bare handles/factories are "
+                "adapted via HeapClient.wrap for now",
+                DeprecationWarning, stacklevel=2)
+            if client is not None:
+                raise TypeError("pass either client= or (deprecated) alloc=")
+            client = api.HeapClient.wrap(alloc)
         if client is None:
             client = api.HeapClient(heap_bytes=n_pages * PAGE_UNIT,
                                     num_threads=num_threads, kind=kind,
@@ -188,6 +202,7 @@ class PagePool:
             raise ValueError(f"client heap {client.cfg.heap_bytes} B != "
                              f"{n_pages} pages x {PAGE_UNIT} B")
         self.client = client
+        self.alloc = client  # the old name: callers read pool.alloc
         self.cfg = client.cfg.pm  # block_bytes=4096: 256-page refills
 
     @property

@@ -15,7 +15,8 @@ modeled latency stats, and the telemetry of `repro_torch.core.telemetry`.
 
   * the tape is clean by `trace_lint`;
   * every kind's response stream matches its committed ``expect`` block
-    (the port's ``fused`` kind the reference's ``pallas`` block);
+    (the port's ``fused`` kind the reference's ``pallas`` block; the arena
+    kinds replayed with ``arena_inner="fused"`` their own blocks too);
   * ``fused`` == ``hwsw`` on the full response stream (kernel parity) and
     ``sw`` == ``hwsw`` on the semantic fields (ptr/ok/path/moved: the
     metadata cache may only change latencies and counters);
@@ -40,9 +41,11 @@ EXPECT_KEY = {"fused": "pallas"}
 PARITY_PAIRS = (("fused", "hwsw", "full"), ("sw", "hwsw", "semantic"))
 
 
-def _make_cfg(trace: Trace, kind: str) -> sysm.SystemConfig:
+def _make_cfg(trace: Trace, kind: str,
+              arena_inner: str = "hwsw") -> sysm.SystemConfig:
     return sysm.SystemConfig(kind=kind, heap_bytes=trace.heap_bytes,
-                             num_threads=trace.num_threads)
+                             num_threads=trace.num_threads,
+                             arena_inner=arena_inner)
 
 
 class SlotFile:
@@ -89,12 +92,14 @@ def replay_rounds(cfg, state, op, size, ptr_ref, ptr_raw):
     return state, AllocResponse(*(torch.stack(f) for f in zip(*resps)))
 
 
-def replay(trace: Trace, kind: str = "sw", device="cuda"):
-    """Replay one tape on one backend, on one core.
+def replay(trace: Trace, kind: str = "sw", device="cuda",
+           arena_inner: str = "hwsw"):
+    """Replay one tape on one backend, on one core; the arena kinds spill
+    to ``arena_inner`` (``hwsw`` or ``fused``: the same results).
 
     Returns (resps, state, report): the stacked [R, T] AllocResponse (on the
     device), the final SystemState, and the heap-health report dict."""
-    cfg = _make_cfg(trace, kind)
+    cfg = _make_cfg(trace, kind, arena_inner)
     state = heap.init(cfg, device=device)
     dev = state.telem.live_bytes.device
 

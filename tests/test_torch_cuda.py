@@ -1,10 +1,13 @@
-"""The CUDA kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card, and
+the heap kinds on the card against the CPU.
 
 This file imports nothing of JAX or of the reference, so that it runs on a
 GPU machine that has neither; on a machine without a GPU its card tests
-skip with a reason. It also holds the seeded mixed-op stream and the
-paged-attention sweep that the CPU differential tests
-(test_torch_heap_step.py, test_torch_paged_attention.py) share.
+skip with a reason. It also holds the seeded mixed-op stream, the
+closed-loop stream with epoch resets and the paged-attention sweep that
+the CPU differential tests (test_torch_heap_step.py,
+test_torch_paged_attention.py, test_torch_arena.py,
+test_torch_sanitizer.py) share.
 
 The heap-step kernel's tolerance is exact equality: all 31 outputs of a
 round are int32. The paged-attention kernel's are stated at `TOL`.
@@ -916,3 +919,133 @@ def test_scan_kind_on_card_equals_cpu(cuda, kind):
             p = int(got.ptr[c, t])
             if p >= 0 and op[c, t] in (1, 3, 4):
                 live[c].append(p)
+
+
+# ---------------------------------------------------------------------------
+# the region frontends, the sanitizer and the sharded tier: plain PyTorch
+# rounds (the arena kinds' spills launch the heap kernel over ``fused``)
+# ---------------------------------------------------------------------------
+def closed_loop(seed, rounds=24, cores=C, threads=T, heap_bytes=HEAP):
+    """[C, T] rounds of a closed loop: malloc / calloc / free / realloc of
+    every size regime (arena-sized, spills, 0), NULL and garbage pointers
+    (-16, heap end, misaligned); every 8th round resets on some cores (all
+    or some of their threads), and a core that resets drops its live
+    pointers, as the reference's conformance stream does."""
+    rng = np.random.default_rng(seed)
+    live = [[] for _ in range(cores)]
+    for r in range(rounds):
+        op = np.zeros((cores, threads), np.int32)
+        size = np.zeros_like(op)
+        ptr = np.full_like(op, -1)
+        for c in range(cores):
+            if r % 8 == 7 and rng.random() < 0.7:
+                op[c] = np.where(rng.random(threads) < 0.7, 5, 0)
+                live[c].clear()
+                continue
+            for t in range(threads):
+                k = int(rng.choice([1, 1, 2, 3, 4]))
+                op[c, t] = k
+                size[c, t] = rng.choice([16, 48, 200, 2048, 4096, 8192, 0])
+                if k in (2, 3):
+                    if live[c] and rng.random() < 0.9:
+                        ptr[c, t] = live[c].pop(int(rng.integers(
+                            len(live[c]))))
+                    else:
+                        ptr[c, t] = rng.choice([-1, -16, heap_bytes, 8, 24])
+        yield op, size, ptr, live
+
+
+def region_cfg(kind, inner="hwsw", heap_bytes=HEAP, threads=T):
+    return system.SystemConfig(
+        kind=kind, heap_bytes=heap_bytes, num_threads=threads,
+        arena_inner=inner,
+        pm=pim_malloc.PimMallocConfig(heap_bytes=heap_bytes,
+                                      num_threads=threads, cap=CAP))
+
+
+@pytest.mark.parametrize("kind,inner", [
+    ("sanitizer", "hwsw"), ("arena", "hwsw"), ("arena", "fused"),
+    ("tlregion", "hwsw"), ("tlregion", "fused")])
+def test_new_kind_on_card_equals_cpu(cuda, kind, inner):
+    """The closed-loop stream with per-core resets, NULL and garbage
+    pointers through each new kind at C=8 on the card and on the CPU:
+    every response field and state leaf equal every round."""
+    from repro_torch import convert
+    cfg = region_cfg(kind, inner)
+    hs = {d: heap.MultiCoreHeap(cfg, 8, device=d) for d in ("cpu", cuda)}
+    for r, (op, size, ptr, live) in enumerate(closed_loop(6, cores=8)):
+        resps = {d: h.step(heap.AllocRequest(*(torch.from_numpy(x)
+                                               for x in (op, size, ptr))))
+                 for d, h in hs.items()}
+        for f in heap.AllocResponse._fields:
+            assert torch.equal(getattr(resps["cpu"], f),
+                               getattr(resps[cuda], f).cpu()), (r, f)
+        for a, b in zip(convert.leaves(hs["cpu"].state),
+                        convert.leaves(hs[cuda].state)):
+            assert torch.equal(a, b.cpu()), r
+        got = resps["cpu"]
+        for c, t in np.ndindex(op.shape):
+            if got.ok[c, t] and op[c, t] in (1, 3, 4) and got.ptr[c, t] >= 0:
+                live[c].append(int(got.ptr[c, t]))
+
+
+def test_arena_fused_equals_hwsw_at_paper_width_on_card(cuda):
+    """512 cores of 32 MiB heaps, T=16, chip_smoke's stream with a reset
+    every 2nd round: arena and tlregion over fused (the heap kernel) ==
+    over hwsw on every field and leaf every round; residual 0."""
+    import chip_smoke as cs
+    from repro_torch.core import telemetry
+    from repro_torch.kernels import heap_step
+    rounds = 3
+    tape = cs.session_tape(np.random.default_rng(0), rounds, 512, 16,
+                           reset_every=2)
+    for kind in ("arena", "tlregion"):
+        cfgs = {i: cs.paper_cfg(kind, arena_inner=i) for i in cs.INNERS}
+        states = {i: heap.init(cfgs[i], num_cores=512, device=cuda)
+                  for i in cs.INNERS}
+        sess = {i: cs.slot_file(tape, cuda) for i in cs.INNERS}
+        n = heap_step.fused_heap_step.launches
+        for r in range(rounds):
+            resps = {}
+            for i in cs.INNERS:
+                req = sess[i].request(r)
+                states[i], resps[i] = heap.step(cfgs[i], states[i], req)
+                sess[i].record(r, req, resps[i])
+            assert cs.pair_mismatches(r, "fused", "hwsw", resps["fused"],
+                                      resps["hwsw"], states["fused"],
+                                      states["hwsw"]) == []
+        assert heap_step.fused_heap_step.launches - n == rounds
+        for i in cs.INNERS:
+            assert not np.any(telemetry.conservation_residuals(cfgs[i],
+                                                               states[i]))
+        del states
+
+
+def test_sanitizer_tags_on_the_misuse_stream_on_card(cuda):
+    """chip_smoke's misuse stream at 64 cores over 32 rounds, reset at
+    round 24: the reports equal the generator's counts on every core (the
+    quarantine's evictions, and frees of evicted blocks, included), the
+    quarantine evicts in FIFO order, residual 0; the first 8 cores on the
+    card == on the CPU."""
+    import chip_smoke as cs
+    from repro_torch.core import sanitizer, telemetry
+    cfg = cs.paper_cfg("sanitizer")
+    tape, want, targets = cs.misuse_tape(np.random.default_rng(1), 32, 64,
+                                         16, cfg.heap_bytes, reset_round=24)
+    model = cs.QuarantineModel(64, sanitizer.quarantine_slots(16))
+    state, _ = cs.run_stream(cfg, tape, cuda, 32, model=model)
+    assert sum(int(v.sum()) for v in targets.values()) > 64
+    assert int(want["evicted"].sum()) > 0
+    assert int(targets["evicted_free"].sum()) > 0
+    assert cs.san_mismatches(state.reports, want) == []
+    assert model.check(state) == []
+    assert not np.any(telemetry.conservation_residuals(cfg, state))
+    cs.check_devices(cfg, tape, cuda, torch.device("cpu"), 32, 8)
+
+
+def test_sharded_equals_multicore_on_card(cuda):
+    """ShardedHeap(R=4, C=16) == MultiCoreHeap(C=64) per (rank, core) on
+    hwsw and fused, through chip_smoke's check."""
+    import chip_smoke as cs
+    out = cs.sharded_phase(0, cuda, cores=64, ranks=4, rounds=3)
+    assert set(out) == {"hwsw", "fused"}

@@ -5,7 +5,9 @@ scan_ops, serve_phase, warp_latency) pulls in neither JAX nor any module of the 
 Among them the kernel entry point `kernels.ops` with its oracles
 `kernels.ref`, the modules of the buddy, freelist and flash-attention
 kernels, the scan-based design points and the design-space model (whose
-constants the port keeps in its own copy)."""
+constants the port keeps in its own copy), the region and sanitizer
+frontends, and the oracle module (the port's own copy of a pure-Python
+module of the reference); the registry lists all seven kinds."""
 import subprocess
 import sys
 from pathlib import Path
@@ -26,8 +28,9 @@ import scan_ops
 import serve_phase
 import warp_latency
 from repro_torch.kernels import ops
-from repro_torch.core import design_space, heap
-assert heap.kinds() == ("strawman", "sw", "hwsw", "fused")
+from repro_torch.core import arena, design_space, heap, oracle, sanitizer
+assert heap.kinds() == ("strawman", "sw", "hwsw", "sanitizer", "arena",
+                        "tlregion", "fused")
 assert design_space.STRATEGIES[-1] == "pim_meta_pim_exec"
 assert all(callable(getattr(ops, n)) for n in (
     "buddy_alloc_batch", "freelist_op", "paged_attention_op",

@@ -41,11 +41,12 @@ def test_tape_reproduces_committed_digests(name, kind):
 
 
 def test_kinds_in_registration_order():
-    assert heap.kinds() == ("strawman", "sw", "hwsw", "fused")
+    assert heap.kinds() == ("strawman", "sw", "hwsw", "sanitizer", "arena",
+                            "tlregion", "fused")
 
 
 def test_check_trace_holds_the_parity_pairs():
-    """All four kinds on one tape pass; a doctored sw digest that still
+    """All seven kinds on one tape pass; a doctored sw digest that still
     matches its own (doctored) expect block fails only the semantic
     parity with hwsw, and a doctored fused digest the full parity."""
     tape = load("decode_serve")

@@ -6,7 +6,9 @@ tools/flash_mutants.py's broken kernels still apply to the kernel sources
 run-carves to the heap-step kernel; phase 6's reading agrees with its
 check. Phase 5b's checks fail a doctored sw / hwsw / fused mismatch (and
 let sw differ from hwsw in latencies, which the metadata cache sets) and
-a nonzero residual.
+a nonzero residual. Phase 5c's checks fail a corrupted response field, a
+corrupted placement map (``cls_map``) and a miscounted sanitizer tag or
+quarantine order.
 """
 import sys
 from pathlib import Path
@@ -175,3 +177,117 @@ def test_scan_residual_check_fails_a_nonzero_residual():
     with pytest.raises(AssertionError, match="nonzero on 1 of 512 cores"):
         chip_smoke.check_residuals("strawman",
                                    np.eye(1, 512, 7, dtype=np.int64)[0] * 32)
+
+
+def _region_round():
+    """Seven rounds of the closed-loop stream (before its first reset, so
+    the placement map holds blocks) through arena over hwsw and over
+    fused; returns the last round's responses and states."""
+    from repro_torch.core import heap
+    from test_torch_cuda import closed_loop, region_cfg
+    out = {}
+    for inner in ("hwsw", "fused"):
+        st = heap.init(region_cfg("arena", inner), num_cores=3,
+                       device="cpu")
+        for op, size, ptr, live in closed_loop(2, rounds=7):
+            req = heap.AllocRequest(*map(torch.from_numpy, (op, size, ptr)))
+            st, resp = heap.step(region_cfg("arena", inner), st, req)
+        out[inner] = (resp, st)
+    return out
+
+
+def test_region_checks_fail_a_corrupted_response_and_cls_map():
+    """Phase 5c's fused-against-hwsw check passes the two spill backends
+    and fails a response field or a placement map off by one entry."""
+    out = _region_round()
+    (rf, sf), (rh, sh) = out["fused"], out["hwsw"]
+    assert chip_smoke.pair_mismatches(7, "f", "h", rf, rh, sf, sh) == []
+    assert int((sf.cls_map >= 0).sum()) > 0
+    for field in ("ptr", "latency_cyc", "ok"):
+        bad = getattr(rf, field).clone()
+        bad.view(-1)[5] = ~bad.view(-1)[5] if field == "ok" else \
+            bad.view(-1)[5] + 16
+        errs = chip_smoke.pair_mismatches(
+            7, "f", "h", rf._replace(**{field: bad}), rh, sf, sh)
+        assert errs == [f"round 7: f != h on response {field}"], errs
+    cls_map = sf.cls_map.clone()
+    cls_map[2, 77] = 3
+    errs = chip_smoke.pair_mismatches(7, "f", "h", rf, rh,
+                                      sf._replace(cls_map=cls_map), sh)
+    assert len(errs) == 1 and errs[0].startswith(
+        "round 7: f != h on state leaf") and "(3, 8192)" in errs[0], errs
+
+
+def test_sanitizer_checks_fail_a_miscounted_tag():
+    """The injected counts match the sanitizer's reports on the CPU; one
+    tag counted once too often or too rarely on one core, or a ring out
+    of FIFO order, fails."""
+    from repro_torch.core import sanitizer
+    cfg = chip_smoke.paper_cfg("sanitizer")
+    tape, want, targets = chip_smoke.misuse_tape(
+        np.random.default_rng(3), 8, 2, 16, cfg.heap_bytes, reset_round=4)
+    model = chip_smoke.QuarantineModel(2, sanitizer.quarantine_slots(16))
+    state, _ = chip_smoke.run_stream(cfg, tape, torch.device("cpu"), 8,
+                                     model=model)
+    assert chip_smoke.san_mismatches(state.reports, want) == []
+    assert model.check(state) == []
+    for key in want:
+        for delta in (1, -1):
+            bad = {k: v.copy() for k, v in want.items()}
+            bad[key][1] += delta
+            errs = chip_smoke.san_mismatches(state.reports, bad)
+            assert len(errs) == 1 and errs[0].startswith(
+                f"{key}: 1 cores differ"), errs
+    ring = model.rings[0]
+    if len(ring) > 1:
+        ring[0], ring[1] = ring[1], ring[0]
+        assert model.check(state)[0].startswith("core 0: quarantine")
+
+
+def test_misuse_stream_predicts_evictions_and_frees_of_evicted_blocks():
+    """Over 32 rounds the generator's own quarantine model predicts every
+    core's parked and evicted counts, and frees of blocks that left the
+    ring (tagged wild) are among the injections: the reports equal its
+    counts exactly, and the ring is in FIFO order."""
+    from repro_torch.core import sanitizer
+    cfg = chip_smoke.paper_cfg("sanitizer")
+    tape, want, targets = chip_smoke.misuse_tape(
+        np.random.default_rng(5), 32, 2, 16, cfg.heap_bytes, reset_round=24)
+    assert want["evicted"].min() > 0 and targets["evicted_free"].sum() > 0
+    model = chip_smoke.QuarantineModel(2, sanitizer.quarantine_slots(16))
+    state, _ = chip_smoke.run_stream(cfg, tape, torch.device("cpu"), 32,
+                                     model=model)
+    assert chip_smoke.san_mismatches(state.reports, want) == []
+    assert model.check(state) == []
+
+
+def test_lockstep_raises_on_the_first_disagreeing_round():
+    """The lockstep runner holds two runs of one stream to each other
+    every round (here MultiCoreHeap against `heap.step` of the same kind)
+    and raises on the first round where a response differs."""
+    from repro_torch.core import heap
+    cfg = chip_smoke.paper_cfg("hwsw")
+    tape = chip_smoke.session_tape(np.random.default_rng(6), 4, 2, 16)
+    cpu = torch.device("cpu")
+
+    def check(r, reqs, resps, states):
+        return chip_smoke.pair_mismatches(r, "a", "b", resps["a"],
+                                          resps["b"], states["a"],
+                                          states["b"])
+
+    mc = heap.MultiCoreHeap(cfg, num_cores=2, device=cpu)
+    runs = {"a": chip_smoke.heap_object_run(mc, (2,), tape, cpu),
+            "b": chip_smoke.kind_run(cfg, tape, cpu)}
+    chip_smoke.lockstep(runs, 4, cpu, check)
+    step = runs["b"][0]
+
+    def doctored(state, req):
+        state, resp = step(state, req)
+        return state, resp._replace(ptr=resp.ptr + 16 * (req.op == 1))
+
+    runs = {"a": chip_smoke.kind_run(cfg, tape, cpu),
+            "b": chip_smoke.kind_run(cfg, tape, cpu)}
+    runs["b"][0] = doctored
+    with pytest.raises(AssertionError, match="round 0: a != b on response "
+                                             "ptr"):
+        chip_smoke.lockstep(runs, 4, cpu, check)
