@@ -70,6 +70,28 @@ Phases (each raises on failure; nothing is caught and carried on):
      hwsw and fused over 8 rounds, and `fleet_pressure`; (e) each new
      kind's ms per round (host clock) and one profiled round (launches,
      busy share), and the phase's peak device memory;
+ 5d. the workload generators and the decode-serving engine (the heap
+     kernel's launch counter set to 0 just before each path and read just
+     after): (a) the four scenarios re-recorded at the reference's smoke
+     sizes on ``hwsw`` with the seven kinds' expect blocks attached, each
+     serialised byte-equal to its committed tape (in memory: nothing is
+     written), and recorded again on ``fused``: the same requests (one
+     kernel launch per recorded round); (b) the scenarios at the
+     reference's ``record --full`` sizes on fused and on hwsw: equal tapes
+     apart from ``recorded_kind``, lint clean, their replays fused ==
+     hwsw in full with residual 0; (c) `graphupd.compare_all` at the
+     paper's partition (384 nodes, 4000 + 2000 edges, 2 MiB heap) on every
+     kind, the fused row == the hwsw row; (d) DecodeServe at
+     benchmarks/fig_decode.py's full size (R=2, C=4, T=16, 1 MiB heaps, 96
+     rounds, 6 sessions a round, 32 tenants) on fused and hwsw in
+     lockstep through `ScanEngine.run_segment`, bit for bit, residual 0,
+     each report == the CPU's on every field, the hottest tenant's core
+     slice replayed bit for bit; (e) DecodeServe on the paper's fleet
+     (R=4, C=128, T=16, 32 MiB heaps, 96 rounds, 2048 tenants, ``FLEET_RATE``
+     sessions a round) on fused and hwsw in lockstep, bit for bit,
+     residual 0, the kernel launched once a round; ms per round per kind
+     (host clock), one profiled round's launches and busy share, the
+     planner's host seconds and the modeled tokens/s and us/op;
   6. the paged-attention kernels (split and merge) against their plain
      version on the card (fp32 to 2e-5, bf16 to 2e-2, atol = rtol): MHA,
      GQA and MQA at head_dim 32 and 128 with seq_len 0, 1, a page boundary
@@ -849,18 +871,17 @@ def lockstep(runs, rounds, device, check=None, times=None, served=None,
             raise AssertionError(f"{what}: " + "; ".join(errs[:8]))
 
 
-def profile_round(cfg, state, req):
-    """One `heap.step` round under torch.profiler (device activity only:
-    a scan-based round makes tens of thousands of launches), continuing
-    from `state`: (state, device busy ms or None, wall ms, device
-    launches, the top kernels as (ms, launches, name))."""
+def profile_call(fn):
+    """`fn()` under torch.profiler (device activity only: a scan-based
+    round makes tens of thousands of launches): (its result, device busy
+    ms or None, wall ms, device launches, the top kernels as (ms,
+    launches, name))."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core import heap
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        state, _ = heap.step(cfg, state, req)
+        result = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     busy, launches, top = 0.0, 0, []
@@ -871,8 +892,18 @@ def profile_round(cfg, state, req):
             launches += e.count
             top.append((us / 1e3, e.count, e.key[:60]))
     top.sort(reverse=True)
-    return state, (busy / 1e3 if busy > 0 else None), 1e3 * wall, \
+    return result, (busy / 1e3 if busy > 0 else None), 1e3 * wall, \
         launches, top[:5]
+
+
+def profile_round(cfg, state, req):
+    """One `heap.step` round under the profiler, continuing from `state`:
+    (state, device busy ms or None, wall ms, device launches, the top
+    kernels)."""
+    from repro_torch.core import heap
+    (state, _), busy, wall, launches, top = profile_call(
+        lambda: heap.step(cfg, state, req))
+    return state, busy, wall, launches, top
 
 
 def profiled(cfg, state, req, device):
@@ -886,7 +917,8 @@ def profiled(cfg, state, req, device):
     return state, (busy, wall, launches, top)
 
 
-def print_times(label, times, prof, smi=None, ops=None):
+def print_times(label, times, prof, smi=None, ops=None,
+                what="heap.step round", profiled_as="one more round"):
     """The host-clock round times of one kind (and its allocator ops/s
     over `ops` ops, where given) and its profiled round; returns them."""
     ms = [1e3 * t for t in times]
@@ -897,9 +929,9 @@ def print_times(label, times, prof, smi=None, ops=None):
     rate = "" if ops is None else \
         f", {ops / sum(times):.4g} allocator ops/s"
     card = "" if smi is None else f" [{smi}]"
-    print(f"{label}: {mean:.3f} ms per heap.step round (host clock, mean "
-          f"of {len(ms)}, min {min(ms):.3f}, max {max(ms):.3f}){rate}; one "
-          f"more round under the profiler: {launches} device launches, "
+    print(f"{label}: {mean:.3f} ms per {what} (host clock, mean of "
+          f"{len(ms)}, min {min(ms):.3f}, max {max(ms):.3f}){rate}; "
+          f"{profiled_as} under the profiler: {launches} device launches, "
           f"device busy {busy_s}; top: " + "; ".join(
               f"{name} {t:.4f} ms x{c}" for t, c, name in top[:3]) + card)
     out = dict(ms_per_round=mean, round_ms=ms, profile_busy_ms=busy,
@@ -1495,6 +1527,356 @@ def phase_regions(seed, device, smi, cores=CORES, rounds=CHECK_ROUNDS):
           f"{out['tapes_s']:.1f}, arena {out['arena_s']:.1f}, sanitizer "
           f"{out['sanitizer_s']:.1f}, sharded {out['sharded_s']:.1f}; peak "
           f"device memory {peak} [{smi}]")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 5d: the workload generators and the decode-serving engine
+# ---------------------------------------------------------------------------
+def fresh_launches():
+    """Set the heap kernel's launch counter to 0; returns a reader of the
+    launches since."""
+    from repro_torch.kernels import heap_step
+    heap_step.fused_heap_step.launches = 0
+    return lambda: heap_step.fused_heap_step.launches
+
+
+def check_launches(device, what, got, want):
+    if device.type == "cuda" and got != want:
+        raise AssertionError(f"{what}: the heap kernel launched {got} "
+                             f"times, expected {want}")
+
+
+def tape_text(tape):
+    """A tape as `Trace.save` writes it."""
+    return json.dumps(tape.to_json(), indent=1) + "\n"
+
+
+def record_pair(name, device, smoke=True):
+    """Scenario `name` recorded on hwsw and then on fused: (hwsw tape,
+    fused tape, the fused recording's heap kernel launches), after
+    checking the two tapes equal apart from `recorded_kind`."""
+    from repro_torch.workloads.scenarios import SCENARIOS
+    a = SCENARIOS[name](smoke=smoke, kind="hwsw", device=device)
+    launched = fresh_launches()
+    b = SCENARIOS[name](smoke=smoke, kind="fused", device=device)
+    launches = launched()
+    # decode_serve's tape is the planner's alone: no heap round recorded
+    check_launches(device, f"{name}: the fused recording", launches,
+                   0 if name == "decode_serve" else a.rounds)
+    if dict(a.to_json(), recorded_kind="fused") != b.to_json():
+        raise AssertionError(f"{name}: the fused recording's tape != the "
+                             "hwsw recording's")
+    return a, b, launches
+
+
+def wl_tapes(device):
+    """(a) The four scenarios re-recorded at the reference's smoke sizes on
+    hwsw, the seven kinds' expect blocks attached: byte-equal to the
+    committed tapes (compared in memory); recorded again on fused: the
+    same tape. Returns {name: per-tape numbers}."""
+    from repro_torch.workloads import replay
+    out = {}
+    for name in TAPES:
+        t0 = time.perf_counter()
+        tape, _, rec_launches = record_pair(name, device)
+        launched = fresh_launches()
+        replay.attach_expectations(tape, device=device)
+        attach_launches = launched()
+        check_launches(device, f"{name}: attach_expectations",
+                       attach_launches, tape.rounds)
+        want = (ROOT / "benchmarks" / "tapes" / f"{name}.json").read_text()
+        if tape_text(tape) != want:
+            raise AssertionError(f"tape {name}: the port's recording is not "
+                                 "byte-equal to the committed tape")
+        out[name] = dict(rounds=tape.rounds, bytes=len(want),
+                         fused_record_launches=rec_launches,
+                         attach_launches=attach_launches,
+                         s=time.perf_counter() - t0)
+        print(f"tape {name}: re-recorded on hwsw, {tape.rounds} rounds, the "
+              f"seven expect blocks attached: byte-equal to the committed "
+              f"tape ({len(want)} B); recorded on fused: the same tape, "
+              f"heap kernel launched {rec_launches} times by the recording "
+              f"and {attach_launches} by the expect blocks' fused replay "
+              f"[{out[name]['s']:.1f} s]")
+    return out
+
+
+def wl_full(device):
+    """(b) The scenarios at the reference's ``record --full`` sizes on
+    fused and on hwsw: equal apart from `recorded_kind`, lint clean, and
+    `check_trace` over the two kinds' replays: fused == hwsw in full,
+    residual 0. Returns {name: per-tape numbers}."""
+    from repro_torch.workloads import replay, trace
+    out = {}
+    for name in TAPES:
+        t0 = time.perf_counter()
+        a, _, rec_launches = record_pair(name, device, smoke=False)
+        lint = trace.trace_lint(a)
+        if lint:
+            raise AssertionError(f"full {name}: " + "; ".join(lint[:4]))
+        launched = fresh_launches()
+        results = replay.attach_expectations(a, ("hwsw", "fused"), device)
+        replay_launches = launched()
+        check_launches(device, f"full {name}: the fused replay",
+                       replay_launches, a.rounds)
+        # each kind's block from its own replay: what check_trace adds is
+        # the parity pair and the residual
+        errs = replay.check_trace(a, results=results)
+        if errs:
+            raise AssertionError(f"full {name}: " + "; ".join(errs))
+        out[name] = dict(rounds=a.rounds, ops=a.ops,
+                         fused_record_launches=rec_launches,
+                         replay_launches=replay_launches,
+                         s=time.perf_counter() - t0)
+        print(f"full {name}: {a.rounds} rounds, {a.ops} ops, recorded on "
+              f"fused == on hwsw, lint clean, replays fused == hwsw in full "
+              f"({results['fused']['digest_full'][:12]}...), residual 0; "
+              f"heap kernel launched {rec_launches} times by the recording, "
+              f"{replay_launches} by the replay [{out[name]['s']:.1f} s]")
+    return out
+
+
+def wl_graph(device, gcfg=None):
+    """(c) `compare_all` at the paper's partition (`GraphConfig()`) on every
+    kind: the fused row == the hwsw row. Returns the rows and numbers."""
+    from repro_torch.graphupd import workload as gw
+    gcfg = gcfg or gw.GraphConfig()
+    T = gcfg.num_threads
+    rounds = -(-gcfg.n_edges_pre // T) + -(-gcfg.n_edges_new // T)
+    t0 = time.perf_counter()
+    launched = fresh_launches()
+    rows = gw.compare_all(gcfg, device=device)
+    launches = launched()
+    secs = time.perf_counter() - t0
+    check_launches(device, "compare_all", launches, rounds)
+    if rows["fused"] != rows["hwsw"]:
+        raise AssertionError(f"compare_all: fused {rows['fused']} != hwsw "
+                             f"{rows['hwsw']}")
+    print(f"compare_all ({gcfg.n_nodes} nodes, {gcfg.n_edges_pre} + "
+          f"{gcfg.n_edges_new} edges, {gcfg.heap_bytes >> 20} MiB heap, "
+          f"{rounds} rounds a kind): fused == hwsw; us/edge " + ", ".join(
+              f"{k} {v['us_per_edge']:.4g}" for k, v in rows.items())
+          + f" (modeled); heap kernel launched {launches} times "
+          f"[{secs:.1f} s]")
+    return dict(rows=rows, rounds=rounds, launches=launches, s=secs)
+
+
+def decode_engines(shape, traffic, device, cfg_of):
+    """A DecodeServe of kind hwsw and one of kind fused over one [R, C, T]
+    fleet, `cfg_of(kind)` their `SystemConfig`s."""
+    from repro_torch.launch.serve_decode import DecodeServe
+    R, C, _ = shape
+    return {k: DecodeServe(cfg_of(k), R, C, traffic=traffic, device=device)
+            for k in ("hwsw", "fused")}
+
+
+def decode_lockstep(engines, plan, device, profile_at=None):
+    """Run `plan` through the hwsw and fused engines' `run_segment` one
+    round at a time, in lockstep: after every round the responses, and at
+    the end the fleet states, must agree bit for bit. Round `profile_at`
+    runs under the profiler on the card (its time is left out of the
+    host-clock times). Returns {kind: (state, stacked responses, round
+    seconds, profile or None, the profiled round or None)}."""
+    import torch
+    from repro_torch.core import heap
+    from repro_torch.core.heap import AllocResponse
+    grids = (plan.op, plan.size, plan.ptr_ref, plan.ptr_raw)
+    runs = {k: dict(state=heap.sharded_init(e.cfg, e.num_ranks, e.num_cores,
+                                            device=device),
+                    slots=e.new_slots(plan.rounds), resps=[], times=[],
+                    prof=None, profiled=None) for k, e in engines.items()}
+    for r in range(plan.rounds):
+        seg = tuple(g[r:r + 1] for g in grids)
+        for k, e in engines.items():
+            run = runs[k]
+
+            def one():
+                return e.run_segment(run["state"], run["slots"], r, seg)
+
+            if r == profile_at and device.type == "cuda":
+                (run["state"], run["slots"], resp), *run["prof"] = \
+                    profile_call(one)
+                run["profiled"] = r
+            else:
+                sync(device)
+                t0 = time.perf_counter()
+                run["state"], run["slots"], resp = one()
+                sync(device)
+                run["times"].append(time.perf_counter() - t0)
+            run["resps"].append(resp)
+        errs = pair_mismatches(r, "fused", "hwsw", runs["fused"]["resps"][-1],
+                               runs["hwsw"]["resps"][-1], (), ())
+        if errs:
+            raise AssertionError("decode session: " + "; ".join(errs[:4]))
+    errs = pair_mismatches("end", "fused", "hwsw", resp, resp,
+                           runs["fused"]["state"], runs["hwsw"]["state"],
+                           fields=())
+    if errs:
+        raise AssertionError("decode session: " + "; ".join(errs[:4]))
+    return {k: (run["state"], AllocResponse(
+        *(torch.cat(f) for f in zip(*run["resps"]))), run["times"],
+        run["prof"], run["profiled"]) for k, run in runs.items()}
+
+
+def decode_reports(engines, plan, ran):
+    """Each kind's report; fused's == hwsw's and the residual 0."""
+    reps = {k: engines[k].report(plan, resps, st)
+            for k, (st, resps, *_) in ran.items()}
+    if reps["fused"] != reps["hwsw"]:
+        bad = [f for f in reps["hwsw"] if reps["fused"][f] != reps["hwsw"][f]]
+        raise AssertionError(f"decode reports: fused != hwsw on {bad}")
+    for k, rep in reps.items():
+        if rep["conservation_residual"] != 0:
+            raise AssertionError(f"decode {k}: conservation residual "
+                                 f"{rep['conservation_residual']}")
+    return reps
+
+
+# benchmarks/fig_decode.py at its full size: R, C, T, the heap, the traffic
+FIG_DECODE = ((2, 4, 16), 1 << 20, dict(
+    seed=29, rounds=96, session_rate=6.0, num_tenants=32, queue_cap=32,
+    max_context=576))
+
+
+def wl_decode_small(device, small=FIG_DECODE):
+    """(d) DecodeServe at the reference's full fig_decode size on fused and
+    hwsw in lockstep (bit for bit, residual 0); each report == the CPU's
+    on every field; the hottest tenant's core slice replays bit for bit
+    through `replay.replay`."""
+    import torch
+    from repro_torch.core import system as sysm
+    from repro_torch.launch.serve_decode import DecodeTraffic
+    from repro_torch.workloads import replay
+    t0 = time.perf_counter()
+    shape, heap_bytes, traffic = small
+    tc = DecodeTraffic(**traffic)
+
+    def cfg_of(kind):
+        return sysm.SystemConfig(kind=kind, heap_bytes=heap_bytes,
+                                 num_threads=shape[2])
+
+    engines = decode_engines(shape, tc, device, cfg_of)
+    plan = engines["fused"].plan()
+    launched = fresh_launches()
+    ran = decode_lockstep(engines, plan, device)
+    launches = launched()
+    check_launches(device, "decode session (d)", launches, plan.rounds)
+    reps = decode_reports(engines, plan, ran)
+    for k, e in decode_engines(shape, tc, torch.device("cpu"),
+                               cfg_of).items():
+        _, rep = e.serve(plan)
+        if rep != reps[k]:
+            bad = [f for f in rep if rep[f] != reps[k][f]]
+            raise AssertionError(f"decode {k}: the card's report != the "
+                                 f"CPU's on {bad}")
+    rank, core = plan.tenant_home[0]
+    tape = engines["fused"].trace(plan, rank, core)
+    launched = fresh_launches()
+    got, _, _ = replay.replay(tape, "fused", device=device)
+    replay_launches = launched()
+    check_launches(device, "decode trace replay", replay_launches,
+                   tape.rounds)
+    served = ran["fused"][1]
+    for f, x in zip(got._fields, got):
+        if not torch.equal(x, getattr(served, f)[:, rank, core]):
+            raise AssertionError(f"decode trace r{rank}c{core}: replay != "
+                                 f"the session on {f}")
+    rep = reps["fused"]
+    secs = time.perf_counter() - t0
+    print(f"decode (d) R,C,T={shape}, {plan.rounds} rounds, rate "
+          f"{tc.session_rate}: fused == hwsw bit for bit, residual 0, each "
+          f"report == the CPU's; heap kernel launched {launches} times; "
+          f"core r{rank}c{core}'s slice ({tape.ops} ops) replays bit for "
+          f"bit ({replay_launches} launches); {rep['decode_tokens']} decode "
+          f"tokens, tokens_per_sec {rep['tokens_per_sec']:.6g}, us_per_op "
+          f"{rep['us_per_op']:.6g} (modeled) [{secs:.1f} s]")
+    return dict(launches=launches, replay_launches=replay_launches,
+                report=rep, trace_core=[rank, core], trace_ops=tape.ops,
+                s=secs)
+
+
+# the paper's fleet: phase 5c's sharded tier (R=4 ranks of 128 cores, T=16)
+FLEET = ((SHARD_RANKS, CORES // SHARD_RANKS, 16), dict(
+    seed=29, rounds=96, num_tenants=2048, queue_cap=2048, max_context=576))
+# the highest of 6, 12, ..., 384 sessions a round at which the planner
+# drops at most 1 % of the offered sessions on FLEET (PERF.md §4)
+FLEET_RATE = 24.0
+
+
+def wl_decode_fleet(device, smi, fleet=FLEET, rate=FLEET_RATE,
+                    cfg_of=paper_cfg):
+    """(e) DecodeServe on the paper's fleet (R=4, C=128, T=16, the paper's
+    32 MiB heaps) at `rate`, fused and hwsw in lockstep, bit for bit,
+    residual 0; host-clock ms per round per kind, one profiled round's
+    launches and busy share, the planner's host seconds, the heap kernel's
+    launches, the modeled tokens_per_sec and us_per_op."""
+    from repro_torch.launch.serve_decode import DecodeTraffic
+    t_phase = time.perf_counter()
+    shape, traffic = fleet
+    tc = DecodeTraffic(session_rate=rate, **traffic)
+    engines = decode_engines(shape, tc, device, cfg_of)
+    t0 = time.perf_counter()
+    plan = engines["fused"].plan()
+    plan_s = time.perf_counter() - t0
+    launched = fresh_launches()
+    t0 = time.perf_counter()
+    ran = decode_lockstep(engines, plan, device, profile_at=plan.rounds // 2)
+    session_s = time.perf_counter() - t0
+    launches = launched()
+    check_launches(device, "decode session (e)", launches, plan.rounds)
+    t0 = time.perf_counter()
+    rep = decode_reports(engines, plan, ran)["fused"]
+    report_s = time.perf_counter() - t0
+    out = dict(rate=rate, plan_s=plan_s, session_s=session_s,
+               report_s=report_s, launches=launches, offered=plan.offered,
+               dropped=plan.dropped, dispatched=plan.dispatched,
+               tenants_homed=len(plan.tenant_home),
+               tokens_per_sec=rep["tokens_per_sec"],
+               us_per_op=rep["us_per_op"], kinds={})
+    R, C, T = shape
+    print(f"decode (e) R={R} C={C} T={T}, {plan.rounds} rounds, rate {rate}: "
+          f"{plan.offered} sessions offered, {plan.dropped} dropped, "
+          f"{plan.dispatched} ops for {len(plan.tenant_home)} tenants; "
+          f"planner {plan_s:.3f} s of host; fused == hwsw bit for bit, "
+          f"residual 0; heap kernel launched {launches} times; "
+          f"tokens_per_sec {rep['tokens_per_sec']:.6g}, us_per_op "
+          f"{rep['us_per_op']:.6g} (modeled); session {session_s:.1f} s, "
+          f"report {report_s:.1f} s")
+    for k, (_, _, times, prof, at) in ran.items():
+        timed = [r for r in range(plan.rounds) if r != at]
+        out["kinds"][k] = print_times(
+            f"decode (e) {k}", times, prof or (None, 0.0, 0, []), smi,
+            ops=int((plan.op[timed] != 0).sum()), what="engine round",
+            profiled_as="no round" if at is None else f"round {at}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def phase_workloads(device, smi, graph=None, full=True, small=FIG_DECODE,
+                    fleet=FLEET, fleet_cfg=paper_cfg):
+    """Phase 5d: (a) the tapes re-recorded byte for byte; (b) the
+    full-scale recordings with parity (skipped with `full` False); (c)
+    `compare_all` at the paper's partition (or `graph`); (d) DecodeServe at
+    fig_decode's size; (e) DecodeServe on the paper's fleet. Each path
+    sets the heap kernel's launch counter to 0 just before it and reads it
+    just after. Returns the result dict."""
+    t_phase = time.perf_counter()
+    out = {}
+    for key, fn in (("tapes", lambda: wl_tapes(device)),
+                    ("full", lambda: wl_full(device) if full else None),
+                    ("graph", lambda: wl_graph(device, graph)),
+                    ("decode_small", lambda: wl_decode_small(device, small)),
+                    ("decode_fleet", lambda: wl_decode_fleet(
+                        device, smi, fleet, cfg_of=fleet_cfg))):
+        t0 = time.perf_counter()
+        out[key] = fn()
+        out[f"{key}_s"] = time.perf_counter() - t0
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 5d took {out['phase_s']:.1f} s: " + ", ".join(
+        f"{k} {out[f'{k}_s']:.1f}" for k in ("tapes", "full", "graph",
+                                              "decode_small",
+                                              "decode_fleet")) + f" [{smi}]")
     return out
 
 
@@ -2317,6 +2699,9 @@ def main(argv=None) -> int:
     # ---- 5c: region frontends, sanitizer, sharded tier ---------------------
     region_result = phase_regions(args.seed, device, smi)
 
+    # ---- 5d: the workload generators and the decode-serving engine --------
+    workload_result = phase_workloads(device, smi)
+
     # ---- 6: paged attention, kernel against plain version -----------------
     t0 = time.perf_counter()
     worst = phase_paged_vs_plain(args.seed, device)
@@ -2342,7 +2727,7 @@ def main(argv=None) -> int:
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(result, scan=scan_result, regions=region_result,
-                           serve=serve_result,
+                           workloads=workload_result, serve=serve_result,
                            build_s=secs,
                            paged_vs_plain=worst, buddy=buddy_result,
                            freelist=fl_result, flash=fa_result, gpu=smi,

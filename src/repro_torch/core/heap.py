@@ -304,11 +304,11 @@ class MultiCoreHeap:
 # ---------------------------------------------------------------------------
 # the fleet tier: R ranks of C cores
 # ---------------------------------------------------------------------------
-def _fold(tree, n: int):
+def fold(tree, n: int):
     """Leaves ``[R, C, ...]`` as views ``[R * C, ...]``."""
     if isinstance(tree, torch.Tensor):
         return tree.reshape((n,) + tree.shape[2:])
-    return type(tree)(*(_fold(x, n) for x in tree))
+    return type(tree)(*(fold(x, n) for x in tree))
 
 
 def _unfold(tree, R: int, C: int):
@@ -344,8 +344,8 @@ def sharded_step(cfg, states, requests: AllocRequest):
     and unfolded. Exact, since every core is independent; like `step` it
     consumes `states`."""
     R, C = requests.op.shape[:2]
-    states, resp = step(cfg, _fold(states, R * C),
-                        AllocRequest(*_fold(requests, R * C)))
+    states, resp = step(cfg, fold(states, R * C),
+                        AllocRequest(*fold(requests, R * C)))
     return _unfold(states, R, C), _unfold(resp, R, C)
 
 

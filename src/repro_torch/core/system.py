@@ -619,14 +619,18 @@ def _step_fused(cfg: SystemConfig, st: SystemState, req: AllocRequest):
 
 
 def fleet_accounting(req: AllocRequest, resp: AllocResponse) -> dict:
-    """Cost-model accounting of one batched round (any leading shape)."""
+    """Cost-model accounting of one batched round (any leading shape;
+    tensors on any device, or host arrays). With ``[R, C, T]`` leaves (a
+    `ShardedHeap` round) ``per_rank`` breaks the totals down by rank."""
     def np_(x):
-        return x.detach().cpu().numpy()
+        return x.detach().cpu().numpy() if hasattr(x, "detach") else \
+            np.asarray(x)
 
     op = np_(req.op)
     active = op != OP_NOOP
     lat = np_(resp.latency_cyc)
-    return {
+    dram = np.asarray(np_(resp.dram_bytes), np.int64)
+    out = {
         "ops": int(active.sum()),
         "ok": int(np_(resp.ok).sum()),
         "latency_cyc": float(lat.sum()),
@@ -634,8 +638,16 @@ def fleet_accounting(req: AllocRequest, resp: AllocResponse) -> dict:
         "backend_cyc": float(np_(resp.backend_cyc).sum()),
         "meta_hits": int(np_(resp.meta_hits).sum()),
         "meta_misses": int(np_(resp.meta_misses).sum()),
-        "dram_bytes": int(np.asarray(np_(resp.dram_bytes), np.int64).sum()),
+        "dram_bytes": int(dram.sum()),
     }
+    if op.ndim >= 3:  # [R, ...]: per-rank breakdown over the leading axis
+        rest = tuple(range(1, op.ndim))
+        out["per_rank"] = {
+            "ops": active.sum(axis=rest).tolist(),
+            "latency_cyc": lat.sum(axis=rest).tolist(),
+            "dram_bytes": dram.sum(axis=rest).tolist(),
+        }
+    return out
 
 
 def _round_info(resp: AllocResponse) -> RoundInfo:

@@ -154,13 +154,37 @@ def hwm_divergence(rank_hwm, ratio: float = 2.0, min_bytes: int = 1) -> dict:
     }
 
 
+def core_health(cfg, state) -> dict:
+    """The snapshot's numbers for every core of a stacked state (leading
+    ``[C]`` or ``[R, C]`` axes) in one batched pass: host arrays
+    ``live_bytes``, ``hwm_bytes``, ``free_bytes``,
+    ``cached_frontend_bytes``, ``largest_free_block``, ``external_frag``
+    (float64, as `snapshot` computes it) and ``conservation_residual``,
+    each shaped like the core axes."""
+    bcfg = _buddy_cfg(cfg)
+    longest = state.alloc.buddy.longest
+    free_b = free_bytes_from_histogram(
+        bcfg, free_block_histogram(bcfg, longest))
+    cached = np.asarray(frontend_cached_bytes(cfg, state), np.int64)
+    live = np.asarray(_np(state.telem.live_bytes), np.int64)
+    largest = (np.asarray(_np(longest[..., 1]), np.int64)
+               if longest.shape[-1] > 1 else np.zeros_like(live))
+    frag = np.where(free_b > 0,
+                    1.0 - largest / np.maximum(free_b, 1), 0.0)
+    return {
+        "live_bytes": live,
+        "hwm_bytes": np.asarray(_np(state.telem.hwm_bytes), np.int64),
+        "free_bytes": free_b,
+        "cached_frontend_bytes": cached,
+        "largest_free_block": largest,
+        "external_frag": frag,
+        "conservation_residual": cfg.heap_bytes - (live + free_b + cached),
+    }
+
+
 def conservation_residuals(cfg, state) -> np.ndarray:
     """``heap - (live + free + cached)`` for every core (0 when sound)."""
-    bcfg = _buddy_cfg(cfg)
-    free_b = free_bytes_from_histogram(
-        bcfg, free_block_histogram(bcfg, state.alloc.buddy.longest))
-    live = np.asarray(_np(state.telem.live_bytes), np.int64)
-    return cfg.heap_bytes - (live + free_b + frontend_cached_bytes(cfg, state))
+    return core_health(cfg, state)["conservation_residual"]
 
 
 def snapshot(cfg, state, core: int = 0) -> dict:

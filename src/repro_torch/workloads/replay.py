@@ -199,11 +199,18 @@ def check_trace(trace: Trace, kinds=None, results=None, device="cuda") -> list:
 
 def attach_expectations(trace: Trace, kinds=None, device="cuda") -> dict:
     """Replay on every kind (or `kinds`) and set `trace.expect` in the
-    reference's layout, each kind under its `EXPECT_KEY`, in memory
-    (nothing is written); returns the reports."""
+    reference's layout, in memory (nothing is written); returns the
+    reports.
+
+    Each kind's block goes under its `EXPECT_KEY`, and the blocks are
+    inserted sorted by that key, whatever order `heap.kinds()` gives: the
+    reference's order (its ``heap.kinds()`` is sorted), so a saved tape
+    equals the reference's byte for byte."""
     reports = {}
     trace.expect = {}
-    for kind, (_, rep) in replay_all_kinds(trace, kinds, device).items():
+    results = replay_all_kinds(trace, kinds, device)
+    for kind in sorted(results, key=lambda k: EXPECT_KEY.get(k, k)):
+        rep = results[kind][1]
         trace.expect[EXPECT_KEY.get(kind, kind)] = {
             "digest_full": rep["digest_full"],
             "digest_sem": rep["digest_sem"],

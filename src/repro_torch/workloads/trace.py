@@ -9,6 +9,11 @@ value, e.g. NULL or a deliberately bogus pointer). Replay
 (`repro_torch.workloads.replay`) resolves refs against the pointers the
 backend under test returned. Committed tapes live in ``benchmarks/tapes/``
 with per-kind ``expect`` digests.
+
+`RecordingAllocator` is a drop-in `repro_torch.core.api.Allocator` that
+observes every `request()` round and keeps the pointer -> producing-slot
+map, so workload drivers (`graphupd.DynamicGraph`, `kvcache.PagePool`, the
+hash-table workload) record themselves without cooperation.
 """
 from __future__ import annotations
 
@@ -17,8 +22,9 @@ import hashlib
 import json
 
 import numpy as np
+import torch
 
-from ..core import heap
+from ..core import api, heap
 
 TRACE_SCHEMA = "pim-malloc-trace/v1"
 
@@ -75,6 +81,24 @@ class Trace:
     def ops(self) -> int:
         return int((self.op != 0).sum())
 
+    def to_json(self) -> dict:
+        return {
+            "schema": TRACE_SCHEMA,
+            "name": self.name,
+            "description": self.description,
+            "heap_bytes": int(self.heap_bytes),
+            "num_threads": int(self.num_threads),
+            "recorded_kind": self.recorded_kind,
+            "rounds": {
+                "op": self.op.tolist(),
+                "size": self.size.tolist(),
+                "ptr_ref": self.ptr_ref.tolist(),
+                "ptr_raw": self.ptr_raw.tolist(),
+            },
+            "expect": self.expect,
+            "meta": self.meta,
+        }
+
     @classmethod
     def from_json(cls, doc: dict) -> "Trace":
         if doc.get("schema") != TRACE_SCHEMA:
@@ -94,6 +118,13 @@ class Trace:
                    description=doc.get("description", ""),
                    expect=doc.get("expect", {}), meta=doc.get("meta", {}),
                    **arrs)
+
+    def save(self, path: str) -> None:
+        """Write the tape as the reference does: ``json.dump(indent=1)``
+        and a final newline."""
+        with open(path, "w") as f:
+            json.dump(self.to_json(), f, indent=1)
+            f.write("\n")
 
     @classmethod
     def load(cls, path: str) -> "Trace":
@@ -175,3 +206,100 @@ def trace_lint(trace: Trace) -> list:
                     f"({psize} B, produced round {rs}) crosses an epoch "
                     "reset — arena-managed pointers do not survive a reset")
     return errs
+
+
+class RecordingAllocator(api.Allocator):
+    """An `api.Allocator` that captures every protocol round onto a tape.
+
+    The pointer -> slot map is kept from the observed (request, response)
+    stream alone: an alloc-producing op that succeeded registers its result
+    pointer under slot ``round * T + thread``; a served free (and a
+    relocating realloc) retires the old pointer. A FREE/REALLOC operand
+    whose pointer is not mapped (NULL, double free, garbage) records
+    ``ptr_ref = -1`` and keeps the raw value, so misuse replays verbatim on
+    every backend. Each round copies the request, and then the response,
+    to the host once."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._rounds = []          # (op, size, ptr_ref, ptr_raw) np[T]
+        self._ptr_slot = {}        # live concrete ptr -> producing slot id
+        self._ptr_small = {}       # live concrete ptr -> within size classes
+        self._max_class = max(self.cfg.pm.size_classes)
+
+    @property
+    def recorded_rounds(self) -> int:
+        return len(self._rounds)
+
+    def _retire(self, p) -> None:
+        self._ptr_slot.pop(int(p), None)
+        self._ptr_small.pop(int(p), None)
+
+    def request(self, req: heap.AllocRequest) -> heap.AllocResponse:
+        req = heap.AllocRequest(*(torch.as_tensor(
+            x, dtype=torch.int32, device=self.device) for x in req))
+        if req.op.dim() != 1:
+            raise ValueError("RecordingAllocator records single-core [T] "
+                             f"rounds, got shape {tuple(req.op.shape)}")
+        op, size, ptr = torch.stack(tuple(req)).cpu().numpy()
+        # an EPOCH_RESET applies at round start: every small (possibly
+        # arena-placed) pointer leaves the map now, so a later op through
+        # one records ptr_ref = -1 (raw misuse, replayed verbatim) instead
+        # of a ref that crosses the reset (the lint's epoch rule)
+        if np.any(op == heap.OP_EPOCH_RESET):
+            for p in [p for p, sm in self._ptr_small.items() if sm]:
+                self._retire(p)
+
+        ptr_ref = np.full_like(ptr, -1)
+        for t in range(op.shape[0]):
+            if op[t] in (heap.OP_FREE, heap.OP_REALLOC) and ptr[t] >= 0:
+                ptr_ref[t] = self._ptr_slot.get(int(ptr[t]), -1)
+
+        resp = super().request(req)
+
+        r = len(self._rounds)
+        T = op.shape[0]
+        rptr, rok, rmoved = torch.stack(
+            (resp.ptr, resp.ok.to(torch.int32),
+             resp.moved.to(torch.int32))).cpu().numpy()
+        for t in range(T):
+            small = bool(0 < size[t] <= self._max_class)
+            if op[t] == heap.OP_FREE and rok[t]:
+                self._retire(ptr[t])
+            elif op[t] in (heap.OP_MALLOC, heap.OP_CALLOC) and rptr[t] >= 0:
+                self._ptr_slot[int(rptr[t])] = r * T + t
+                self._ptr_small[int(rptr[t])] = small
+            elif op[t] == heap.OP_REALLOC:
+                if size[t] <= 0 and ptr[t] >= 0 and rok[t]:
+                    self._retire(ptr[t])               # realloc(p, 0)
+                elif rptr[t] >= 0:
+                    if rmoved[t]:
+                        self._retire(ptr[t])
+                    self._ptr_slot[int(rptr[t])] = r * T + t
+                    self._ptr_small[int(rptr[t])] = small
+        self._rounds.append((op, size, ptr_ref, ptr))
+        return resp
+
+    def finish(self, name: str, description: str = "", meta: dict = None,
+               lint: bool = True) -> Trace:
+        """Freeze the recorded rounds into a Trace (no expect digests yet:
+        `repro_torch.workloads.replay.attach_expectations` fills them).
+
+        Runs `trace_lint` by default, so a recorder never hands out a tape
+        that encodes a same-round race; ``lint=False`` only captures a
+        deliberately broken tape for testing."""
+        op, size, ptr_ref, ptr_raw = (np.stack(x) for x in
+                                      zip(*self._rounds))
+        meta = dict(meta or {})
+        meta.setdefault("max_size_class", self._max_class)
+        trace = Trace(name=name, heap_bytes=self.cfg.heap_bytes,
+                      num_threads=self.cfg.num_threads,
+                      recorded_kind=self.cfg.kind, description=description,
+                      op=op, size=size, ptr_ref=ptr_ref, ptr_raw=ptr_raw,
+                      meta=meta)
+        if lint:
+            errs = trace_lint(trace)
+            if errs:
+                raise ValueError("recorded tape fails trace_lint:\n  "
+                                 + "\n  ".join(errs))
+        return trace

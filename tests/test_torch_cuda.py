@@ -1049,3 +1049,51 @@ def test_sharded_equals_multicore_on_card(cuda):
     import chip_smoke as cs
     out = cs.sharded_phase(0, cuda, cores=64, ranks=4, rounds=3)
     assert set(out) == {"hwsw", "fused"}
+
+
+@pytest.mark.parametrize("name", ["graph_churn", "kv_paged", "hashtable",
+                                  "decode_serve"])
+def test_fused_recording_on_card_equals_cpu(cuda, name):
+    """A `RecordingAllocator(kind="fused")` on the card (the heap kernel
+    once a round) records the same tape as on the CPU."""
+    from repro_torch.kernels import heap_step
+    from repro_torch.workloads.scenarios import SCENARIOS
+    heap_step.fused_heap_step.launches = 0
+    got = SCENARIOS[name](kind="fused", device=cuda)
+    launches = heap_step.fused_heap_step.launches
+    want = SCENARIOS[name](kind="fused", device="cpu")
+    assert got.to_json() == want.to_json()
+    assert launches == (0 if name == "decode_serve" else got.rounds)
+
+
+def test_decode_serve_on_card_equals_cpu(cuda):
+    """A small DecodeServe session on the card: its report and responses
+    equal the CPU's, fused equals hwsw, residual 0."""
+    from repro_torch.launch.serve_decode import DecodeServe, DecodeTraffic
+    tc = DecodeTraffic(seed=29, rounds=24, session_rate=3.0, num_tenants=16,
+                       queue_cap=16)
+    out = {}
+    for kind in ("hwsw", "fused"):
+        cfg = system.SystemConfig(kind=kind, heap_bytes=1 << 20,
+                                  num_threads=T)
+        for dev in (cuda, torch.device("cpu")):
+            eng = DecodeServe(cfg, 2, 2, traffic=tc, device=dev)
+            plan = eng.plan()
+            state, resps = eng.run(plan)
+            out[kind, dev.type] = (eng.report(plan, resps, state),
+                                   [x.cpu() for x in resps])
+    base_rep, base_resps = out["hwsw", "cpu"]
+    assert base_rep["conservation_residual"] == 0
+    for rep, resps in out.values():
+        assert rep == base_rep
+        for a, b in zip(resps, base_resps):
+            assert torch.equal(a, b)
+
+
+def test_scan_engine_refuses_a_mesh_on_card(cuda):
+    from repro_torch.launch.serving import ScanEngine
+    cfg = system.SystemConfig(kind="fused", heap_bytes=1 << 20,
+                              num_threads=T)
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
+        ScanEngine(cfg, 2, 2, mesh=object(), device=cuda)
+    assert ScanEngine(cfg, 2, 2, mesh=False, device=cuda).mesh is None

@@ -8,7 +8,8 @@ check. Phase 5b's checks fail a doctored sw / hwsw / fused mismatch (and
 let sw differ from hwsw in latencies, which the metadata cache sets) and
 a nonzero residual. Phase 5c's checks fail a corrupted response field, a
 corrupted placement map (``cls_map``) and a miscounted sanitizer tag or
-quarantine order.
+quarantine order. Phase 5d's checks fail a decode session whose "fused"
+engine disagrees with hwsw, a doctored report and a miscounted launch.
 """
 import sys
 from pathlib import Path
@@ -291,3 +292,37 @@ def test_lockstep_raises_on_the_first_disagreeing_round():
     with pytest.raises(AssertionError, match="round 0: a != b on response "
                                              "ptr"):
         chip_smoke.lockstep(runs, 4, cpu, check)
+
+
+def test_decode_checks_fail_a_disagreeing_kind_and_a_miscount():
+    """Phase 5d's decode lockstep holds the engine named fused to the one
+    named hwsw every round: it passes the two kinds and raises when the
+    "fused" engine is really sw (whose latencies differ); the report
+    check raises on a doctored report, the launch check on a miscount."""
+    from repro_torch.core import system
+    from repro_torch.launch.serve_decode import DecodeTraffic
+    cpu = torch.device("cpu")
+    tc = DecodeTraffic(seed=29, rounds=12, session_rate=1.5, num_tenants=8)
+
+    def cfg_of(kind):
+        return system.SystemConfig(kind=kind, heap_bytes=1 << 20,
+                                   num_threads=4)
+
+    engines = chip_smoke.decode_engines((2, 2, 4), tc, cpu, cfg_of)
+    plan = engines["fused"].plan()
+    ran = chip_smoke.decode_lockstep(engines, plan, cpu)
+    reps = chip_smoke.decode_reports(engines, plan, ran)
+    assert reps["fused"]["conservation_residual"] == 0
+    state, resps, *rest = ran["fused"]
+    ran["fused"] = (state, resps._replace(
+        latency_cyc=resps.latency_cyc + 1), *rest)
+    with pytest.raises(AssertionError, match="fused != hwsw on"):
+        chip_smoke.decode_reports(engines, plan, ran)
+    engines = chip_smoke.decode_engines(
+        (2, 2, 4), tc, cpu, lambda k: cfg_of("sw" if k == "fused" else k))
+    with pytest.raises(AssertionError, match="fused != hwsw on response "
+                                             "latency_cyc"):
+        chip_smoke.decode_lockstep(engines, plan, cpu)
+    chip_smoke.check_launches(cpu, "cpu", 0, 12)   # the CPU launches none
+    with pytest.raises(AssertionError, match="launched 11 times"):
+        chip_smoke.check_launches(torch.device("cuda"), "x", 11, 12)
