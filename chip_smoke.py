@@ -92,6 +92,26 @@ Phases (each raises on failure; nothing is caught and carried on):
      residual 0, the kernel launched once a round; ms per round per kind
      (host clock), one profiled round's launches and busy share, the
      planner's host seconds and the modeled tokens/s and us/op;
+ 5e. the closed-loop and elastic serving tiers on the paper's fleet (R=4,
+     C=128, T=16, 32 MiB heaps, 96 rounds, 2048 tenants, queue 4096, seed
+     17), the heap kernel's launch counter set to 0 just before each path
+     and read just after: (a) FleetServe at 128 arrivals a round
+     (``least_loaded``) on fused and hwsw in lockstep, bit for bit, the
+     reports equal on every field, residual 0, no drops, the kernel once
+     a round; ms per round per kind (host clock), one profiled round's
+     launches and busy share, the planner's host seconds; (b) the same at
+     512 arrivals a round on fused: drops, no dropped expiry free,
+     residual 0; (c) elastic chaos (one dominant tenant, ``chunked``,
+     2 kills, 2 stalls and a dropped round from seed 9, fig_elastic's
+     migration rule) on fused and hwsw: equal reports and responses, at
+     least one migration, killed cores dark, no dropped expiry free,
+     residual 0, the kernel once a round; the fused session snapshotted
+     at round 48 into a temporary directory outside the checkout,
+     restored into a fresh engine on the card and finished == the
+     uninterrupted run (the snapshot's bytes, save and restore seconds);
+     (d) benchmarks/fig_elastic.py's storm snapshotted on the card and
+     finished on the CPU == finished on the card, and `serve_session` at
+     benchmarks/fig_serve.py's full size on sw and fused: card == CPU;
   6. the paged-attention kernels (split and merge) against their plain
      version on the card (fp32 to 2e-5, bf16 to 2e-2, atol = rtol): MHA,
      GQA and MQA at head_dim 32 and 128 with seq_len 0, 1, a page boundary
@@ -1671,7 +1691,8 @@ def decode_engines(shape, traffic, device, cfg_of):
             for k in ("hwsw", "fused")}
 
 
-def decode_lockstep(engines, plan, device, profile_at=None):
+def engine_lockstep(engines, plan, device, profile_at=None,
+                    what="decode session"):
     """Run `plan` through the hwsw and fused engines' `run_segment` one
     round at a time, in lockstep: after every round the responses, and at
     the end the fleet states, must agree bit for bit. Round `profile_at`
@@ -1708,29 +1729,35 @@ def decode_lockstep(engines, plan, device, profile_at=None):
         errs = pair_mismatches(r, "fused", "hwsw", runs["fused"]["resps"][-1],
                                runs["hwsw"]["resps"][-1], (), ())
         if errs:
-            raise AssertionError("decode session: " + "; ".join(errs[:4]))
+            raise AssertionError(f"{what}: " + "; ".join(errs[:4]))
     errs = pair_mismatches("end", "fused", "hwsw", resp, resp,
                            runs["fused"]["state"], runs["hwsw"]["state"],
                            fields=())
     if errs:
-        raise AssertionError("decode session: " + "; ".join(errs[:4]))
+        raise AssertionError(f"{what}: " + "; ".join(errs[:4]))
     return {k: (run["state"], AllocResponse(
         *(torch.cat(f) for f in zip(*run["resps"]))), run["times"],
         run["prof"], run["profiled"]) for k, run in runs.items()}
 
 
-def decode_reports(engines, plan, ran):
+def engine_reports(engines, plan, ran, what="decode"):
     """Each kind's report; fused's == hwsw's and the residual 0."""
     reps = {k: engines[k].report(plan, resps, st)
             for k, (st, resps, *_) in ran.items()}
+    check_reports(reps, what)
+    return reps
+
+
+def check_reports(reps, what):
+    """fused's report == hwsw's on every field, the residual 0 on every
+    core (the reports sum |residual| over the cores)."""
     if reps["fused"] != reps["hwsw"]:
         bad = [f for f in reps["hwsw"] if reps["fused"][f] != reps["hwsw"][f]]
-        raise AssertionError(f"decode reports: fused != hwsw on {bad}")
+        raise AssertionError(f"{what} reports: fused != hwsw on {bad}")
     for k, rep in reps.items():
         if rep["conservation_residual"] != 0:
-            raise AssertionError(f"decode {k}: conservation residual "
+            raise AssertionError(f"{what} {k}: conservation residual "
                                  f"{rep['conservation_residual']}")
-    return reps
 
 
 # benchmarks/fig_decode.py at its full size: R, C, T, the heap, the traffic
@@ -1759,10 +1786,10 @@ def wl_decode_small(device, small=FIG_DECODE):
     engines = decode_engines(shape, tc, device, cfg_of)
     plan = engines["fused"].plan()
     launched = fresh_launches()
-    ran = decode_lockstep(engines, plan, device)
+    ran = engine_lockstep(engines, plan, device)
     launches = launched()
     check_launches(device, "decode session (d)", launches, plan.rounds)
-    reps = decode_reports(engines, plan, ran)
+    reps = engine_reports(engines, plan, ran)
     for k, e in decode_engines(shape, tc, torch.device("cpu"),
                                cfg_of).items():
         _, rep = e.serve(plan)
@@ -1821,12 +1848,12 @@ def wl_decode_fleet(device, smi, fleet=FLEET, rate=FLEET_RATE,
     plan_s = time.perf_counter() - t0
     launched = fresh_launches()
     t0 = time.perf_counter()
-    ran = decode_lockstep(engines, plan, device, profile_at=plan.rounds // 2)
+    ran = engine_lockstep(engines, plan, device, profile_at=plan.rounds // 2)
     session_s = time.perf_counter() - t0
     launches = launched()
     check_launches(device, "decode session (e)", launches, plan.rounds)
     t0 = time.perf_counter()
-    rep = decode_reports(engines, plan, ran)["fused"]
+    rep = engine_reports(engines, plan, ran)["fused"]
     report_s = time.perf_counter() - t0
     out = dict(rate=rate, plan_s=plan_s, session_s=session_s,
                report_s=report_s, launches=launches, offered=plan.offered,
@@ -1877,6 +1904,339 @@ def phase_workloads(device, smi, graph=None, full=True, small=FIG_DECODE,
         f"{k} {out[f'{k}_s']:.1f}" for k in ("tapes", "full", "graph",
                                               "decode_small",
                                               "decode_fleet")) + f" [{smi}]")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 5e: the closed-loop and elastic serving tiers
+# ---------------------------------------------------------------------------
+# the paper's fleet (phase 5d (e)'s R=4 x C=128, T=16) under FleetServe
+# traffic: 2048 tenants, an admission queue of 4096, seed 17. Sticky homes
+# cap dispatch near 155 ops a round, so 128 arrivals a round is the steady
+# state (no drops) and 512 the overload that backpressure answers
+SERVE_FLEET = ((SHARD_RANKS, CORES // SHARD_RANKS, 16), dict(
+    seed=17, rounds=96, num_tenants=2048, queue_cap=4096))
+SERVE_RATE = 128.0
+OVERLOAD_RATE = 512.0
+# the chaos session at the same fleet: one dominant tenant (zipf 2.2) homed
+# chunked onto rank 0, 2 kills, 2 stalls and a dropped round from seed 9,
+# fig_elastic's migration rule, a snapshot at round 48
+CHAOS_ZIPF = 2.2
+CHAOS_FAULTS = dict(seed=9, kills=2, stalls=2, drops=1)
+CHAOS_MIGRATION = dict(ratio=1.3, min_bytes=2048, drain="interval",
+                       check_rounds=8, max_moves=2)
+SNAP_ROUND = 48
+# benchmarks/fig_elastic.py's storm (R, C, T, heap, kind, traffic) with a
+# snapshot at round 32, and benchmarks/fig_serve.py at its full size
+STORM = ((2, 2, 8), 1 << 20, "hwsw", dict(
+    seed=9, rounds=64, arrival_rate=14.0, num_tenants=8, zipf_a=2.2,
+    queue_cap=24, max_lifetime=24))
+STORM_SNAP = 32
+FIG_SERVE = ((2, 4, 16), 1 << 19, dict(
+    seed=17, rounds=96, arrival_rate=64.0, num_tenants=32, queue_cap=64))
+
+
+def fs_steady(device, smi, fleet=SERVE_FLEET, rate=SERVE_RATE,
+              cfg_of=paper_cfg):
+    """(a) FleetServe at `rate` arrivals a round on fused and hwsw in
+    lockstep: bit for bit, the reports equal on every field, residual 0,
+    no drops, the heap kernel once a round; host-clock ms per round, one
+    profiled round's launches and busy share, the planner's host
+    seconds."""
+    from repro_torch.launch.serve_fleet import FleetServe, TrafficConfig
+    shape, traffic = fleet
+    tc = TrafficConfig(arrival_rate=rate, **traffic)
+    engines = {k: FleetServe(cfg_of(k), shape[0], shape[1], traffic=tc,
+                             placement="least_loaded", device=device)
+               for k in ("hwsw", "fused")}
+    t0 = time.perf_counter()
+    plan = engines["fused"].plan()
+    plan_s = time.perf_counter() - t0
+    launched = fresh_launches()
+    t0 = time.perf_counter()
+    ran = engine_lockstep(engines, plan, device, profile_at=plan.rounds // 2,
+                          what="fleet serve (a)")
+    session_s = time.perf_counter() - t0
+    launches = launched()
+    check_launches(device, "fleet serve (a)", launches, plan.rounds)
+    rep = engine_reports(engines, plan, ran, "fleet serve (a)")["fused"]
+    if plan.dropped:
+        raise AssertionError(f"fleet serve (a): {plan.dropped} of "
+                             f"{plan.offered} arrivals dropped at rate {rate}")
+    R, C, T = shape
+    print(f"fleet serve (a) R={R} C={C} T={T}, {plan.rounds} rounds, rate "
+          f"{rate}: {plan.offered} offered, 0 dropped, {plan.dispatched} ops "
+          f"for {len(plan.tenant_home)} tenants, queue peak "
+          f"{rep['queue_depth_max']}; planner {plan_s:.3f} s of host; fused "
+          f"== hwsw bit for bit, reports equal, residual 0; heap kernel "
+          f"launched {launches} times; e2e p99 {rep['e2e_p99_cyc']:.6g} cyc, "
+          f"us_per_op {rep['us_per_op']:.6g} (modeled); session "
+          f"{session_s:.1f} s")
+    out = dict(rate=rate, plan_s=plan_s, session_s=session_s,
+               launches=launches, offered=plan.offered,
+               dispatched=plan.dispatched,
+               tenants_homed=len(plan.tenant_home),
+               queue_depth_max=rep["queue_depth_max"],
+               e2e_p99_cyc=rep["e2e_p99_cyc"], us_per_op=rep["us_per_op"],
+               kinds={})
+    for k, (_, _, times, prof, at) in ran.items():
+        timed = [r for r in range(plan.rounds) if r != at]
+        out["kinds"][k] = print_times(
+            f"fleet serve (a) {k}", times, prof or (None, 0.0, 0, []), smi,
+            ops=int((plan.op[timed] != 0).sum()), what="engine round",
+            profiled_as="no round" if at is None else f"round {at}")
+    return out
+
+
+def fs_overload(device, fleet=SERVE_FLEET, rate=OVERLOAD_RATE,
+                cfg_of=paper_cfg):
+    """(b) The same session at `rate` arrivals a round on fused alone: the
+    admission queue drops (drop_rate > 0), no expiry free is dropped,
+    residual 0, the heap kernel once a round."""
+    from repro_torch.launch.serve_fleet import FleetServe, TrafficConfig
+    shape, traffic = fleet
+    eng = FleetServe(cfg_of("fused"), shape[0], shape[1],
+                     traffic=TrafficConfig(arrival_rate=rate, **traffic),
+                     placement="least_loaded", device=device)
+    t0 = time.perf_counter()
+    plan = eng.plan()
+    plan_s = time.perf_counter() - t0
+    launched = fresh_launches()
+    t0 = time.perf_counter()
+    state, resps = eng.run(plan)
+    sync(device)
+    run_s = time.perf_counter() - t0
+    launches = launched()
+    check_launches(device, "fleet serve (b)", launches, plan.rounds)
+    rep = eng.report(plan, resps, state)
+    if not (rep["drop_rate"] > 0 and rep["dropped_frees"] == 0
+            and rep["conservation_residual"] == 0):
+        raise AssertionError(
+            f"fleet serve (b): drop_rate {rep['drop_rate']}, dropped_frees "
+            f"{rep['dropped_frees']}, residual "
+            f"{rep['conservation_residual']}")
+    print(f"fleet serve (b) overload, rate {rate}: {rep['offered']} offered, "
+          f"{rep['dropped']} dropped (drop_rate {rep['drop_rate']:.4f}), "
+          f"{rep['dispatched']} dispatched, 0 dropped frees, residual 0; "
+          f"heap kernel launched {launches} times; planner {plan_s:.3f} s of "
+          f"host, session {1e3 * run_s / plan.rounds:.3f} ms a round")
+    return dict(rate=rate, plan_s=plan_s, run_s=run_s, launches=launches,
+                offered=rep["offered"], dropped=rep["dropped"],
+                drop_rate=rep["drop_rate"], dispatched=rep["dispatched"])
+
+
+def chaos_errors(plan, rep):
+    """The elastic tier's guarantees on one chaos session, as error
+    strings: a migration happened, a killed core dispatches nothing from
+    its kill round on, no expiry free is dropped, residual 0."""
+    from repro_torch.core.heap import OP_NOOP
+    errs = []
+    if not rep["migrations"]:
+        errs.append("no migration")
+    for ev in rep["kills"]:
+        (rk, ck), r = ev["core"], ev["round"]
+        if (plan.op[r:, rk, ck] != OP_NOOP).any():
+            errs.append(f"killed core ({rk}, {ck}) dispatched after round "
+                        f"{r}")
+    if len(rep["kills"]) != sum(e["kind"] == "kill" for e in rep["faults"]):
+        errs.append("a scheduled kill did not happen")
+    if rep["dropped_frees"] or rep["conservation_residual"]:
+        errs.append(f"dropped_frees {rep['dropped_frees']}, residual "
+                    f"{rep['conservation_residual']}")
+    return errs
+
+
+def elastic_engine(cfg, shape, traffic, device, faults=None, migration=None,
+                   placement="chunked"):
+    from repro_torch.launch import elastic
+    return elastic.ElasticFleetServe(
+        cfg, shape[0], shape[1], traffic=traffic, placement=placement,
+        device=device, faults=faults,
+        migration=elastic.MigrationConfig(**migration) if migration else None)
+
+
+def timed_session(eng, device, snap_round=None, snap_dir=None):
+    """Run `eng`'s session to its end, snapshotting into `snap_dir` at
+    `snap_round` on the way: ((plan, report), host seconds of the rounds,
+    snapshot save seconds)."""
+    eng.start()
+    save_s = 0.0
+    sync(device)
+    t0 = time.perf_counter()
+    if snap_round is not None:
+        eng.run_until(snap_round)
+        sync(device)
+        ts = time.perf_counter()
+        eng.snapshot(snap_dir)
+        save_s = time.perf_counter() - ts
+    eng.run_until(eng.traffic.rounds)
+    sync(device)
+    run_s = time.perf_counter() - t0 - save_s
+    return eng.finish(), run_s, save_s
+
+
+def fs_chaos(device, smi, fleet=SERVE_FLEET, rate=SERVE_RATE,
+             cfg_of=paper_cfg, snap_round=SNAP_ROUND):
+    """(c) Elastic chaos on the fleet: fused and hwsw sessions equal on
+    every report field and response bit, the tier's guarantees
+    (`chaos_errors`), the heap kernel once a round; the fused session
+    snapshotted at `snap_round` (into a temporary directory outside the
+    checkout, deleted after), restored into a fresh engine on the card
+    and finished: its report == the uninterrupted run's."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.launch import elastic
+    from repro_torch.launch.serve_fleet import TrafficConfig
+    shape, traffic = fleet
+    tc = TrafficConfig(arrival_rate=rate, zipf_a=CHAOS_ZIPF, **traffic)
+    faults = elastic.FaultPlan.generate(rounds=tc.rounds, shape=shape,
+                                        **CHAOS_FAULTS)
+    snap = tempfile.mkdtemp(prefix="chip_smoke_snap_")
+    try:
+        eng = {k: elastic_engine(cfg_of(k), shape, tc, device, faults,
+                                 CHAOS_MIGRATION) for k in ("fused", "hwsw")}
+        launched = fresh_launches()
+        (plan, rep), fused_s, save_s = timed_session(
+            eng["fused"], device, snap_round, snap)
+        launches = launched()
+        check_launches(device, "chaos (c) fused", launches, tc.rounds)
+        (plan_h, rep_h), hwsw_s, _ = timed_session(eng["hwsw"], device)
+        check_reports({"fused": rep, "hwsw": rep_h}, "chaos (c)")
+        a, b = eng["fused"]._stacked(), eng["hwsw"]._stacked()
+        bad = [f for f in a._fields if not torch.equal(getattr(a, f),
+                                                       getattr(b, f))]
+        if bad or not np.array_equal(plan.op, plan_h.op):
+            raise AssertionError(f"chaos (c): fused != hwsw on {bad or 'op'}")
+        errs = chaos_errors(plan, rep)
+        if errs:
+            raise AssertionError("chaos (c): " + "; ".join(errs))
+        nbytes = sum(f.stat().st_size for f in Path(snap).rglob("*")
+                     if f.is_file())
+        restored = elastic_engine(cfg_of("fused"), shape, tc, device)
+        launched = fresh_launches()
+        sync(device)
+        t0 = time.perf_counter()
+        restored.restore(snap)
+        sync(device)
+        restore_s = time.perf_counter() - t0
+        _, rep_r = restored.finish()
+        check_launches(device, "chaos (c) restored", launched(),
+                       tc.rounds - snap_round)
+        if rep_r != rep:
+            bad = [f for f in rep if rep_r.get(f) != rep[f]]
+            raise AssertionError(f"chaos (c): the restored session's report "
+                                 f"!= the uninterrupted run's on {bad}")
+    finally:
+        shutil.rmtree(snap, ignore_errors=True)
+    R, C, T = shape
+    print(f"chaos (c) R={R} C={C} T={T}, zipf {CHAOS_ZIPF}, chunked, rate "
+          f"{rate}, faults {faults.to_json()}: {rep['offered']} offered, "
+          f"{rep['dropped']} dropped, {rep['dispatched']} dispatched, "
+          f"{len(rep['migrations'])} migrations "
+          f"({rep['migration_ops_dispatched']} migration ops), kills "
+          f"{[ev['core'] for ev in rep['kills']]} dark after their kill, 0 "
+          f"dropped frees, residual 0; fused == hwsw bit for bit; heap "
+          f"kernel launched {launches} times; fused "
+          f"{1e3 * fused_s / tc.rounds:.3f} ms a round, hwsw "
+          f"{1e3 * hwsw_s / tc.rounds:.3f} (host clock, "
+          f"decision rounds included); snapshot at round {snap_round}: "
+          f"{nbytes} B, saved in {save_s:.2f} s, restored on the card in "
+          f"{restore_s:.2f} s and finished == the uninterrupted run [{smi}]")
+    return dict(rate=rate, launches=launches, offered=rep["offered"],
+                dropped=rep["dropped"], dispatched=rep["dispatched"],
+                migrations=len(rep["migrations"]),
+                migration_ops=rep["migration_ops_dispatched"],
+                kills=[ev["core"] for ev in rep["kills"]],
+                fused_ms_per_round=1e3 * fused_s / tc.rounds,
+                hwsw_ms_per_round=1e3 * hwsw_s / tc.rounds,
+                snapshot_bytes=nbytes, save_s=save_s, restore_s=restore_s)
+
+
+def fs_devices(device, storm=STORM, snap_round=STORM_SNAP, small=FIG_SERVE):
+    """(d) Card <-> CPU: fig_elastic's storm (migration on) snapshotted at
+    `snap_round` on `device`, restored and finished on the CPU == the run
+    finished on `device`; `serve_session` at fig_serve's full size on sw
+    and fused: the same report on `device` as on the CPU."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.core import system as sysm
+    from repro_torch.launch.serve_fleet import TrafficConfig, serve_session
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    shape, heap_bytes, kind, traffic = storm
+    cfg = sysm.SystemConfig(kind=kind, heap_bytes=heap_bytes,
+                            num_threads=shape[2])
+    tc = TrafficConfig(**traffic)
+    snap = tempfile.mkdtemp(prefix="chip_smoke_storm_")
+    try:
+        (_, rep), _, _ = timed_session(
+            elastic_engine(cfg, shape, tc, device,
+                           migration=CHAOS_MIGRATION), device,
+            snap_round, snap)
+        host = elastic_engine(cfg, shape, tc, cpu).restore(snap)
+        _, rep_cpu = host.finish()
+    finally:
+        shutil.rmtree(snap, ignore_errors=True)
+    if rep_cpu != rep or not rep["migrations"]:
+        bad = [f for f in rep if rep_cpu.get(f) != rep[f]]
+        raise AssertionError(f"storm: finished on the CPU != on the card on "
+                             f"{bad} (migrations {len(rep['migrations'])})")
+    shape_s, heap_s, traffic_s = small
+    reps = {}
+    for k in ("sw", "fused"):
+        cfg = sysm.SystemConfig(kind=k, heap_bytes=heap_s,
+                                num_threads=shape_s[2])
+        got = [serve_session(cfg, shape_s[0], shape_s[1],
+                             traffic=TrafficConfig(**traffic_s),
+                             placement="least_loaded", device=dev)
+               for dev in (device, cpu)]
+        if got[0] != got[1] or got[0]["conservation_residual"]:
+            bad = [f for f in got[1] if got[0].get(f) != got[1][f]]
+            raise AssertionError(f"fig_serve {k}: the card's report != the "
+                                 f"CPU's on {bad}")
+        reps[k] = got[0]
+    secs = time.perf_counter() - t0
+    print(f"card <-> CPU (d): the storm (R,C,T={shape}, {kind}, "
+          f"{tc.rounds} rounds, {len(rep['migrations'])} migrations) "
+          f"snapshotted at round {snap_round} on the card, finished on the "
+          f"CPU == on the card (e2e p99 {rep['e2e_p99_cyc']:.6g} cyc, "
+          f"modeled); fig_serve's full size (R,C,T={shape_s}, "
+          f"{traffic_s['rounds']} rounds, rate {traffic_s['arrival_rate']}) "
+          f"on sw and fused: card == CPU "
+          f"(us_per_op {reps['sw']['us_per_op']:.6g}, modeled) [{secs:.1f} s]")
+    return dict(storm_migrations=len(rep["migrations"]),
+                storm_p99_cyc=rep["e2e_p99_cyc"],
+                serve_us_per_op={k: r["us_per_op"] for k, r in reps.items()},
+                s=secs)
+
+
+def phase_fleet_serve(device, smi, fleet=SERVE_FLEET, cfg_of=paper_cfg,
+                      storm=STORM, small=FIG_SERVE):
+    """Phase 5e: (a) FleetServe steady, (b) overload, (c) elastic chaos
+    with a snapshot and a restore, on the paper's fleet (or `fleet`); (d)
+    card <-> CPU at fig_elastic's and fig_serve's sizes. Each path sets
+    the heap kernel's launch counter to 0 just before it and reads it
+    just after. Returns the result dict."""
+    t_phase = time.perf_counter()
+    out = {}
+    for key, fn in (("steady", lambda: fs_steady(device, smi, fleet,
+                                                 cfg_of=cfg_of)),
+                    ("overload", lambda: fs_overload(device, fleet,
+                                                     cfg_of=cfg_of)),
+                    ("chaos", lambda: fs_chaos(device, smi, fleet,
+                                               cfg_of=cfg_of)),
+                    ("devices", lambda: fs_devices(device, storm,
+                                                   small=small))):
+        t0 = time.perf_counter()
+        out[key] = fn()
+        out[f"{key}_s"] = time.perf_counter() - t0
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 5e took {out['phase_s']:.1f} s: " + ", ".join(
+        f"{k} {out[f'{k}_s']:.1f}" for k in ("steady", "overload", "chaos",
+                                              "devices")) + f" [{smi}]")
     return out
 
 
@@ -2702,6 +3062,9 @@ def main(argv=None) -> int:
     # ---- 5d: the workload generators and the decode-serving engine --------
     workload_result = phase_workloads(device, smi)
 
+    # ---- 5e: the closed-loop and elastic serving tiers ---------------------
+    fleet_result = phase_fleet_serve(device, smi)
+
     # ---- 6: paged attention, kernel against plain version -----------------
     t0 = time.perf_counter()
     worst = phase_paged_vs_plain(args.seed, device)
@@ -2727,7 +3090,8 @@ def main(argv=None) -> int:
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(result, scan=scan_result, regions=region_result,
-                           workloads=workload_result, serve=serve_result,
+                           workloads=workload_result,
+                           fleet_serve=fleet_result, serve=serve_result,
                            build_s=secs,
                            paged_vs_plain=worst, buddy=buddy_result,
                            freelist=fl_result, flash=fa_result, gpu=smi,

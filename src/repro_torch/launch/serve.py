@@ -13,11 +13,14 @@ serving substrate:
     sequence crosses a page boundary;
   * attention consumes the page tables (``--impl kernel``: the
     paged-attention kernel on the card; ``--impl ref``: the plain
-    batched gather).
+    batched gather);
+  * with ``--fleet-ranks R``, decode-time page growth routes through a
+    `ShardedHeap` fleet of R single-core page heaps (`make_fleet_pool`):
+    sequence b lands on rank b % R, and the run reports the
+    `FleetRouter`'s per-rank cost accounting.
 
 `serve` is the entry point a program calls; `main` parses the reference's
-flags (``--fleet-ranks`` waits for ROADMAP A2/A6 and raises) plus
-``--device``, ``--seed`` and ``--no-reduced`` for full width.
+flags plus ``--device``, ``--seed`` and ``--no-reduced`` for full width.
 """
 from __future__ import annotations
 
@@ -30,9 +33,12 @@ import torch
 
 from .. import configs
 from .. import device as _device
+from ..core import heap as heap_api
+from ..core import system as sysm
 from ..kvcache import paged
 from ..models import registry
 from ..models.config import ArchConfig
+from .fleet import FleetRouter
 
 
 @dataclasses.dataclass
@@ -54,7 +60,8 @@ class ServeResult:
       each ending in a synchronise: the prefill extents before
       ``prefill_s`` starts, the decode pages inside ``decode_s``);
       cache / params: the final cache and the parameters, for
-      inspection."""
+      inspection; fleet_stats: with ``fleet_ranks``, the `FleetRouter`'s
+      accounting of the decode-time pages it served (else None)."""
 
     tokens: torch.Tensor
     prompt: torch.Tensor
@@ -70,6 +77,36 @@ class ServeResult:
     timings: dict
     cache: dict
     params: dict
+    fleet_stats: dict = None
+
+
+def make_fleet_pool(num_ranks: int, n_pages: int, num_threads: int = 16,
+                    kind: str = "sw", device="cuda") -> FleetRouter:
+    """A FleetRouter over R single-core page-heap ranks (the serving
+    fleet), on `device` (the card unless the caller asks for the CPU).
+
+    Each rank owns an independent page heap of `n_pages`; page ids are
+    rank-local, mirroring one PagePool per device shard."""
+    cfg = sysm.SystemConfig(kind=kind, heap_bytes=n_pages * paged.PAGE_UNIT,
+                            num_threads=num_threads)
+    return FleetRouter(heap_api.ShardedHeap(cfg, num_ranks=num_ranks,
+                                            num_cores=1, device=device))
+
+
+def fleet_page_request(router: FleetRouter, need) -> heap_api.AllocRequest:
+    """One fleet round allocating a page for every sequence b with
+    need[b], on rank b % R (thread slot b // R of that rank), on the
+    router's device."""
+    R, C, T = router.shape
+    size = np.zeros((R, C, T), np.int32)
+    for b in np.nonzero(np.asarray(need))[0]:
+        rank, slot = int(b) % R, int(b) // R
+        if slot >= C * T:
+            raise ValueError(f"sequence {b} exceeds fleet thread capacity "
+                             f"{router.capacity} ({R}x{C}x{T})")
+        size[rank, slot // T, slot % T] = paged.PAGE_UNIT
+    return heap_api.malloc_request(
+        torch.from_numpy(size).to(router.heap.device))
 
 
 def _sync(dev: torch.device) -> None:
@@ -79,10 +116,16 @@ def _sync(dev: torch.device) -> None:
 
 def serve(cfg: ArchConfig, *, batch: int, prompt_len: int,
           decode_steps: int, impl: str = "kernel", seed: int = 0,
-          device="cuda", params=None, tokens=None) -> ServeResult:
+          device="cuda", params=None, tokens=None,
+          fleet_ranks: int = 0) -> ServeResult:
     """Serve `batch` requests of `prompt_len` tokens for `decode_steps`
     greedy decode steps, on `device` (the card unless the caller asks for
     the CPU; raises without a GPU).
+
+    With `fleet_ranks` R > 0 the decode-time pages come from a fleet of R
+    page heaps (`make_fleet_pool`, `fleet_page_request`), which serves
+    up to R x 16 sequences; without it one pool serves up to its 16
+    hardware threads.
 
     `params` (a `registry.init` tree) and `tokens` (int [batch,
     prompt_len]) default to ones made from `seed`. The prompt is padded
@@ -100,9 +143,15 @@ def serve(cfg: ArchConfig, *, batch: int, prompt_len: int,
     n_pages = max(1 << (B * P - 1).bit_length(), 1 << 16)
     pool = paged.PagePool(n_pages=n_pages, device=dev)
     T = pool.cfg.num_threads
-    if B > T:
-        raise ValueError(f"batch {B} exceeds the pool's {T} hardware "
-                         f"threads (a fleet of pools waits for ROADMAP A2)")
+    router = (make_fleet_pool(fleet_ranks, n_pages, num_threads=T,
+                              device=dev) if fleet_ranks else None)
+    if router is None and B > T:
+        raise ValueError(f"batch {B} exceeds the single pool's {T} hardware "
+                         f"threads; pass fleet_ranks to scale page "
+                         f"allocation")
+    if router is not None and B > router.capacity:
+        raise ValueError(f"batch {B} exceeds the fleet's {router.capacity} "
+                         f"hardware threads; raise fleet_ranks")
     rows = []
     t0 = time.perf_counter()
     for b in range(B):
@@ -154,7 +203,10 @@ def serve(cfg: ArchConfig, *, batch: int, prompt_len: int,
         need = (pos % page) == 0
         if need.any():
             tp = time.perf_counter()
-            _, resp = pool.alloc_page_batch(np.pad(need, (0, T - B)))
+            if router is not None:
+                resp = router.route(fleet_page_request(router, need))
+            else:
+                _, resp = pool.alloc_page_batch(np.pad(need, (0, T - B)))
             _sync(dev)
             pool_s += time.perf_counter() - tp
             pool_rounds += 1
@@ -175,7 +227,8 @@ def serve(cfg: ArchConfig, *, batch: int, prompt_len: int,
         alloc_us=alloc_cyc / pool.client.cfg.dpu.freq_hz * 1e6,
         timings={"prefill_s": prefill_s, "decode_s": decode_s,
                  "sync_s": sync_s, "pool_s": pool_s},
-        cache=cache, params=params)
+        cache=cache, params=params,
+        fleet_stats=None if router is None else router.stats)
 
 
 def main(argv=None) -> ServeResult:
@@ -189,20 +242,19 @@ def main(argv=None) -> ServeResult:
     ap.add_argument("--decode-steps", type=int, default=48)
     ap.add_argument("--impl", default="kernel", choices=["kernel", "ref"])
     ap.add_argument("--fleet-ranks", type=int, default=0,
-                    help="not ported yet (ROADMAP A2/A6): must be 0")
+                    help="route decode page growth through a ShardedHeap "
+                         "fleet of this many ranks (0 = single PagePool)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    if args.fleet_ranks:
-        raise NotImplementedError("--fleet-ranks: the ShardedHeap fleet is "
-                                  "not ported yet (ROADMAP A2/A6)")
 
     cfg = configs.get(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     res = serve(cfg, batch=args.batch, prompt_len=args.prompt_len,
                 decode_steps=args.decode_steps, impl=args.impl,
-                seed=args.seed, device=args.device)
+                seed=args.seed, device=args.device,
+                fleet_ranks=args.fleet_ranks)
     B, S = res.prompt.shape
     dev = res.logits.device
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
@@ -215,6 +267,11 @@ def main(argv=None) -> ServeResult:
     print(f"frontend page allocations during decode: {res.page_allocs} "
           f"({res.alloc_us:.2f} us modeled DPU time)")
     print("final allocator stats:", res.stats)
+    if res.fleet_stats is not None:
+        st = res.fleet_stats
+        print(f"fleet ({args.fleet_ranks} ranks): {st['rounds']} rounds, "
+              f"{st['ops']} page allocs, {st['us_per_op']:.3f} us/op, "
+              f"per-rank ops={st['per_rank']['ops']}")
     return res
 
 

@@ -1097,3 +1097,75 @@ def test_scan_engine_refuses_a_mesh_on_card(cuda):
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         ScanEngine(cfg, 2, 2, mesh=object(), device=cuda)
     assert ScanEngine(cfg, 2, 2, mesh=False, device=cuda).mesh is None
+
+
+def _fleet_traffic(**kw):
+    from repro_torch.launch.serve_fleet import TrafficConfig
+    return TrafficConfig(**dict(dict(seed=3, rounds=24, arrival_rate=8.0,
+                                     num_tenants=10, queue_cap=32), **kw))
+
+
+@pytest.mark.parametrize("kind", ["hwsw", "fused"])
+def test_fleet_serve_on_card_equals_cpu(cuda, kind):
+    """A small FleetServe session on the card: plan, report and responses
+    equal the CPU's; on fused the heap kernel launches once a round."""
+    from repro_torch.kernels import heap_step
+    from repro_torch.launch.serve_fleet import FleetServe
+    cfg = system.SystemConfig(kind=kind, heap_bytes=1 << 19, num_threads=T)
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        eng = FleetServe(cfg, 2, 2, traffic=_fleet_traffic(),
+                         placement="least_loaded", device=dev)
+        plan = eng.plan()
+        heap_step.fused_heap_step.launches = 0
+        state, resps = eng.run(plan)
+        launches = heap_step.fused_heap_step.launches
+        out[dev.type] = (eng.report(plan, resps, state),
+                         [x.cpu() for x in resps])
+    assert launches == (plan.rounds if kind == "fused" else 0)
+    assert out["cuda"][0] == out["cpu"][0]
+    assert out["cpu"][0]["conservation_residual"] == 0
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("first,then", [("cuda", "cpu"), ("cpu", "cuda")])
+def test_elastic_snapshot_restores_across_devices(cuda, first, then,
+                                                  tmp_path):
+    """A chaos session on fused snapshotted at round 13 on one device,
+    restored and finished on the other, equals the session finished where
+    it started."""
+    from repro_torch.launch import elastic
+    cfg = system.SystemConfig(kind="fused", heap_bytes=1 << 17,
+                              num_threads=T)
+
+    def engine(dev):
+        return elastic.ElasticFleetServe(
+            cfg, 2, 2, traffic=_fleet_traffic(arrival_rate=6.0,
+                                              num_tenants=8),
+            placement="chunked", device=dev,
+            faults=elastic.FaultPlan.generate(seed=100, rounds=24,
+                                              shape=(2, 2, T)),
+            migration=elastic.MigrationConfig(ratio=1.2, min_bytes=256,
+                                              drain="interval",
+                                              check_rounds=6))
+
+    a = engine(first).start()
+    a.run_until(13)
+    a.snapshot(str(tmp_path))
+    _, want = a.finish()
+    b = engine(then).restore(str(tmp_path))
+    assert b.state.telem.live_bytes.device.type == then
+    _, got = b.finish()
+    assert got == want and want["migrations"] and want["kills"]
+    assert want["conservation_residual"] == 0 and want["dropped_frees"] == 0
+
+
+def test_serve_fleet_ranks_on_card_equals_cpu(cuda):
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    cfg = configs.get("granite_3_8b").reduced()
+    stats = [serve.serve(cfg, batch=32, prompt_len=16, decode_steps=18,
+                         impl="ref", device=dev, fleet_ranks=2).fleet_stats
+             for dev in (cuda, "cpu")]
+    assert stats[0] == stats[1] and stats[0]["ops"] == 64

@@ -6,10 +6,16 @@ Placements, tenant homing, the migration and drain policies, scatter and
 gather, and `FleetRouter` over the port's `ShardedHeap` are held to the
 reference's on its one-device path (``mesh=False``: its mesh path fails
 here, ROADMAP C); `fleet_health`'s one batched pass to the reference's
-per-core sweep. Inputs are numpy-seeded; the tolerance is exact equality
-of every field (float32 latencies bit for bit).
+per-core sweep; and, through the reference's own benchmark code over the
+port, the 8 ``fig_fleet`` rows of BENCH_BASELINE.json (read, never
+written) within 1e-12 relative. Inputs are numpy-seeded; the tolerance is
+otherwise exact equality of every field (float32 latencies bit for bit).
 """
 import dataclasses
+import functools
+import json
+import types
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +30,7 @@ from repro.launch import serving as jserving
 from repro_torch.core import heap, system
 from repro_torch.launch import fleet, serving
 
+BASELINE = Path(__file__).resolve().parents[1] / "BENCH_BASELINE.json"
 T = 4
 HEAP = 1 << 19
 SHAPE = (2, 2, T)
@@ -194,3 +201,37 @@ def test_report_helpers_match_reference():
     for rounds, e in ((10, 0), (10, 3), (9, 9)):
         np.testing.assert_array_equal(serving.epoch_boundaries(rounds, e),
                                       jserving.epoch_boundaries(rounds, e))
+
+
+def test_routers_reproduce_the_fig_fleet_baseline_rows(monkeypatch):
+    """benchmarks/fig_fleet.py over the port (`FleetRouter` over the
+    port's `ShardedHeap` on the CPU, kind ``pallas`` served by ``fused``,
+    its jnp calls by their torch counterparts): the 8 committed rows
+    within 1e-12 relative (their wall-clock fields aside)."""
+    from benchmarks import fig_fleet
+
+    def config(kind, **kw):
+        return system.SystemConfig(
+            kind={"pallas": "fused"}.get(kind, kind), **kw)
+
+    monkeypatch.setattr(fig_fleet, "sysm", types.SimpleNamespace(
+        SystemConfig=config))
+    monkeypatch.setattr(fig_fleet, "FleetRouter", fleet.FleetRouter)
+    monkeypatch.setattr(fig_fleet, "heap_api", types.SimpleNamespace(
+        ShardedHeap=functools.partial(heap.ShardedHeap, device="cpu"),
+        malloc_request=heap.malloc_request, free_request=heap.free_request,
+        realloc_request=heap.realloc_request))
+    monkeypatch.setattr(fig_fleet, "jnp", types.SimpleNamespace(
+        asarray=torch.as_tensor, arange=torch.arange, where=torch.where,
+        broadcast_to=torch.broadcast_to,
+        roll=lambda x, shift, axis: torch.roll(x, shift, dims=axis)))
+    got = {r["name"]: r for r in fig_fleet.bench(smoke=True)}
+    rows = json.loads(BASELINE.read_text())["figs"]["fig_fleet"]["records"]
+    assert len(rows) == 8 and set(got) == {r["name"] for r in rows}
+    for row in rows:
+        rec = got[row["name"]]
+        assert rec.get("backend") == row.get("backend")
+        for key, want in row.items():
+            if isinstance(want, float) and not key.startswith("wall"):
+                assert rec[key] == pytest.approx(want, rel=1e-12, abs=0), \
+                    (row["name"], key)

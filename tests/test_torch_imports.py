@@ -6,8 +6,9 @@ Among them the kernel entry point `kernels.ops` with its oracles
 `kernels.ref`, the modules of the buddy, freelist and flash-attention
 kernels, the scan-based design points and the design-space model (whose
 constants the port keeps in its own copy), the region and sanitizer
-frontends, and the oracle module (the port's own copy of a pure-Python
-module of the reference); the registry lists all seven kinds."""
+frontends, the oracle module (the port's own copy of a pure-Python
+module of the reference), the checkpoint module and the closed-loop and
+elastic serving tiers; the registry lists all seven kinds."""
 import subprocess
 import sys
 from pathlib import Path
@@ -29,6 +30,13 @@ import serve_phase
 import warp_latency
 from repro_torch.kernels import ops
 from repro_torch.core import arena, design_space, heap, oracle, sanitizer
+from repro_torch.checkpoint import ckpt
+from repro_torch.launch import elastic, serve, serve_fleet
+assert all(callable(f) for f in (
+    ckpt.save, ckpt.restore, ckpt.latest_step, ckpt.AsyncCheckpointer,
+    serve_fleet.FleetServe, serve_fleet.serve_session,
+    elastic.ElasticFleetServe, elastic.serve_elastic, serve.make_fleet_pool,
+    serve.fleet_page_request))
 assert heap.kinds() == ("strawman", "sw", "hwsw", "sanitizer", "arena",
                         "tlregion", "fused")
 assert design_space.STRATEGIES[-1] == "pim_meta_pim_exec"

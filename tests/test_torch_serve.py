@@ -450,12 +450,50 @@ def test_serve_matches_reference_end_to_end():
 
 
 def test_serve_main_runs_on_the_cpu_and_refuses_a_fleet():
+    """`main` serves on the CPU; a batch beyond the single pool's threads,
+    or beyond the fleet's, is refused."""
     res = tserve.main(["--device", "cpu", "--batch", "2", "--prompt-len",
                        "20", "--decode-steps", "3", "--impl", "ref"])
     assert res.prompt.shape == (2, 32)  # padded to whole pages
-    assert torch.isfinite(res.logits).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        tserve.main(["--device", "cpu", "--fleet-ranks", "2"])
+    assert torch.isfinite(res.logits).all() and res.fleet_stats is None
+    with pytest.raises(ValueError, match="single pool's 16"):
+        tserve.main(["--device", "cpu", "--batch", "17"])
+    with pytest.raises(ValueError, match="fleet's 32"):
+        tserve.main(["--device", "cpu", "--fleet-ranks", "2", "--batch",
+                     "33"])
+
+
+def test_serve_fleet_ranks_matches_reference_router(capsys):
+    """``--fleet-ranks 2 --batch 32`` (reduced width, on the CPU): the
+    decode-time pages go through the port's fleet, whose accounting
+    equals the reference's `make_fleet_pool` + `fleet_page_request` fed
+    the same need sequence; both sides refuse a sequence beyond the
+    fleet."""
+    from repro.launch import serve as jserve
+    B, S, steps = 32, 16, 20
+    res = tserve.main(["--device", "cpu", "--fleet-ranks", "2", "--batch",
+                       str(B), "--prompt-len", str(S), "--decode-steps",
+                       str(steps), "--impl", "ref"])
+    assert "fleet (2 ranks): 2 rounds, 64 page allocs" in \
+        capsys.readouterr().out
+    cfg = tconfigs.get("granite_3_8b").reduced()
+    P = tpaged.pages_per_seq(S + steps + cfg.page_size, cfg.page_size)
+    router = jserve.make_fleet_pool(2, max(1 << (B * P - 1).bit_length(),
+                                           1 << 16))
+    allocs = 0
+    for i in range(steps):
+        if (res.prompt.shape[1] + i) % cfg.page_size == 0:
+            router.route(jserve.fleet_page_request(router,
+                                                   np.ones(B, bool)))
+            allocs += B
+    assert res.page_allocs == allocs == 64
+    assert res.fleet_stats == router.stats
+    assert res.fleet_stats["per_rank"]["ops"] == [32, 32]
+    port = tserve.make_fleet_pool(2, 1 << 16, device="cpu")
+    for fn, r in ((tserve.fleet_page_request, port),
+                  (jserve.fleet_page_request, router)):
+        with pytest.raises(ValueError, match="fleet thread capacity"):
+            fn(r, np.ones(33, bool))
 
 
 def test_entry_points_default_to_cuda(monkeypatch):

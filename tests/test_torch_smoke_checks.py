@@ -9,8 +9,10 @@ let sw differ from hwsw in latencies, which the metadata cache sets) and
 a nonzero residual. Phase 5c's checks fail a corrupted response field, a
 corrupted placement map (``cls_map``) and a miscounted sanitizer tag or
 quarantine order. Phase 5d's checks fail a decode session whose "fused"
-engine disagrees with hwsw, a doctored report and a miscounted launch.
+engine disagrees with hwsw, a doctored report and a miscounted launch;
+phase 5e's chaos check each broken guarantee of the elastic tier.
 """
+import dataclasses
 import sys
 from pathlib import Path
 
@@ -310,19 +312,51 @@ def test_decode_checks_fail_a_disagreeing_kind_and_a_miscount():
 
     engines = chip_smoke.decode_engines((2, 2, 4), tc, cpu, cfg_of)
     plan = engines["fused"].plan()
-    ran = chip_smoke.decode_lockstep(engines, plan, cpu)
-    reps = chip_smoke.decode_reports(engines, plan, ran)
+    ran = chip_smoke.engine_lockstep(engines, plan, cpu)
+    reps = chip_smoke.engine_reports(engines, plan, ran)
     assert reps["fused"]["conservation_residual"] == 0
     state, resps, *rest = ran["fused"]
     ran["fused"] = (state, resps._replace(
         latency_cyc=resps.latency_cyc + 1), *rest)
     with pytest.raises(AssertionError, match="fused != hwsw on"):
-        chip_smoke.decode_reports(engines, plan, ran)
+        chip_smoke.engine_reports(engines, plan, ran)
     engines = chip_smoke.decode_engines(
         (2, 2, 4), tc, cpu, lambda k: cfg_of("sw" if k == "fused" else k))
     with pytest.raises(AssertionError, match="fused != hwsw on response "
                                              "latency_cyc"):
-        chip_smoke.decode_lockstep(engines, plan, cpu)
+        chip_smoke.engine_lockstep(engines, plan, cpu)
     chip_smoke.check_launches(cpu, "cpu", 0, 12)   # the CPU launches none
     with pytest.raises(AssertionError, match="launched 11 times"):
         chip_smoke.check_launches(torch.device("cuda"), "x", 11, 12)
+
+
+def test_chaos_checks_fail_a_lit_dead_core_and_a_quiet_session():
+    """Phase 5e's chaos check passes a real chaos session and names each
+    broken guarantee: a killed core that dispatches, no migration, a
+    dropped expiry free, a nonzero residual, a missing kill."""
+    from repro_torch.core import system
+    from repro_torch.launch import elastic
+    from repro_torch.launch.serve_fleet import TrafficConfig
+    cfg = system.SystemConfig(kind="sw", heap_bytes=1 << 17, num_threads=4)
+    plan, rep = elastic.ElasticFleetServe(
+        cfg, 2, 2, placement="chunked", device="cpu",
+        traffic=TrafficConfig(seed=3, rounds=24, arrival_rate=6.0,
+                              num_tenants=8, queue_cap=32),
+        faults=elastic.FaultPlan.generate(seed=100, rounds=24,
+                                          shape=(2, 2, 4)),
+        migration=elastic.MigrationConfig(ratio=1.2, min_bytes=256,
+                                          drain="interval",
+                                          check_rounds=6)).serve()
+    assert chip_smoke.chaos_errors(plan, rep) == []
+    (kill,) = rep["kills"]
+    (rk, ck), r = kill["core"], kill["round"]
+    lit = dataclasses.replace(plan, op=plan.op.copy())
+    lit.op[-1, rk, ck, 0] = 1
+    assert chip_smoke.chaos_errors(lit, rep) == [
+        f"killed core ({rk}, {ck}) dispatched after round {r}"]
+    for bad, want in ((dict(migrations=[]), "no migration"),
+                      (dict(dropped_frees=1), "dropped_frees 1"),
+                      (dict(conservation_residual=16), "residual 16"),
+                      (dict(kills=[]), "did not happen")):
+        errs = chip_smoke.chaos_errors(plan, dict(rep, **bad))
+        assert len(errs) == 1 and want in errs[0], (bad, errs)
