@@ -166,7 +166,26 @@ Phases (each raises on failure; nothing is caught and carried on):
      CUDA cores) are counted and printed. Then timings, bounds, and
      `scaled_dot_product_attention` as a yardstick (never on the path).
      `tools/flash_mutants.py` shows that these checks, and phase 6's,
-     fail deliberately broken kernels.
+     fail deliberately broken kernels;
+ 11. the training path (no kernel of its own: the five kernels' launch
+     counters are set to 0 before the timed steps and must read 0 after):
+     (a) granite-3-8b at full width, one layer in fp32 at B=1, S=256:
+     the loss and every gradient on the card against the CPU (loss to
+     1e-5 relative, each gradient leaf to 1e-3 of its max |g|), and the
+     same check failing a broken `rms_norm` (its ``1 +`` dropped); (b) 8
+     of its 40 layers in bf16 (remat, attn_4d, gqa_expand, fp32 moments),
+     4 x 4096 tokens a step in 2 microbatches, the trainer's AdamW and
+     TokenStream: the memory plan from `param_specs` / `opt_state_specs`
+     beside the measured peak, a warm-up step that changes every leaf, 4
+     timed steps (host clock ending in a synchronise), tokens/s, one
+     profiled step's launches, busy share and device time by kernel
+     class, MFU against 989.4 TFLOP/s; then, with flat attention weights,
+     one batch repeated 4 times from the init, its loss falling at every
+     step; (c) the trainer's recovery drill through `launch.train.main`
+     on the card (the reduced config in bf16, 12 steps, a checkpoint
+     every 3, a failure at step 7): 1 recovery, steps 0-11, the final
+     state == an uninterrupted run's bit for bit, and a checkpoint
+     written on the card restored on the CPU == on the card.
 
 In the ``kernels`` record, each kernel's ``ms``, ``plain_ms``,
 ``bound_ms`` and ``library_ms`` are per launch: averaged over the launches
@@ -891,11 +910,11 @@ def lockstep(runs, rounds, device, check=None, times=None, served=None,
             raise AssertionError(f"{what}: " + "; ".join(errs[:8]))
 
 
-def profile_call(fn):
+def profile_call(fn, top=5):
     """`fn()` under torch.profiler (device activity only: a scan-based
     round makes tens of thousands of launches): (its result, device busy
-    ms or None, wall ms, device launches, the top kernels as (ms,
-    launches, name))."""
+    ms or None, wall ms, device launches, the `top` kernels (all with
+    None) as (ms, launches, name))."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -904,16 +923,16 @@ def profile_call(fn):
         result = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    busy, launches, top = 0.0, 0, []
+    busy, launches, kernels = 0.0, 0, []
     for e in prof.key_averages():
         us = device_us(e)
         if us > 0:
             busy += us
             launches += e.count
-            top.append((us / 1e3, e.count, e.key[:60]))
-    top.sort(reverse=True)
+            kernels.append((us / 1e3, e.count, e.key[:60]))
+    kernels.sort(reverse=True)
     return result, (busy / 1e3 if busy > 0 else None), 1e3 * wall, \
-        launches, top[:5]
+        launches, kernels[:top]
 
 
 def profile_round(cfg, state, req):
@@ -3014,6 +3033,388 @@ def phase_flash(seed, device, full=FA_FULL, sweep=FA_SWEEP):
     return dict(sweep_err=worst, shapes=shapes), entries
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the training path (no kernel of its own)
+# ---------------------------------------------------------------------------
+TRAIN_LAYERS = 8      # of granite-3-8b's 40: the depth the card holds
+TRAIN_SEQ = 4096      # train_4k's sequence length
+TRAIN_BATCH = 4       # global batch (train_4k: 256)
+TRAIN_MICRO = 2       # microbatches a step
+TRAIN_STEPS = 4       # timed steps, after one warm-up step
+TRAIN_REPEAT = 4      # steps on one repeated batch: the loss must fall
+CHECK_SEQ = 256       # (a): one full-width fp32 layer, B=1
+TRAIN_LOSS_TOL = 1e-5   # (a): |loss card - loss CPU| / |loss CPU|
+TRAIN_GRAD_TOL = 1e-3   # (a): per leaf max |g card - g CPU| / max |g CPU|
+MFU_PEAK = 989.4e12     # dense bf16 tensor-core peak, H100 SXM at 700 W
+DRILL = ["--arch", SERVE_ARCH, "--reduced", "--steps", "12", "--ckpt-every",
+         "3", "--dtype", "bfloat16"]
+DRILL_FAIL = 7
+
+
+def kernel_counters():
+    """{name: the launch counter's function} of the five kernels."""
+    from repro_torch.kernels import buddy_traverse, flash_attention, \
+        freelist, heap_step, paged_attention
+    return {"heap_step": heap_step.fused_heap_step,
+            "buddy_alloc_batch": buddy_traverse.buddy_alloc_batch_kernel,
+            "freelist_op": freelist.freelist_op_kernel,
+            "paged_attention": paged_attention.paged_attention,
+            "flash_attention": flash_attention.flash_attention_kernel}
+
+
+def tree_bytes(tree):
+    from repro_torch.optim.adamw import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def grad_reading(got, want):
+    """((loss, grads) against (loss, grads) of the same inputs): (the
+    loss's relative difference, (leaf, share) of the largest per-leaf max
+    |diff| / max |g|, {leaf: share} of the leaves past TRAIN_GRAD_TOL)."""
+    (lg, gg), (lw, gw) = got, want
+    loss_rel = abs(float(lg) - float(lw)) / abs(float(lw))
+    gg, gw = named_leaves(gg), named_leaves(gw)
+    shares = {}
+    for name, b in gw.items():
+        d = float((gg[name].detach().cpu().float() - b.float()).abs().max())
+        shares[name] = d / max(float(b.float().abs().max()), 1e-30)
+    bad = {k: v for k, v in shares.items() if not v <= TRAIN_GRAD_TOL}
+    worst = max(shares, key=shares.get)
+    return loss_rel, (worst, shares[worst]), bad
+
+
+def named_leaves(tree, pre=""):
+    """{path: leaf} of nested dicts."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(named_leaves(v, f"{pre}{k}/"))
+        else:
+            out[pre + k] = v
+    return out
+
+
+def train_card_vs_cpu(seed, device):
+    """Phase 11 (a): one full-width layer in fp32 at B=1, S=CHECK_SEQ:
+    loss and every gradient on the card against the CPU; then the same
+    check must fail a broken rms_norm (its ``1 +`` dropped) on the
+    card."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import steps
+    from repro_torch.models import layers, registry
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim.adamw import tree_map
+    cfg = dataclasses.replace(configs.get(SERVE_ARCH), n_layers=1,
+                              dtype="float32")
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    params = registry.init(cfg, seed=seed, device=cpu)
+    batch = registry.make_train_batch(
+        cfg, ShapeConfig("check", CHECK_SEQ, 1, "train"), seed=seed,
+        device=cpu)
+    grad_fn = steps.make_grad_fn(cfg)
+    (l_cpu, _), g_cpu = grad_fn(params, batch)
+    cpu_s = time.perf_counter() - t0
+    dparams = tree_map(lambda p: p.to(device), params)
+    dbatch = {k: v.to(device) for k, v in batch.items()}
+    (l_dev, _), g_dev = grad_fn(dparams, dbatch)
+    loss_rel, worst, bad = grad_reading((l_dev, g_dev), (l_cpu, g_cpu))
+    if not loss_rel <= TRAIN_LOSS_TOL or bad:
+        raise AssertionError(f"train (a): card != CPU: loss rel "
+                             f"{loss_rel}, leaves past {TRAIN_GRAD_TOL}: "
+                             f"{bad}")
+    del g_dev
+
+    real = layers.rms_norm
+
+    def broken(x, scale, eps=1e-6):   # the mutant: `1 +` dropped
+        xf = x.float()
+        y = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+        return (y * scale.float()).to(x.dtype)
+
+    layers.rms_norm = broken
+    try:
+        (l_mut, _), g_mut = grad_fn(dparams, dbatch)
+    finally:
+        layers.rms_norm = real
+    mut_rel, mut_worst, mut_bad = grad_reading((l_mut, g_mut),
+                                               (l_cpu, g_cpu))
+    if mut_rel <= TRAIN_LOSS_TOL and not mut_bad:
+        raise AssertionError("train (a): the check passes a broken "
+                             "rms_norm")
+    print(f"train (a) {cfg.name}: 1 full-width layer in fp32, B=1, S="
+          f"{CHECK_SEQ}: card == CPU: loss {float(l_dev)} vs "
+          f"{float(l_cpu)} (rel {loss_rel:.3g}, tol {TRAIN_LOSS_TOL}), "
+          f"gradients max |diff| / max |g| at most {worst[1]:.3g} ("
+          f"{worst[0]}) over {len(named_leaves(g_cpu))} leaves (tol "
+          f"{TRAIN_GRAD_TOL}); the CPU side {cpu_s:.1f} s; the check fails "
+          f"rms_norm without `1 +`: loss rel {mut_rel:.3g}, "
+          f"{len(mut_bad)} leaves past the tolerance (worst "
+          f"{mut_worst[1]:.3g}, {mut_worst[0]})")
+    return dict(loss_card=float(l_dev), loss_cpu=float(l_cpu),
+                loss_rel=loss_rel, grad_worst=worst[1],
+                grad_worst_leaf=worst[0], cpu_s=cpu_s,
+                mutant_loss_rel=mut_rel, mutant_leaves_failed=len(mut_bad),
+                mutant_worst=mut_worst[1])
+
+
+def train_flops(cfg, tokens, B, S):
+    """FLOPs of one step: 6 N tokens (forward and backward) + 2 N tokens
+    (remat's recomputed forward) over the N matmul parameters (every block
+    weight but the norms, and the head; not the embedding's lookup), plus
+    the attention's (3 + 1) * 4 B S^2 H hd L (its two products in the
+    forward, the backward's two times as many, and the recompute; full
+    S^2, causal or not)."""
+    from repro_torch.models import registry
+    spec = registry.param_specs(cfg)
+    n_mm = sum(t.numel() for k, t in spec["blocks"].items()
+               if not k.startswith("ln")) + spec["head"].numel()
+    attn = (3 + 1) * 4 * B * S * S * cfg.n_heads * cfg.head_dim \
+        * cfg.n_layers
+    return (6 + 2) * n_mm * tokens + attn, n_mm
+
+
+# kernel classes of a training step, by name (cuBLAS runs the bf16 GEMMs
+# as "nvjet" kernels on Hopper)
+TRAIN_CLASSES = (("fp32 GEMM", ("f32f32", "sgemm")),
+                 ("bf16 GEMM", ("nvjet", "bf16")),
+                 ("softmax", ("softmax",)), ("reduce", ("reduce",)),
+                 ("elementwise", ("elementwise",)))
+
+
+def kernel_classes(kernels):
+    """{class: (ms, launches)} of `profile_call`'s kernels by
+    TRAIN_CLASSES: a kernel goes to the first class whose name holds any
+    of its keys, the rest to "other"."""
+    classes = {name: [0.0, 0] for name, _ in TRAIN_CLASSES + (("other", ()),)}
+    for ms, n, key in kernels:
+        key = key.lower()
+        name = next((c for c, keys in TRAIN_CLASSES
+                     if any(k in key for k in keys)), "other")
+        classes[name][0] += ms
+        classes[name][1] += n
+    return {k: tuple(v) for k, v in classes.items()}
+
+
+def train_setup(cfg, seed, device, total_steps):
+    """(params, opt_state, run(params, opt, i)) for `cfg` on the card:
+    the trainer's AdamW settings (lr 1e-3, warmup 10) and its TokenStream
+    at TRAIN_BATCH x TRAIN_SEQ, TRAIN_MICRO microbatches a step."""
+    from repro_torch.data.pipeline import StreamConfig, TokenStream, \
+        to_device
+    from repro_torch.launch import steps
+    from repro_torch.models import registry
+    from repro_torch.optim import adamw
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=10,
+                                total_steps=total_steps,
+                                moment_dtype=cfg.opt_moment_dtype)
+    params = registry.init(cfg, seed=seed, device=device)
+    opt = adamw.init(opt_cfg, params)
+    step = steps.make_train_step(cfg, opt_cfg, n_micro=TRAIN_MICRO)
+    stream = TokenStream(StreamConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                      global_batch=TRAIN_BATCH, seed=seed))
+
+    def run(params, opt, i):
+        return step(params, opt, to_device(stream.batch(i), device))
+
+    return params, opt, run
+
+
+def train_full(seed, device, smi):
+    """Phase 11 (b): granite-3-8b at full width, TRAIN_LAYERS layers,
+    bf16, through `make_train_step` on the trainer's TokenStream: a
+    warm-up step that changes the parameters, TRAIN_STEPS timed steps and
+    one profiled step; then, with flat attention weights, one batch
+    repeated TRAIN_REPEAT times from the init: its loss falls at every
+    step."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import steps
+    from repro_torch.models import registry
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import tree_leaves
+    cfg = dataclasses.replace(configs.get(SERVE_ARCH),
+                              n_layers=TRAIN_LAYERS)
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    pspec = registry.param_specs(cfg)
+    n_params = sum(t.numel() for t in tree_leaves(pspec))
+    p_b = tree_bytes(pspec)
+    ospec = steps.opt_state_specs(cfg, adamw.AdamWConfig(
+        moment_dtype=cfg.opt_moment_dtype))
+    mom_b = tree_bytes(ospec.m) + tree_bytes(ospec.v)
+    acc_b = 4 * n_params if TRAIN_MICRO > 1 else 0
+    plan_b = 2 * p_b + acc_b + mom_b     # params, grads, accumulator, m, v
+    scores_b = 4 * (B // TRAIN_MICRO) * cfg.n_heads * S * S
+    print(f"train (b) plan from param_specs / opt_state_specs: "
+          f"{cfg.name}, {cfg.n_layers} of 40 layers at full width, "
+          f"{n_params / 1e9:.4f} B params ({cfg.dtype}); params "
+          f"{p_b / 1e9:.2f} GB + grads {p_b / 1e9:.2f} + fp32 accumulator "
+          f"{acc_b / 1e9:.2f} + m, v {mom_b / 1e9:.2f} = {plan_b / 1e9:.2f} "
+          f"GB; one layer's fp32 scores of a microbatch {scores_b / 1e9:.2f}"
+          f" GB; B={B}, S={S}, n_micro={TRAIN_MICRO}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    params, opt, run = train_setup(cfg, seed, device, TRAIN_STEPS + 2)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    # the warm-up step: its update changes every leaf
+    old = params
+    t0 = time.perf_counter()
+    params, opt, m = run(params, opt, 0)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    new = named_leaves(params)
+    changed = {k: int((a != new[k]).sum())
+               for k, a in named_leaves(old).items()}
+    del old, new
+    if not all(changed.values()):
+        raise AssertionError(f"train (b): the first update left leaves "
+                             f"unchanged: {changed}")
+    losses, gnorms = [float(m["loss"])], [float(m["grad_norm"])]
+
+    counters = kernel_counters()
+    for f in counters.values():
+        f.launches = 0
+    times = []
+    for i in range(1, TRAIN_STEPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = run(params, opt, i)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    launched = {k: f.launches for k, f in counters.items()}
+    if any(launched.values()):
+        raise AssertionError(f"train (b): the training path launched a "
+                             f"kernel: {launched}")
+    (params, opt, m), busy, wall, launches, kernels = profile_call(
+        lambda: run(params, opt, TRAIN_STEPS + 1), top=None)
+    classes = kernel_classes(kernels)
+    losses.append(float(m["loss"]))
+    gnorms.append(float(m["grad_norm"]))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(device)
+    del params, opt, m
+
+    # one batch repeated from the init, with flat attention weights: under
+    # attn_4d the reference's init takes the head count as the 3-D weights'
+    # fan-in, so q and k are ~10x too large, the softmax saturates, and the
+    # loss on a repeated batch does not fall at every step at any lr (on
+    # the CPU at reduced width, 8 layers, fp32 and bf16, lr 3e-5 to 1e-3);
+    # with flat weights it falls at each of them
+    flat = dataclasses.replace(cfg, attn_4d=False)
+    params, opt, run = train_setup(flat, seed, device, TRAIN_REPEAT)
+    rep = []
+    for _ in range(TRAIN_REPEAT):
+        params, opt, m = run(params, opt, 0)
+        rep.append(float(m["loss"]))
+    del params, opt, m
+    if not all(math.isfinite(x) for x in losses + gnorms + rep):
+        raise AssertionError(f"train (b): non-finite loss or gradient "
+                             f"norm: {losses}, {gnorms}, {rep}")
+    if not all(a > b for a, b in zip(rep, rep[1:])):
+        raise AssertionError(f"train (b): the loss on a repeated batch "
+                             f"did not fall at every step: {rep}")
+    step_s = sum(times) / len(times)
+    tokens = B * S
+    flops, n_mm = train_flops(cfg, tokens, B, S)
+    mfu = flops / step_s / MFU_PEAK
+    busy_s = "not measured" if busy is None else \
+        f"{busy:.1f} of {wall:.1f} ms ({100 * busy / wall:.1f} %)"
+    print(f"train (b) {cfg.name} x{cfg.n_layers} layers, bf16, remat, "
+          f"attn_4d, gqa_expand, fp32 moments: init {init_s:.2f} s, "
+          f"warm-up step {warm_s:.2f} s; step {1e3 * step_s:.1f} ms (host "
+          f"clock ending in a synchronise, mean of {len(times)}: "
+          + ", ".join(f"{1e3 * t:.1f}" for t in times) + f"), "
+          f"{tokens / step_s:.0f} tokens/s; one profiled step: {launches} "
+          f"device launches, busy {busy_s}; by kernel class: " + "; ".join(
+              f"{name} {t:.1f} ms x{c}" for name, (t, c) in classes.items())
+          + f"; losses {[round(x, 4) for x in losses]}, grad norms "
+          f"{[round(x, 3) for x in gnorms]}; batch 0 repeated from the "
+          f"init (flat attention weights) {[round(x, 4) for x in rep]}; "
+          f"the five kernels launched {sum(launched.values())} times; peak "
+          f"device memory {peak / 1e9:.2f} GB against the plan's "
+          f"{plan_b / 1e9:.2f} GB of state; MFU {100 * mfu:.2f} % of "
+          f"{MFU_PEAK / 1e12} TFLOP/s ({flops / 1e12:.2f} TFLOP a step = 8 "
+          f"x {n_mm / 1e9:.4f} B matmul params x {tokens} tokens + "
+          f"attention (3 + 1) x 4 B S^2 H hd L) [{smi}]")
+    return dict(arch=cfg.name, layers=cfg.n_layers, n_params=n_params,
+                batch=B, seq=S, n_micro=TRAIN_MICRO, plan_bytes=plan_b,
+                params_bytes=p_b, acc_bytes=acc_b, moment_bytes=mom_b,
+                scores_bytes=scores_b, peak_bytes=peak, init_s=init_s,
+                warmup_s=warm_s, step_s=times, step_mean_s=step_s,
+                tokens_per_s=tokens / step_s, profile_busy_ms=busy,
+                profile_wall_ms=wall, launches_per_step=launches,
+                profile_classes=classes, losses=losses,
+                grad_norms=gnorms, repeated_losses=rep, flops=flops,
+                matmul_params=n_mm, mfu=mfu, kernel_launches=launched,
+                leaves_changed=changed)
+
+
+def train_drill(device):
+    """Phase 11 (c): `launch.train.main` with DRILL's flags (the reduced
+    config in bf16, on the card by default), once with ``--fail-at`` and
+    once without: exactly one recovery, steps 0-11 done, the same final
+    state bit for bit; a checkpoint written on the card restores on the
+    CPU == the uninterrupted run's on the card."""
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.launch import train
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        (p1, o1), h1 = train.main(DRILL + ["--fail-at", str(DRILL_FAIL),
+                                           "--ckpt-dir", f"{tmp}/drill"])
+        (p2, o2), h2 = train.main(DRILL + ["--ckpt-dir", f"{tmp}/clean"])
+        drill_s = time.perf_counter() - t0
+        if h1["recoveries"] != 1 or h1["steps"] != list(range(12)) or \
+                h2["recoveries"] != 0 or h2["steps"] != list(range(12)):
+            raise AssertionError(f"train (c): histories {h1} / {h2}")
+        a, b = ckpt._flatten((p1, o1)), ckpt._flatten((p2, o2))
+        if p1["embed"].device.type != "cuda" or \
+                p1["embed"].dtype != torch.bfloat16:
+            raise AssertionError("train (c): the trainer did not train "
+                                 "bf16 weights on the card")
+        differ = [k for k in a if not torch.equal(a[k], b[k])]
+        if differ:
+            raise AssertionError(f"train (c): the drill's final state != "
+                                 f"the uninterrupted run's in {differ}")
+        step = ckpt.latest_step(f"{tmp}/drill")
+        cpu = ckpt.restore((p1, o1), step, f"{tmp}/drill",
+                           device=torch.device("cpu"))
+        card = ckpt.restore((p2, o2), step, f"{tmp}/clean")
+        ca, cb = ckpt._flatten(cpu), ckpt._flatten(card)
+        moved = [k for k in ca if ca[k].device.type != "cpu"
+                 or ca[k].dtype != cb[k].dtype
+                 or not torch.equal(ca[k], cb[k].cpu())]
+        if moved:
+            raise AssertionError(f"train (c): step {step} restored on the "
+                                 f"CPU != on the card in {moved}")
+    print(f"train (c) the recovery drill ({' '.join(DRILL)} --fail-at "
+          f"{DRILL_FAIL}, on the card): {h1['recoveries']} recovery, steps "
+          f"0-11 done; final params and optimizer state == the "
+          f"uninterrupted run's bit for bit ({len(a)} leaves); its step-"
+          f"{step} checkpoint restored on the CPU == the uninterrupted "
+          f"run's on the card; {drill_s:.1f} s for both runs")
+    return dict(recoveries=h1["recoveries"], steps=len(h1["steps"]),
+                leaves=len(a), restored_step=step, seconds=drill_s)
+
+
+def phase_train(seed, device, smi):
+    """Phase 11; returns its result dict."""
+    t0 = time.perf_counter()
+    out = dict(card_vs_cpu=train_card_vs_cpu(seed, device),
+               full=train_full(seed, device, smi),
+               drill=train_drill(device))
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 11 took {out['seconds']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3087,6 +3488,9 @@ def main(argv=None) -> int:
     fa_result, entries = phase_flash(args.seed, device)
     kernels += entries
     print(f"phases 8-10 took {time.perf_counter() - t0:.1f} s")
+
+    # ---- 11: the training path at full width -------------------------------
+    train_result = phase_train(args.seed, device, smi)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(result, scan=scan_result, regions=region_result,
@@ -3094,7 +3498,8 @@ def main(argv=None) -> int:
                            fleet_serve=fleet_result, serve=serve_result,
                            build_s=secs,
                            paged_vs_plain=worst, buddy=buddy_result,
-                           freelist=fl_result, flash=fa_result, gpu=smi,
+                           freelist=fl_result, flash=fa_result,
+                           train=train_result, gpu=smi,
                            kernels=kernels), f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

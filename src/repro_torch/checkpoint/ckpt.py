@@ -13,7 +13,16 @@ package restores into the other.
 `restore` keeps each leaf's saved width: an int64 leaf comes back int64
 (the reference's `jax.numpy.asarray` truncates it to int32 when JAX runs
 without x64). A dtype that drifted between writer and restorer is cast
-only where the cast is lossless. Each restored leaf goes to the device of
+only where the cast is lossless.
+
+A bfloat16 leaf is written as its raw 16-bit patterns, NumPy's ``|V2``,
+with ``bfloat16`` in the manifest: the bytes and descriptor the reference
+writes for one. Into a bfloat16 template a ``|V2`` (or int16) leaf comes
+back by reinterpreting its bits, never by a cast, so a bfloat16
+checkpoint written by either package restores bit for bit (the
+reference's own restore fails on it: ``astype`` has no cast from
+``|V2``). NumPy has no bfloat16 without ml_dtypes, which the port does not
+use, so the bits travel as int16. Each restored leaf goes to the device of
 its template leaf (a tensor's device; the host, as a numpy array, for a
 numpy template), or to ``device`` where one is given: the one-device
 counterpart of the reference's re-placement under new shardings.
@@ -62,18 +71,34 @@ def _flatten(tree) -> dict:
     return named
 
 
+_BF16_BITS = np.dtype("V2")  # a bfloat16 leaf in the npz
+
+
 def _host(x) -> np.ndarray:
+    """A leaf as the array written to the npz: a bfloat16 tensor as its
+    raw bits (``|V2``)."""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        x = x.detach().cpu()
+        if x.dtype == torch.bfloat16:
+            return x.view(torch.int16).numpy().view(_BF16_BITS)
+        return x.numpy()
     return np.asarray(x)
 
 
-def _host_copy(x) -> np.ndarray:
-    """A host copy the caller's later writes cannot reach: ``.numpy()`` of
-    a CPU tensor and ``np.asarray`` of an array share its memory."""
+def _host_copy(x):
+    """A host copy the caller's later writes cannot reach (``.numpy()`` of
+    a CPU tensor and ``np.asarray`` of an array share its memory); a
+    tensor stays a tensor, so that a bfloat16 leaf keeps its name."""
     if isinstance(x, torch.Tensor):
-        return x.detach().to("cpu", copy=True).numpy()
+        return x.detach().to("cpu", copy=True)
     return np.array(x)
+
+
+def _dtype_name(x, arr: np.ndarray) -> str:
+    """The manifest's dtype of leaf `x`, written as `arr`."""
+    if isinstance(x, torch.Tensor) and x.dtype == torch.bfloat16:
+        return "bfloat16"
+    return str(arr.dtype)
 
 
 def _np_dtype(leaf) -> np.dtype:
@@ -82,15 +107,45 @@ def _np_dtype(leaf) -> np.dtype:
     return np.dtype(leaf.dtype)
 
 
+def _torch_dtype(leaf) -> torch.dtype:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.dtype
+    return torch.from_numpy(np.empty(0, leaf.dtype)).dtype
+
+
+def _cast(key, t: torch.Tensor, want: torch.dtype) -> torch.Tensor:
+    """`t` as `want`, refusing a lossy cast."""
+    cast = t.to(want)
+    if not torch.equal(cast.to(t.dtype), t):
+        raise ValueError(f"lossy dtype cast restoring {key!r}: saved "
+                         f"{t.dtype} -> wanted {want}")
+    return cast
+
+
+def _bf16_leaf(key, arr: np.ndarray, like) -> torch.Tensor:
+    """A leaf where the saved array or the template is bfloat16: saved
+    bits into a bfloat16 template are reinterpreted; any other pair is
+    cast, losslessly."""
+    want = _torch_dtype(like)
+    if arr.dtype == _BF16_BITS or (want == torch.bfloat16
+                                   and arr.dtype == np.int16):
+        t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr)
+    return t if t.dtype == want else _cast(key, t, want)
+
+
 def save(tree, step: int, ckpt_dir: str) -> str:
     """Blocking save. Returns the checkpoint path."""
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     os.makedirs(path, exist_ok=True)
-    arrays = {k: _host(v) for k, v in _flatten(tree).items()}
+    named = _flatten(tree)
+    arrays = {k: _host(v) for k, v in named.items()}
     np.savez(os.path.join(path, "leaves.npz"), **arrays)
     manifest = {
         "step": step,
-        "leaves": {k: {"shape": list(a.shape), "dtype": str(a.dtype)}
+        "leaves": {k: {"shape": list(a.shape),
+                       "dtype": _dtype_name(named[k], a)}
                    for k, a in arrays.items()},
     }
     with open(os.path.join(path, "manifest.json"), "w") as f:
@@ -153,6 +208,15 @@ def restore(tree_like, step: int, ckpt_dir: str, device=None):
                 raise ValueError(f"shape mismatch restoring {key!r}: saved "
                                  f"{tuple(arr.shape)}, wanted "
                                  f"{tuple(like.shape)}")
+            if arr.dtype == _BF16_BITS or (
+                    isinstance(like, torch.Tensor)
+                    and like.dtype == torch.bfloat16):
+                t = _bf16_leaf(key, arr, like)
+                if device is not None:
+                    return t.to(device)
+                if isinstance(like, torch.Tensor):
+                    return t.to(like.device)
+                return t.numpy()
             want = _np_dtype(like)
             if arr.dtype != want:
                 # dtype drift between writer and restorer: cast, but

@@ -1,5 +1,5 @@
-"""Carry state, requests and model parameters between the reference and
-the port.
+"""Carry state, requests, model parameters and optimizer state between the
+reference and the port.
 
 The port's state is a tree of NamedTuples with the reference's field names
 and nesting (`SystemState(alloc=PimMallocState(buddy=BuddyState(...), ...),
@@ -18,6 +18,7 @@ from .core.buddy_cache import BuddyCacheState
 from .core.heap import AllocRequest
 from .core.pim_malloc import PimMallocState, Stats
 from .core.system import HeapTelemetry, SystemState
+from .optim.adamw import AdamWState
 
 
 def _tensor(x, dev, core_axis: bool) -> torch.Tensor:
@@ -59,24 +60,44 @@ def request_from_reference(req, device="cuda", core_axis: bool = True
                           for x in (req.op, req.size, req.ptr)))
 
 
+def _leaf(x, dev, dtype=None) -> torch.Tensor:
+    """One reference leaf as a tensor on `dev`, cast to `dtype` when given,
+    else of NumPy's dtype: a bfloat16 leaf (ml_dtypes', a kind-'V' dtype
+    to NumPy) goes through float32, which holds it exactly."""
+    a = np.asarray(x)
+    bf16 = a.dtype.name == "bfloat16"
+    if a.dtype.kind not in "fiub":
+        a = a.astype(np.float32)
+    t = torch.from_numpy(np.array(a)).to(dev)
+    if dtype is None and bf16:
+        dtype = torch.bfloat16
+    return t if dtype is None else t.to(dtype)
+
+
 def params_from_reference(np_tree, device="cuda", dtype=None) -> dict:
     """The reference's parameter tree (nested dicts of arrays, e.g. after
     ``jax.tree.map(numpy.asarray, params)``) as the port's: the same
     nesting and names, each leaf a tensor on `device`, cast to `dtype`
-    when given (else NumPy's dtype; a bfloat16 leaf goes through
-    float32)."""
+    when given (else of the leaf's own dtype, bfloat16 included)."""
     dev = _device.resolve(device)
 
     def conv(x):
         if isinstance(x, dict):
             return {k: conv(v) for k, v in x.items()}
-        a = np.asarray(x)
-        if a.dtype.kind not in "fiub":  # ml_dtypes' bfloat16 is kind 'V'
-            a = a.astype(np.float32)
-        t = torch.from_numpy(np.array(a)).to(dev)
-        return t if dtype is None else t.to(dtype)
+        return _leaf(x, dev, dtype)
 
     return conv(np_tree)
+
+
+def opt_state_from_reference(st, device="cuda") -> AdamWState:
+    """The reference's ``AdamWState(count, m, v)`` as the port's: count an
+    int32 scalar tensor, the moments with `params_from_reference`'s nesting
+    in their own dtype (fp32 or bf16)."""
+    dev = _device.resolve(device)
+    return AdamWState(
+        count=torch.tensor(int(np.asarray(st.count)), dtype=torch.int32,
+                           device=dev),
+        m=params_from_reference(st.m, dev), v=params_from_reference(st.v, dev))
 
 
 def to_numpy(tree):

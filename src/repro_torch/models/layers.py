@@ -5,8 +5,10 @@ numerics: norms and softmax in fp32, attention products in fp32, matmuls in
 the config dtype with fp32 accumulation, and the reference's tensor layouts
 (``[B, S, H, hd]`` activations, ``[D, H, hd]`` / ``[H, hd, D]`` attention
 weights under ``attn_4d``). Parameters are dicts of tensors stacked over
-layers (leading L axis). ``activation_constraint`` (mesh-only) and
-``cross_entropy`` (training) wait for their slices.
+layers (leading L axis). Every function differentiates under autograd: the
+masked scores' ``where`` gives them zero gradient, as the reference's
+does. ``activation_constraint`` pins a sharding under a mesh and is a
+no-op without one, so the one-device port has none (ROADMAP A7).
 """
 from __future__ import annotations
 
@@ -178,6 +180,18 @@ def mask_padded_logits(logits, vocab: int):
         return logits
     col = torch.arange(vp, device=logits.device) < vocab
     return torch.where(col, logits, NEG_INF)
+
+
+def cross_entropy(logits, labels, ignore: int = -100):
+    """Mean token cross-entropy in fp32; `ignore` labels are masked (the
+    mean is over the valid labels, at least one)."""
+    logits = logits.float()
+    valid = labels != ignore
+    lbl = labels.clamp(min=0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lbl[..., None])[..., 0]
+    nll = torch.where(valid, logz - gold, 0.0)
+    return nll.sum() / valid.sum().clamp(min=1)
 
 
 def torch_dtype(name) -> torch.dtype:

@@ -1,12 +1,17 @@
 """Dense GQA transformer LM (nemotron / stablelm / mistral / granite):
-serving (prefill + paged-KV decode).
+training (`forward`, `loss`) and serving (prefill + paged-KV decode).
 
-The port of `repro.models.transformer`'s serving half. Parameters are a
-dict of tensors stacked over layers, as in the reference, and the layer
-loop is a Python loop that indexes the stacked weights where the reference
-scans. Decode uses the paged KV cache managed by PIM-malloc
-(`repro_torch.kvcache`). Training (`_block`, `forward`, `loss`) waits for
-the training slice.
+The port of `repro.models.transformer`. Parameters are a dict of tensors
+stacked over layers, as in the reference, and the layer loop is a Python
+loop where the reference scans. Decode uses the paged KV cache managed by
+PIM-malloc (`repro_torch.kvcache`).
+
+Training differentiates through `torch.autograd`. `forward_embeds` unbinds
+the stacked weights once per forward, so their backward stacks the L
+per-layer gradients once (indexing ``w[l]`` on every layer would make a
+zero tensor the size of the whole stack per layer in the backward).
+``cfg.remat`` checkpoints each layer's block (the reference's
+`jax.checkpoint`): the backward recomputes it.
 
 `prefill` and `decode` **write the cache's pages in place** (the layer
 slices of ``cache["k_pages"]`` / ``cache["v_pages"]``) and return a new
@@ -23,7 +28,10 @@ same function.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import device as _device
 from ..kvcache import paged
@@ -69,6 +77,57 @@ def logits_fn(cfg: ArchConfig, params, hidden):
 
 def _layer(params, l: int) -> dict:
     return {k: v[l] for k, v in params["blocks"].items()}
+
+
+# ---------------------------------------------------------------- training --
+def _block(cfg: ArchConfig, x, positions, lp, *, window: int = 0):
+    B, S, D = x.shape
+    H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    h = layers.rms_norm(x, lp["ln1"])
+    q = layers.qk_proj(h, lp["wq"], H, hd)
+    k = layers.qk_proj(h, lp["wk"], KVH, hd)
+    v = layers.qk_proj(h, lp["wv"], KVH, hd)
+    q = layers.rope(q, positions, cfg.rope_theta)
+    k = layers.rope(k, positions, cfg.rope_theta)
+    if cfg.gqa_expand and KVH != H:
+        k = k.repeat_interleave(H // KVH, dim=2)
+        v = v.repeat_interleave(H // KVH, dim=2)
+    attn = layers.pick_attention(S, S, cfg.flash_min_seq)
+    o = attn(q, k, v, causal=True, window=window)
+    x = x + layers.out_proj(o, lp["wo"]).to(x.dtype)
+    h2 = layers.rms_norm(x, lp["ln2"])
+    x = x + layers.mlp(h2, lp["w1"], lp["w2"], lp.get("w3"), cfg.mlp)
+    return x
+
+
+def forward_embeds(cfg: ArchConfig, params, x, positions):
+    """x [B, S, D] input embeddings -> final hidden [B, S, D]."""
+    blk = functools.partial(_block, cfg)
+    names = list(params["blocks"])
+    per_layer = zip(*(torch.unbind(params["blocks"][k]) for k in names))
+    for ws in per_layer:
+        lp = dict(zip(names, ws))
+        if cfg.remat:
+            x = checkpoint(blk, x, positions, lp, use_reentrant=False)
+        else:
+            x = blk(x, positions, lp)
+    return layers.rms_norm(x, params["ln_f"])
+
+
+def forward(cfg: ArchConfig, params, tokens, positions=None):
+    """tokens [B, S] -> final hidden [B, S, D]."""
+    B, S = tokens.shape
+    if positions is None:
+        positions = torch.arange(S, device=tokens.device).expand(B, S)
+    x = params["embed"][tokens].to(layers.torch_dtype(cfg.dtype))
+    return forward_embeds(cfg, params, x, positions)
+
+
+def loss(cfg: ArchConfig, params, batch):
+    hidden = forward(cfg, params, batch["tokens"])
+    logits = logits_fn(cfg, params, hidden)
+    l = layers.cross_entropy(logits, batch["labels"])
+    return l, {"loss": l}
 
 
 # ----------------------------------------------------------------- serving --

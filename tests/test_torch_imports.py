@@ -7,8 +7,10 @@ Among them the kernel entry point `kernels.ops` with its oracles
 kernels, the scan-based design points and the design-space model (whose
 constants the port keeps in its own copy), the region and sanitizer
 frontends, the oracle module (the port's own copy of a pure-Python
-module of the reference), the checkpoint module and the closed-loop and
-elastic serving tiers; the registry lists all seven kinds."""
+module of the reference), the checkpoint module, the closed-loop and
+elastic serving tiers, and the training path (the optimizer, compression,
+token stream, train and serve steps, fault-tolerant loop and trainer); the
+registry lists all seven kinds."""
 import subprocess
 import sys
 from pathlib import Path
@@ -31,12 +33,21 @@ import warp_latency
 from repro_torch.kernels import ops
 from repro_torch.core import arena, design_space, heap, oracle, sanitizer
 from repro_torch.checkpoint import ckpt
-from repro_torch.launch import elastic, serve, serve_fleet
+from repro_torch.launch import elastic, serve, serve_fleet, steps, train
+from repro_torch.optim import adamw, compression
+from repro_torch.data import pipeline
+from repro_torch.runtime import fault
+from repro_torch.models import layers, registry, transformer
 assert all(callable(f) for f in (
     ckpt.save, ckpt.restore, ckpt.latest_step, ckpt.AsyncCheckpointer,
     serve_fleet.FleetServe, serve_fleet.serve_session,
     elastic.ElasticFleetServe, elastic.serve_elastic, serve.make_fleet_pool,
-    serve.fleet_page_request))
+    serve.fleet_page_request, adamw.update, adamw.schedule,
+    compression.quantize, compression.ef_compress, pipeline.TokenStream,
+    pipeline.to_device, steps.make_train_step, steps.opt_state_specs,
+    fault.run_with_recovery, train.main, train.build, layers.cross_entropy,
+    transformer.loss, registry.loss_fn, registry.param_specs,
+    registry.make_train_batch))
 assert heap.kinds() == ("strawman", "sw", "hwsw", "sanitizer", "arena",
                         "tlregion", "fused")
 assert design_space.STRATEGIES[-1] == "pim_meta_pim_exec"
@@ -61,4 +72,4 @@ def test_port_imports_no_jax_and_no_reference():
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     n = int(out.stdout.split("N ")[1].split()[0])
-    assert n >= 40, out.stdout  # every module of the package was imported
+    assert n >= 50, out.stdout  # every module of the package was imported

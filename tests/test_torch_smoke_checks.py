@@ -11,6 +11,9 @@ corrupted placement map (``cls_map``) and a miscounted sanitizer tag or
 quarantine order. Phase 5d's checks fail a decode session whose "fused"
 engine disagrees with hwsw, a doctored report and a miscounted launch;
 phase 5e's chaos check each broken guarantee of the elastic tier.
+Phase 11's gradient check passes a summation-order difference and fails
+a perturbed leaf and a broken `rms_norm`; its FLOP count and kernel
+classes are pinned.
 """
 import dataclasses
 import sys
@@ -360,3 +363,60 @@ def test_chaos_checks_fail_a_lit_dead_core_and_a_quiet_session():
                       (dict(kills=[]), "did not happen")):
         errs = chip_smoke.chaos_errors(plan, dict(rep, **bad))
         assert len(errs) == 1 and want in errs[0], (bad, errs)
+
+
+def test_train_check_fails_a_perturbed_leaf_and_a_broken_rms_norm(
+        monkeypatch):
+    """Phase 11 (a)'s reading on the reduced config: the gradients
+    recomputed through remat pass, a leaf off by 1 % of its largest
+    element fails, and so does the dropped ``1 +`` of `rms_norm`."""
+    from repro_torch import configs
+    from repro_torch.launch import steps
+    from repro_torch.models import layers, registry
+    from repro_torch.models.config import ShapeConfig
+    cfg = configs.get("granite_3_8b").reduced()
+    params = registry.init(cfg, seed=0, device="cpu")
+    batch = registry.make_train_batch(cfg, ShapeConfig("t", 16, 1, "train"),
+                                      seed=0, device="cpu")
+    grad_fn = steps.make_grad_fn(cfg)
+    want = grad_fn(params, batch)
+    (l, _), g = steps.make_grad_fn(dataclasses.replace(cfg, remat=True))(
+        params, batch)
+    rel, worst, bad = chip_smoke.grad_reading((l, g), (want[0][0], want[1]))
+    assert rel <= chip_smoke.TRAIN_LOSS_TOL and not bad
+    g["blocks"]["w1"] = g["blocks"]["w1"] + 0.01 * float(
+        g["blocks"]["w1"].abs().max())
+    assert list(chip_smoke.grad_reading((l, g), (want[0][0], want[1]))[2]) \
+        == ["blocks/w1"]
+
+    def broken(x, scale, eps=1e-6):
+        xf = x.float()
+        y = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+        return (y * scale.float()).to(x.dtype)
+
+    monkeypatch.setattr(layers, "rms_norm", broken)
+    (lm, _), gm = grad_fn(params, batch)
+    rel, _, bad = chip_smoke.grad_reading((lm, gm), (want[0][0], want[1]))
+    assert rel > chip_smoke.TRAIN_LOSS_TOL and bad
+
+
+def test_train_flops_and_kernel_classes():
+    """Phase 11's MFU numerator at its configuration (granite-3-8b, 8
+    layers, 4 x 4096 tokens): 1.7962 B matmul parameters, 270.62 TFLOP a
+    step; kernel names sort into their classes."""
+    from repro_torch import configs
+    cfg = dataclasses.replace(configs.get("granite_3_8b"), n_layers=8)
+    flops, n_mm = chip_smoke.train_flops(cfg, 4 * 4096, 4, 4096)
+    assert n_mm == 8 * (4096 * 4096 * 2 + 4096 * 1024 * 2
+                        + 3 * 4096 * 12800) + 4096 * 49408
+    assert flops == 8 * n_mm * 4 * 4096 + 4 * 4 * 4 * 4096 ** 2 * 4096 * 8
+    assert round(flops / 1e12, 2) == 270.62
+    got = chip_smoke.kernel_classes([
+        (2.0, 1, "sm80_xmma_gemm_f32f32_f32f32_f32_nn_n_tilesize128"),
+        (1.0, 2, "nvjet_tst_128x256_64x4_1x2_h_bz_coopA_NTN"),
+        (0.5, 1, "void at::native::(anonymous namespace)::cunn_SoftMax"),
+        (0.25, 3, "void at::native::unrolled_elementwise_kernel<at::nat"),
+        (0.125, 1, "void at::native::index_put_with_sort_kernel")])
+    assert got == {"fp32 GEMM": (2.0, 1), "bf16 GEMM": (1.0, 2),
+                   "softmax": (0.5, 1), "reduce": (0.0, 0),
+                   "elementwise": (0.25, 3), "other": (0.125, 1)}
