@@ -116,9 +116,11 @@ Phases (each raises on failure; nothing is caught and carried on):
      version on the card (fp32 to 2e-5, bf16 to 2e-2, atol = rtol): MHA,
      GQA and MQA at head_dim 32 and 128 with seq_len 0, 1, a page boundary
      and full, -1 entries and permuted page tables, granite-3-8b's decode
-     shape (B=8, H=32, KVH=8, D=128, page 128, P=6), head_dim 160, and a
-     long sequence (B=1, granite's heads, 8192 tokens in 64 pages of 128)
-     that crosses many splits;
+     shape (B=8, H=32, KVH=8, D=128, page 128, P=6), head_dim 160, the
+     served families' decode shapes (H=KVH=16 at D=128, H=8 over one KV
+     head at D=256, H=KVH=12 at D=64), and a long sequence (B=1,
+     granite's heads, 8192 tokens in 64 pages of 128) that crosses many
+     splits;
   7. the serving path: granite-3-8b at full width (40 layers, bf16,
      weights from ``--seed`` on the card), 8 requests of 512 prompt tokens
      and 64 greedy decode steps through `launch.serve.serve`, page ids from
@@ -185,13 +187,37 @@ Phases (each raises on failure; nothing is caught and carried on):
      on the card (the reduced config in bf16, 12 steps, a checkpoint
      every 3, a failure at step 7): 1 recovery, steps 0-11, the final
      state == an uninterrupted run's bit for bit, and a checkpoint
-     written on the card restored on the CPU == on the card.
+     written on the card restored on the CPU == on the card;
+ 12. the moe, vlm and audio families served (olmoe-1b-7b, qwen2-moe-a2.7b,
+     paligemma-3b, whisper-small; weights from ``--seed``, each model
+     freed before the next): (a) each at full width, 2 layers (whisper's
+     encoder too) in fp32, B=2, 128 text tokens (paligemma after its 256
+     patches), prefill + 4 decode steps on the card (the paged-attention
+     kernel) and on the CPU (its plain version), the CPU fed the card's
+     greedy tokens: every step's logits within 1e-3 of max |logit| over
+     the real vocabulary, and for the MoEs layer 0's expert ids of every
+     forward, where a (token, k) that differs is printed with its
+     probability gap and must be a near-tie (<= 1e-4); (b) each at full
+     width and depth in bf16 through `launch.serve.serve(impl="kernel")`,
+     8 requests of 512 text tokens (paligemma: 256 patches + 256; whisper:
+     256 decoder tokens over 1536 encoder frames), 64 greedy decode steps,
+     the counters set to 0 just before and read just after: every step's
+     logits finite, paged attention launched layers x 64 times, the heap
+     kernel 0 times, the pool's page allocations and stats, prefill s,
+     decode ms/step and tokens/s, peak memory, and a few more decode steps
+     under the profiler (launches, busy share); (c) paged attention at
+     each model's last decode step's layer-0 inputs against its plain
+     version (bf16 to 2e-2) with its device time per call, the plain
+     version's, SDPA's over gathered K/V and the bound.
 
 In the ``kernels`` record, each kernel's ``ms``, ``plain_ms``,
 ``bound_ms`` and ``library_ms`` are per launch: averaged over the launches
 of its main path for the heap step (phase 5) and phases 8-9, for one call
 at each shape of phase 10 (one entry per shape), at the last decode
-step's layer-0 inputs for paged attention (phase 7).
+step's layer-0 inputs for paged attention (phase 7: granite-3-8b's
+shape; phase 12: one entry per new head shape, ``paged_attention_moe``
+counting the launches of both MoEs, ``paged_attention_paligemma``,
+``paged_attention_whisper``).
 
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -245,7 +271,12 @@ PA_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 PA_CASES = tuple((H, KVH, D, 16, 4, (0, 1, 16, 17, 64))
                  for H, KVH, D in PA_HEADS) + (
     (32, 8, 128, 128, 6, (513, 530, 545, 560, 575, 576, 0, 768)),
-    (32, 8, 160, 128, 6, (1, 128, 129, 768)))
+    (32, 8, 160, 128, 6, (1, 128, 129, 768)),
+    # the served families' decode shapes (phase 12): the MoEs' (G=1),
+    # paligemma's (MQA, G=8, D=256) and whisper's (G=1, D=64)
+    (16, 16, 128, 128, 6, (1, 128, 129, 576, 768)),
+    (8, 1, 256, 128, 6, (1, 128, 129, 576, 768, 0)),
+    (12, 12, 64, 128, 4, (1, 128, 320, 512)))
 PA_LONG = (32, 8, 128, 128, 64, (8192,))  # B=1, across many splits
 SERVE_ARCH = "granite_3_8b"
 SERVE_BATCH = 8       # requests
@@ -2392,32 +2423,184 @@ def pa_call_ms(prof):
     return (None if split is None else split + merge), split, merge, s_n
 
 
-def pa_bound(q, k_pages, seq_lens, page_table):
-    """(bytes, fp32 operations) one call needs for these inputs: the K and
-    V rows of the valid tokens, q and the output, the page table and the
-    lengths, each once; q.k and p.v products plus the softmax's exp, max
-    and sum per score."""
-    B, H, D = q.shape
-    KVH = k_pages.shape[2]
-    elt = q.element_size()
-    tokens = int(seq_lens.clamp(min=0).sum())
+def pa_work(B, H, KVH, D, tokens, table_entries, elt):
+    """(bytes, fp32 operations) of one call over `tokens` valid tokens in
+    all: the K and V rows of those tokens, q and the output, the page
+    table's `table_entries` and the B lengths, each once; q.k and p.v
+    products plus the softmax's exp, max and sum per score."""
     nbytes = (2 * tokens * KVH * D * elt + 2 * B * H * D * elt
-              + 4 * page_table.numel() + 4 * B)
+              + 4 * table_entries + 4 * B)
     ops = 4 * tokens * H * D + 5 * tokens * H
     return nbytes, ops
+
+
+def pa_bound(q, k_pages, seq_lens, page_table):
+    """`pa_work` of one call on these inputs."""
+    B, H, D = q.shape
+    return pa_work(B, H, k_pages.shape[2], D,
+                   int(seq_lens.clamp(min=0).sum()), page_table.numel(),
+                   q.element_size())
+
+
+def layer0_attention_inputs(cfg, res):
+    """The paged-attention call of the last decode step's layer 0 of a
+    `serve` result, rebuilt from its cache: (q, the K and V pools as the
+    kernel takes them, the global page table, seq_lens). Layer 0's input
+    is the token's embedding in every served family; the audio family's
+    decoder layers are under ``dec``."""
+    from repro_torch.kvcache import paged
+    from repro_torch.models import layers
+    cache, p = res.cache, res.params
+    blocks = p["dec"] if cfg.family == "audio" else p["blocks"]
+    H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    pt, seq_lens = cache["page_table"], cache["seq_lens"]
+    B, P = pt.shape
+    page = cfg.page_size
+    x = p["embed"][res.tokens[:, -2]].to(layers.torch_dtype(cfg.dtype))
+    h = layers.rms_norm(x[:, None], blocks["ln1"][0])
+    cos, sin = layers.rope_tables((seq_lens - 1)[:, None], hd,
+                                  cfg.rope_theta)
+    q = layers.apply_rope(layers.qk_proj(h, blocks["wq"][0], H, hd),
+                          cos, sin)[:, 0].contiguous()
+    kp = cache["k_pages"][0].view(B * P, page, KVH, hd)
+    vp = cache["v_pages"][0].view(B * P, page, KVH, hd)
+    return q, kp, vp, paged.global_page_table(pt, P), seq_lens
+
+
+def pa_at_last_step(cfg, res, device):
+    """Paged attention at the last decode step's layer-0 inputs of a
+    `serve` result (not on the path): the kernel against its plain
+    version (bf16 to PA_TOL), its CUDA-event and device time per call,
+    the plain version's, `scaled_dot_product_attention(enable_gqa=True)`
+    over gathered K/V as a yardstick (with and without the gather), and
+    the bound; printed, and returned as a dict."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import paged_attention as pa
+    args = layer0_attention_inputs(cfg, res)
+    q, kp, vp, ptg, seq_lens = args
+    got, want = pa.paged_attention(*args), pa.paged_attention_plain(*args)
+    torch.cuda.synchronize()
+    err = assert_close(got, want, PA_TOL[str(q.dtype).split(".")[1]],
+                       f"{cfg.name}: layer-0 attention of the last decode "
+                       f"step")
+    kern_ms, _, kprof = time_calls(lambda: pa.paged_attention(*args))
+    kern_dev_ms, split_ms, merge_ms, k_seen = pa_call_ms(kprof)
+    plain_ms, plain_dev_ms, _ = time_calls(
+        lambda: pa.paged_attention_plain(*args), n=20)
+    B, H, hd = q.shape
+    KVH, page = kp.shape[2], kp.shape[1]
+    P = ptg.shape[1]
+    Stot = P * page
+    pool_k = res.cache["k_pages"][0]
+    pool_v = res.cache["v_pages"][0]
+    bidx = torch.arange(B, device=device)[:, None]
+    ptl = res.cache["page_table"].long().clamp(0, P - 1)
+    mask = (torch.arange(Stot, device=device)[None, :]
+            < seq_lens[:, None])[:, None, None, :]
+
+    def gather():
+        kg = pool_k[bidx, ptl].reshape(B, Stot, KVH, hd)
+        vg = pool_v[bidx, ptl].reshape(B, Stot, KVH, hd)
+        return kg.transpose(1, 2).contiguous(), vg.transpose(1, 2).contiguous()
+
+    kg, vg = gather()
+
+    def sdpa(kg, vg):
+        return F.scaled_dot_product_attention(
+            q[:, :, None, :], kg, vg, attn_mask=mask, enable_gqa=True)[:, :, 0]
+
+    # a yardstick, not a check: in bf16 it may round the scores and p to
+    # bf16, where the kernel and the plain version keep them in fp32
+    lib_err = float((sdpa(kg, vg).float() - want.float()).abs().max())
+    lib_ms, lib_dev_ms, _ = time_calls(lambda: sdpa(kg, vg))
+    libg_ms, libg_dev_ms, _ = time_calls(lambda: sdpa(*gather()))
+    nbytes, nops = pa_bound(q, kp, seq_lens, ptg)
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * nops / FP32_OPS_PER_S
+    dev = "not measured" if kern_dev_ms is None else \
+        f"{kern_dev_ms:.5f} ms device time/call (split {split_ms:.5f} + " \
+        f"merge {merge_ms}) over the {k_seen} calls the profiler recorded"
+    splits = pa.split_plan(B * KVH, P, pa.sm_count(device))[1]
+    print(f"{cfg.name}: paged attention at the last step's layer-0 inputs "
+          f"(B={B}, H={H}, KVH={KVH}, D={hd}, {int(seq_lens[0])} tokens, "
+          f"page {page}, {P} pages, {splits} split(s)): kernel "
+          f"{kern_ms:.5f} ms/call (CUDA events, back to back), {dev}; "
+          f"plain version {plain_ms:.4f} ms/call; "
+          f"scaled_dot_product_attention {lib_ms:.5f} ms/call over gathered "
+          f"K/V (device {lib_dev_ms}), {libg_ms:.5f} ms with the gather "
+          f"(device {libg_dev_ms}); bound {max(bytes_ms, ops_ms):.6f} ms "
+          f"({nbytes} B, {nops} fp32 ops); kernel == plain max |diff| "
+          f"{err}, yardstick vs plain max |diff| {lib_err}")
+    return dict(err=err, ms=kern_ms, device_ms=kern_dev_ms,
+                split_ms=split_ms, merge_ms=merge_ms, seen=k_seen,
+                plain_ms=plain_ms, plain_device_ms=plain_dev_ms,
+                sdpa_ms=lib_ms, sdpa_device_ms=lib_dev_ms,
+                sdpa_gather_ms=libg_ms, sdpa_gather_device_ms=libg_dev_ms,
+                sdpa_err=lib_err, bytes=nbytes, ops=nops, bytes_ms=bytes_ms,
+                ops_ms=ops_ms, shape=[B, H, KVH, hd, page, P],
+                tokens=int(seq_lens.sum()))
+
+
+def profile_decode(cfg, mod, params, cache, toks, n=SERVE_PROFILE):
+    """`n` more greedy decode steps of family module `mod` (after one
+    warm-up step) under the profiler: device busy ms and wall ms per step,
+    device launches per step, the paged-attention kernels' device ms per
+    step and per call in situ, and the top kernels; printed, and returned
+    as a dict (busy None where the profiler recorded no device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    dcfg = dataclasses.replace(cfg, attend_impl="kernel")
+    cache, logits = mod.decode(dcfg, params, cache, {"tokens": toks})
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            toks = torch.argmax(logits, dim=-1)[:, None]
+            cache, logits = mod.decode(dcfg, params, cache, {"tokens": toks})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy, launches, top = 0.0, 0, []
+    for e in prof.key_averages():
+        us = device_us(e)
+        if us > 0 and e.device_type.name == "CUDA":
+            busy += us
+            launches += e.count
+            top.append((us / n / 1e3, e.count, e.key[:60]))
+    top.sort(reverse=True)
+    call_ms, split_ms, merge_ms, seen = pa_call_ms(prof)
+    pa_ms = sum(kernel_events(prof, k)[0] for k in
+                (PA_KERNEL, PA_MERGE)) / 1e3 / n
+    wall_ms = 1e3 * wall / n
+    busy_ms = busy / n / 1e3 if busy else None
+    if busy_ms is None:
+        print("profiler: no device time recorded; busy share not measured")
+    else:
+        print(f"{cfg.name}: profiler over {n} decode steps: device busy "
+              f"{busy_ms:.3f} of {wall_ms:.3f} ms/step "
+              f"({100 * busy_ms / wall_ms:.1f} %), "
+              f"{launches / n:.0f} device launches/step, "
+              f"paged attention {pa_ms:.4f} ms/step, "
+              f"{call_ms} ms device time/call in situ "
+              f"(split {split_ms} + merge {merge_ms}; "
+              f"{seen} of {cfg.n_layers * n} calls "
+              f"recorded); top: " + "; ".join(
+                  f"{k} {ms:.3f} ms/step x{c}" for ms, c, k in top[:6]))
+    return dict(busy_ms=busy_ms, wall_ms=wall_ms, launches=launches / n,
+                pa_ms=pa_ms, pa_call_ms=call_ms, pa_split_ms=split_ms,
+                pa_merge_ms=merge_ms, pa_events=seen,
+                top=[list(t) for t in top[:8]])
 
 
 def phase_serve(seed, device):
     """Phase 7; returns (result dict, the paged-attention kernels entry)."""
     import torch
-    import torch.nn.functional as F
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch import configs
     from repro_torch.kernels import heap_step
     from repro_torch.kernels import paged_attention as pa
-    from repro_torch.kvcache import paged
     from repro_torch.launch import serve as srv
-    from repro_torch.models import layers, registry, transformer
+    from repro_torch.models import registry, transformer
 
     cfg = configs.get(SERVE_ARCH)
     B, S, steps = SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS
@@ -2488,107 +2671,21 @@ def phase_serve(seed, device):
 
     # ---- the last step's layer-0 attention, kernel vs plain ----------------
     cache, p = res.cache, res.params
-    H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    pt, seq_lens = cache["page_table"], cache["seq_lens"]
-    P, page = pt.shape[1], cfg.page_size
-    pos = seq_lens - 1
-    x = p["embed"][res.tokens[:, -2]].to(layers.torch_dtype(cfg.dtype))
-    h = layers.rms_norm(x[:, None], p["blocks"]["ln1"][0])
-    cos, sin = layers.rope_tables(pos[:, None], hd, cfg.rope_theta)
-    q = layers.apply_rope(layers.qk_proj(h, p["blocks"]["wq"][0], H, hd),
-                          cos, sin)[:, 0].contiguous()
-    kp = cache["k_pages"][0].view(B * P, page, KVH, hd)
-    vp = cache["v_pages"][0].view(B * P, page, KVH, hd)
-    ptg = paged.global_page_table(pt, P)
-    args = (q, kp, vp, ptg, seq_lens)
-    got, want = pa.paged_attention(*args), pa.paged_attention_plain(*args)
-    torch.cuda.synchronize()
-    serve_err = assert_close(got, want, PA_TOL["bfloat16"],
-                             "layer-0 attention of the last decode step")
-
-    # ---- timings at these inputs (not on the path) -------------------------
-    kern_ms, _, kprof = time_calls(lambda: pa.paged_attention(*args))
-    kern_dev_ms, split_ms, merge_ms, k_seen = pa_call_ms(kprof)
-    plain_ms, plain_dev_ms, _ = time_calls(
-        lambda: pa.paged_attention_plain(*args), n=20)
-    Stot = P * page
-    bidx = torch.arange(B, device=device)[:, None]
-    ptl = pt.long().clamp(0, P - 1)
-    mask = (torch.arange(Stot, device=device)[None, :]
-            < seq_lens[:, None])[:, None, None, :]
-
-    def gather():
-        kg = cache["k_pages"][0][bidx, ptl].reshape(B, Stot, KVH, hd)
-        vg = cache["v_pages"][0][bidx, ptl].reshape(B, Stot, KVH, hd)
-        return kg.transpose(1, 2).contiguous(), vg.transpose(1, 2).contiguous()
-
-    kg, vg = gather()
-
-    def sdpa(kg, vg):
-        return F.scaled_dot_product_attention(
-            q[:, :, None, :], kg, vg, attn_mask=mask, enable_gqa=True)[:, :, 0]
-
-    # a yardstick, not a check: in bf16 it may round the scores and p to
-    # bf16, where the kernel and the plain version keep them in fp32
-    lib_err = float((sdpa(kg, vg).float() - want.float()).abs().max())
-    lib_ms, lib_dev_ms, _ = time_calls(lambda: sdpa(kg, vg))
-    libg_ms, libg_dev_ms, _ = time_calls(lambda: sdpa(*gather()))
-    nbytes, nops = pa_bound(q, kp, seq_lens, ptg)
-    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
-    ops_ms = 1e3 * nops / FP32_OPS_PER_S
-    dev = "not measured" if kern_dev_ms is None else \
-        f"{kern_dev_ms:.5f} ms device time/call (split {split_ms:.5f} + " \
-        f"merge {merge_ms}) over the {k_seen} calls the profiler recorded"
-    print(f"paged attention at the last step's layer-0 inputs (B={B}, "
-          f"H={H}, KVH={KVH}, D={hd}, {int(seq_lens[0])} tokens): kernel "
-          f"{kern_ms:.5f} ms/call (CUDA events, back to back), {dev}; "
-          f"plain version {plain_ms:.4f} ms/call; "
-          f"scaled_dot_product_attention {lib_ms:.5f} ms/call over gathered "
-          f"K/V (device {lib_dev_ms}), {libg_ms:.5f} ms with the gather "
-          f"(device {libg_dev_ms}); bound {max(bytes_ms, ops_ms):.6f} ms "
-          f"({nbytes} B, {nops} fp32 ops); kernel == plain max |diff| "
-          f"{serve_err}, yardstick vs plain max |diff| {lib_err}")
+    r = pa_at_last_step(cfg, res, device)
+    serve_err, kern_ms, kern_dev_ms = r["err"], r["ms"], r["device_ms"]
+    split_ms, merge_ms, k_seen = r["split_ms"], r["merge_ms"], r["seen"]
+    plain_ms, plain_dev_ms = r["plain_ms"], r["plain_device_ms"]
+    lib_ms, lib_dev_ms = r["sdpa_ms"], r["sdpa_device_ms"]
+    libg_ms, libg_dev_ms = r["sdpa_gather_ms"], r["sdpa_gather_device_ms"]
+    nbytes, nops = r["bytes"], r["ops"]
+    bytes_ms, ops_ms = r["bytes_ms"], r["ops_ms"]
 
     # ---- device busy share over a few more decode steps --------------------
-    dcfg = dataclasses.replace(cfg, attend_impl="kernel")
-    toks = res.tokens[:, -1:]
-    cache, logits = transformer.decode(dcfg, p, cache, {"tokens": toks})
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(SERVE_PROFILE):
-            toks = torch.argmax(logits, dim=-1)[:, None]
-            cache, logits = transformer.decode(dcfg, p, cache,
-                                               {"tokens": toks})
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    busy, launches, top = 0.0, 0, []
-    for e in prof.key_averages():
-        us = device_us(e)
-        if us > 0 and e.device_type.name == "CUDA":
-            busy += us
-            launches += e.count
-            top.append((us / SERVE_PROFILE / 1e3, e.count, e.key[:60]))
-    top.sort(reverse=True)
-    step_pa_ms, step_split_ms, step_merge_ms, step_pa_n = pa_call_ms(prof)
-    step_pa_total_ms = sum(kernel_events(prof, k)[0] for k in
-                           (PA_KERNEL, PA_MERGE)) / 1e3 / SERVE_PROFILE
-    wall_ms = 1e3 * wall / SERVE_PROFILE
-    busy_ms = busy / SERVE_PROFILE / 1e3 if busy else None
-    if busy_ms is None:
-        print("profiler: no device time recorded; busy share not measured")
-    else:
-        print(f"profiler over {SERVE_PROFILE} decode steps: device busy "
-              f"{busy_ms:.3f} of {wall_ms:.3f} ms/step "
-              f"({100 * busy_ms / wall_ms:.1f} %), "
-              f"{launches / SERVE_PROFILE:.0f} device launches/step, "
-              f"paged attention {step_pa_total_ms:.4f} ms/step, "
-              f"{step_pa_ms} ms device time/call in situ "
-              f"(split {step_split_ms} + merge {step_merge_ms}; "
-              f"{step_pa_n} of {cfg.n_layers * SERVE_PROFILE} calls "
-              f"recorded); top: " + "; ".join(
-                  f"{k} {ms:.3f} ms/step x{c}" for ms, c, k in top[:6]))
+    d = profile_decode(cfg, transformer, p, cache, res.tokens[:, -1:])
+    busy_ms, wall_ms, launches = d["busy_ms"], d["wall_ms"], d["launches"]
+    step_pa_total_ms, step_pa_ms = d["pa_ms"], d["pa_call_ms"]
+    step_split_ms, step_merge_ms = d["pa_split_ms"], d["pa_merge_ms"]
+    step_pa_n, top = d["pa_events"], d["top"]
     result = dict(
         arch=cfg.name, n_params=n_params, init_s=init_s, batch=B,
         prompt=S, decode_steps=steps, pool_rounds=res.pool_rounds,
@@ -2606,7 +2703,7 @@ def phase_serve(seed, device):
         sdpa_gather_device_ms=libg_dev_ms, pa_bytes=nbytes, pa_ops=nops,
         pa_bytes_ms=bytes_ms, pa_ops_ms=ops_ms, pa_serve_err=serve_err,
         step_busy_ms=busy_ms, step_wall_ms=wall_ms,
-        step_launches=launches / SERVE_PROFILE,
+        step_launches=launches,
         step_pa_device_ms=step_pa_total_ms, step_pa_call_device_ms=step_pa_ms,
         step_pa_split_device_ms=step_split_ms,
         step_pa_merge_device_ms=step_merge_ms, step_pa_events=step_pa_n,
@@ -3415,6 +3512,273 @@ def phase_train(seed, device, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the moe, vlm and audio families served
+FAMILY_ARCHS = ("olmoe_1b_7b", "qwen2_moe_a2_7b", "paligemma_3b",
+                "whisper_small")
+FAM_CHECK_LAYERS = 2    # (a): full width, 2 layers (the encoder's too), fp32
+FAM_CHECK_BATCH = 2
+FAM_CHECK_PROMPT = 128  # text tokens (paligemma: after its 256 patches)
+FAM_CHECK_STEPS = 4
+FAM_LOGIT_TOL = 1e-3    # (a): max |card - CPU| / max |CPU| of a step's logits
+FAM_TIE_GAP = 1e-4      # (a): a layer-0 expert the card and the CPU pick
+                        # differently must be within this probability
+FAM_BATCH = 8           # (b): requests
+FAM_PROMPT = {"olmoe_1b_7b": 512, "qwen2_moe_a2_7b": 512,
+              "paligemma_3b": 256,   # after its 256 patches
+              "whisper_small": 256}  # decoder tokens (448 positions)
+FAM_STEPS = 64
+# the kernels line's entries at the new head shapes: (name, the archs whose
+# serving runs launch the kernel at that shape; the first one's inputs are
+# timed)
+FAM_PA_ENTRIES = (("paged_attention_moe", ("olmoe_1b_7b", "qwen2_moe_a2_7b")),
+                  ("paged_attention_paligemma", ("paligemma_3b",)),
+                  ("paged_attention_whisper", ("whisper_small",)))
+
+
+def tree_to(tree, device):
+    """A copy of nested dicts of tensors on `device`."""
+    return {k: tree_to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def family_launches(cfg, steps):
+    """Paged-attention launches of `steps` decode steps: one per decoder
+    layer and step (prefill attends without the kernel)."""
+    return cfg.n_layers * steps
+
+
+def pa_entry(name, launches, err, reading):
+    """The kernels-line entry of paged attention at one shape, from
+    `pa_at_last_step`'s reading."""
+    bytes_ms, ops_ms = reading["bytes_ms"], reading["ops_ms"]
+    return {"name": name, "route": "cuda", "source": PA_SOURCE,
+            "replaces": PA_REPLACES, "launches": launches,
+            "max_abs_err": err, "ms": reading["ms"],
+            "plain_ms": reading["plain_ms"],
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": reading["sdpa_ms"]}
+
+
+def expert_flips(idx_a, idx_b, probs):
+    """The (token, k) at which two runs' top-k expert ids differ, each
+    with the probability gap between the two experts under `probs` (one
+    run's router probabilities, [tokens, E]): [(token, k, gap)]."""
+    diff = (idx_a != idx_b).nonzero().tolist()
+    return [(t, k, abs(float(probs[t, idx_a[t, k]])
+                       - float(probs[t, idx_b[t, k]]))) for t, k in diff]
+
+
+def family_run(cfg, params, tokens, front, steps, device, feed=None):
+    """Prefill then `steps` decode steps through the family's module with
+    ``attend_impl="kernel"`` on `device`, each step fed the column of
+    `feed` ([B, steps] on the CPU), or greedy where `feed` is None: (every
+    step's logits on the CPU, [(probs, ids)] of each forward's layer-0
+    routing for a MoE, the tokens fed [B, steps])."""
+    import torch
+    from repro_torch.models import moe, registry
+    mod = registry.get_module(cfg)
+    dcfg = dataclasses.replace(cfg, attend_impl="kernel")
+    B, S = tokens.shape
+    prefix = cfg.n_patches if cfg.family == "vlm" else 0
+    cache = mod.init_cache(cfg, B, prefix + S + steps + cfg.page_size,
+                           device=device)
+    routes, top_k = [], moe.top_k
+
+    def record(x, k):
+        vals, idx = top_k(x, k)
+        routes.append((x.reshape(-1, x.shape[-1]).cpu(),
+                       idx.reshape(-1, k).cpu()))
+        return vals, idx
+
+    moe.top_k = record
+    try:
+        batch = {"tokens": tokens.to(device),
+                 **{k: v.to(device) for k, v in front.items()}}
+        cache, logits = mod.prefill(dcfg, params, batch, cache)
+        out, fed = [logits.cpu()], []
+        for i in range(steps):
+            fed.append(torch.argmax(out[-1], -1) if feed is None
+                       else feed[:, i])
+            cache, logits = mod.decode(dcfg, params, cache, {
+                "tokens": fed[-1][:, None].to(device)})
+            out.append(logits.cpu())
+    finally:
+        moe.top_k = top_k
+    return out, routes[::cfg.n_layers], torch.stack(fed, 1)
+
+
+def family_card_vs_cpu(name, seed, device):
+    """Phase 12 (a): `name` at full width, FAM_CHECK_LAYERS layers, fp32,
+    B=FAM_CHECK_BATCH, prefill + FAM_CHECK_STEPS decode steps on the card
+    (the paged-attention kernel) and on the CPU (its plain version) from
+    the same parameters and inputs, the CPU fed the card's greedy tokens:
+    every step's logits within FAM_LOGIT_TOL of max |logit|; for a MoE,
+    layer 0's expert ids of every forward, where any (token, k) that
+    differs must be a near-tie (gap <= FAM_TIE_GAP)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import registry
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(configs.get(name), n_layers=FAM_CHECK_LAYERS,
+                              dtype="float32")
+    if cfg.family == "audio":
+        cfg = dataclasses.replace(cfg, enc_layers=FAM_CHECK_LAYERS)
+    B, S = FAM_CHECK_BATCH, FAM_CHECK_PROMPT
+    S += (-(S + (cfg.n_patches if cfg.family == "vlm" else 0))
+          % cfg.page_size)  # whole pages (so already at full width)
+    params = registry.init(cfg, seed=seed, device=device)
+    cpu_params = tree_to(params, "cpu")
+    tokens = registry.make_prompts(cfg, B, S, seed=seed, device="cpu")
+    front = registry.make_frontends(cfg, B, seed=seed, device="cpu")
+    card, card_routes, feed = family_run(cfg, params, tokens, front,
+                                         FAM_CHECK_STEPS, device)
+    del params
+    torch.cuda.empty_cache()
+    # the CPU is fed the card's greedy tokens
+    cpu, cpu_routes, _ = family_run(cfg, cpu_params, tokens, front,
+                                    FAM_CHECK_STEPS, torch.device("cpu"),
+                                    feed=feed)
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(card, cpu)):
+        # the vocabulary's padding columns hold -1e30 on both sides
+        g, w = g[:, :cfg.vocab], w[:, :cfg.vocab]
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{name} (a): non-finite logits at step {i}")
+        share = float((g - w).abs().max()) / float(w.abs().max())
+        if not share <= FAM_LOGIT_TOL:
+            raise AssertionError(f"{name} (a) step {i}: card logits differ "
+                                 f"from the CPU's by {share:.3g} of max "
+                                 f"|logit| (limit {FAM_LOGIT_TOL})")
+        worst = max(worst, share)
+    flips, routed = [], 0
+    for (_, ia), (pb, ib) in zip(card_routes, cpu_routes):
+        routed += ia.numel()
+        flips += expert_flips(ia, ib, pb)
+    if cfg.family == "moe" and len(card_routes) != FAM_CHECK_STEPS + 1:
+        raise AssertionError(f"{name} (a): {len(card_routes)} routed "
+                             f"forwards recorded")
+    for t, k, gap in flips:
+        print(f"{name} (a): layer-0 expert differs at token {t}, k={k}: "
+              f"probability gap {gap:.3g}")
+    if any(gap > FAM_TIE_GAP for _, _, gap in flips):
+        raise AssertionError(f"{name} (a): an expert choice differs by more "
+                             f"than a near-tie ({FAM_TIE_GAP})")
+    out = dict(logit_share=worst, routed=routed, flips=len(flips),
+               gaps=[g for _, _, g in flips],
+               seconds=time.perf_counter() - t0)
+    print(f"{name} (a): {FAM_CHECK_LAYERS} layers at full width in fp32, "
+          f"B={B} x {S} text tokens"
+          + (f" after {cfg.n_patches} patches" if cfg.family == "vlm" else "")
+          + f", {FAM_CHECK_STEPS} decode steps: card == CPU, max |diff| "
+          f"{worst:.3g} of max |logit| (limit {FAM_LOGIT_TOL})"
+          + (f"; layer-0 expert ids of {routed} (token, k): {len(flips)} "
+             f"differ" if cfg.family == "moe" else "")
+          + f" [{out['seconds']:.1f} s]")
+    return out
+
+
+def family_serve(name, seed, device):
+    """Phase 12 (b) and (c): `name` at full width and depth in bf16,
+    FAM_BATCH requests of FAM_PROMPT[name] text tokens and FAM_STEPS
+    greedy decode steps through `launch.serve.serve` with the counters
+    reset just before and read just after; then paged attention at the
+    last step's layer-0 inputs against its plain version, and the device
+    busy share of a few more decode steps. Returns (result, reading)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import heap_step
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch import serve as srv
+    from repro_torch.models import registry
+    cfg = configs.get(name)
+    B, S, steps = FAM_BATCH, FAM_PROMPT[name], FAM_STEPS
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    params = registry.init(cfg, seed=seed, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in named_leaves(params).values())
+    pa.paged_attention.launches = 0
+    heap_step.fused_heap_step.launches = 0
+    res = srv.serve(cfg, batch=B, prompt_len=S, decode_steps=steps,
+                    impl="kernel", seed=seed, device=device, params=params)
+    torch.cuda.synchronize()
+    launches = pa.paged_attention.launches
+    heap_launches = heap_step.fused_heap_step.launches
+    want = family_launches(cfg, steps)
+    if launches != want:
+        raise AssertionError(f"{name}: serve launched the paged-attention "
+                             f"kernel {launches} times, want {want}")
+    if heap_launches != 0 or res.pool_kind != "sw":
+        raise AssertionError(f"{name}: the {res.pool_kind} pool launched "
+                             f"the heap kernel {heap_launches} times")
+    st = res.stats
+    if st["fails"] != 0 or st["front_hits"] <= 0:
+        raise AssertionError(f"{name}: pool stats {st}")
+    if not res.logits_finite:
+        raise AssertionError(f"{name}: non-finite logits in some step")
+    if res.tokens.shape != (B, steps + 1) or \
+            int(res.tokens.max()) >= cfg.vocab or int(res.tokens.min()) < 0:
+        raise AssertionError(f"{name}: tokens {tuple(res.tokens.shape)} "
+                             f"outside [0, {cfg.vocab})")
+    peak_gib = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    pf_s, dec_s = res.timings["prefill_s"], res.timings["decode_s"]
+    prefix = cfg.n_patches if cfg.family == "vlm" else 0
+    print(f"{name} (b): {cfg.n_layers} layers"
+          + (f" + {cfg.enc_layers} encoder layers over {cfg.enc_frames} "
+             f"frames" if cfg.family == "audio" else "")
+          + f", d_model {cfg.d_model}, H={cfg.n_heads}, KVH="
+          f"{cfg.n_kv_heads}, head_dim {cfg.head_dim}, "
+          f"{n_params / 1e9:.3f} B params in {cfg.dtype} (init {init_s:.2f} "
+          f"s); {B} x ({prefix} + {res.prompt.shape[1]}) prefill positions, "
+          f"{steps} decode steps, page {cfg.page_size}; paged-attention "
+          f"launches {launches} (= {cfg.n_layers} x {steps}); heap-step "
+          f"launches 0 in {res.pool_rounds} pool rounds; {res.page_allocs} "
+          f"decode-time page allocations; pool {st}; all logits finite; "
+          f"peak device memory {peak_gib:.2f} GiB")
+    print(f"{name} (b) timings: prefill {pf_s:.4f} s; decode "
+          f"{1e3 * dec_s / steps:.3f} ms/step, {B * steps / dec_s:.2f} "
+          f"tokens/s; waiting on the per-step length read-back "
+          f"{1e3 * res.timings['sync_s'] / steps:.3f} ms/step")
+    reading = pa_at_last_step(cfg, res, device)
+    prof = profile_decode(cfg, registry.get_module(cfg), res.params,
+                          res.cache, res.tokens[:, -1:])
+    result = dict(arch=cfg.name, n_params=n_params, init_s=init_s, batch=B,
+                  prompt=res.prompt.shape[1], prefix=prefix,
+                  decode_steps=steps, pa_launches=launches,
+                  pool_rounds=res.pool_rounds, page_allocs=res.page_allocs,
+                  pool_stats=st, peak_gib=peak_gib, prefill_s=pf_s,
+                  decode_ms_per_step=1e3 * dec_s / steps,
+                  tokens_per_s=B * steps / dec_s,
+                  sync_ms_per_step=1e3 * res.timings["sync_s"] / steps,
+                  pa=reading, profile=prof)
+    del params, res
+    torch.cuda.empty_cache()
+    return result, reading
+
+
+def phase_families(seed, device):
+    """Phase 12; returns (result dict, the kernels-line entries of the
+    new head shapes)."""
+    t0 = time.perf_counter()
+    out = {"card_vs_cpu": {}, "serve": {}}
+    readings = {}
+    for name in FAMILY_ARCHS:
+        out["card_vs_cpu"][name] = family_card_vs_cpu(name, seed, device)
+    for name in FAMILY_ARCHS:
+        out["serve"][name], readings[name] = family_serve(name, seed, device)
+    entries = []
+    for entry, archs in FAM_PA_ENTRIES:
+        entries.append(pa_entry(
+            entry, sum(out["serve"][a]["pa_launches"] for a in archs),
+            max(readings[a]["err"] for a in archs), readings[archs[0]]))
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 12 took {out['seconds']:.1f} s")
+    return out, entries
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3491,6 +3855,10 @@ def main(argv=None) -> int:
 
     # ---- 11: the training path at full width -------------------------------
     train_result = phase_train(args.seed, device, smi)
+
+    # ---- 12: the moe, vlm and audio families served at full width ----------
+    family_result, entries = phase_families(args.seed, device)
+    kernels += entries
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(result, scan=scan_result, regions=region_result,
@@ -3499,7 +3867,8 @@ def main(argv=None) -> int:
                            build_s=secs,
                            paged_vs_plain=worst, buddy=buddy_result,
                            freelist=fl_result, flash=fa_result,
-                           train=train_result, gpu=smi,
+                           train=train_result, families=family_result,
+                           gpu=smi,
                            kernels=kernels), f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

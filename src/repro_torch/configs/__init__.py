@@ -2,7 +2,8 @@
 
 Each module exposes CONFIG: ArchConfig with the exact published dimensions;
 `get(name)` resolves by arch id (dashes or underscores). The port holds the
-dense family so far; the other families raise until their models are
+dense family and the three families that decode through the paged KV cache
+(moe, vlm, audio); the recurrent families raise until their models are
 ported (ROADMAP A8).
 """
 from __future__ import annotations
@@ -11,9 +12,11 @@ import importlib
 
 DENSE = ("granite_3_8b", "stablelm_12b", "mistral_large_123b",
          "nemotron_4_340b")
-NOT_PORTED = ("mamba2_130m", "recurrentgemma_9b", "whisper_small",
-              "olmoe_1b_7b", "qwen2_moe_a2_7b", "paligemma_3b")
-ARCHS = DENSE + NOT_PORTED
+FAMILIES = ("olmoe_1b_7b", "qwen2_moe_a2_7b", "paligemma_3b",
+            "whisper_small")
+PORTED = DENSE + FAMILIES
+NOT_PORTED = ("mamba2_130m", "recurrentgemma_9b")
+ARCHS = PORTED + NOT_PORTED
 
 
 def get(name: str):
@@ -21,7 +24,7 @@ def get(name: str):
     if key in NOT_PORTED:
         raise NotImplementedError(
             f"{name}: its model family is not ported yet (ROADMAP A8); the "
-            f"port serves the dense family: {', '.join(DENSE)}")
-    if key not in DENSE:
+            f"port serves: {', '.join(PORTED)}")
+    if key not in PORTED:
         raise ValueError(f"unknown arch {name!r}; known: {', '.join(ARCHS)}")
     return importlib.import_module(f"repro_torch.configs.{key}").CONFIG

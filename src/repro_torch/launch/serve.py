@@ -19,6 +19,19 @@ serving substrate:
     sequence b lands on rank b % R, and the run reports the
     `FleetRouter`'s per-rank cost accounting.
 
+Every family with a paged KV cache is served: dense, moe, vlm (a patch
+prefix of ``n_patches`` positions before the text) and audio (an encoder
+over ``enc_frames`` stub frames, whose K/V the cache holds densely); ssm
+is refused, as in the reference. The stub frontends' embeddings come from
+`registry.make_frontends` unless the caller passes them.
+
+One deviation from the reference: it sizes the cache for ``prompt +
+decode_steps + page`` positions, without the vlm's patch prefix, so a
+prefix longer than a page makes its prefill write past the cache
+(paligemma-3b: 256 patches and a 32-token prompt need 3 pages of 128, it
+reserves 2). The port counts the prefix: ``n_patches + prompt +
+decode_steps + page`` (ROADMAP C).
+
 `serve` is the entry point a program calls; `main` parses the reference's
 flags plus ``--device``, ``--seed`` and ``--no-reduced`` for full width.
 """
@@ -46,7 +59,9 @@ class ServeResult:
     """What one `serve` run produced.
 
     tokens: greedy tokens int64 [B, decode_steps + 1] (the prefill's, then
-      one per decode step); prompt: the (page-padded) prompt [B, S];
+      one per decode step); prompt: the (page-padded) text prompt [B, S];
+      frontends: the stub frontends' embeddings the prefill took
+      (``patch_embeds`` / ``enc_embeds``; empty for dense and moe);
     logits: the last step's logits [B, V]; logits_finite: whether every
       step's logits were finite; page_ids: each request's prefill extent,
       int32 [B, P]; stats / prefill_stats: the pool's
@@ -78,6 +93,7 @@ class ServeResult:
     cache: dict
     params: dict
     fleet_stats: dict = None
+    frontends: dict = None
 
 
 def make_fleet_pool(num_ranks: int, n_pages: int, num_threads: int = 16,
@@ -116,7 +132,7 @@ def _sync(dev: torch.device) -> None:
 
 def serve(cfg: ArchConfig, *, batch: int, prompt_len: int,
           decode_steps: int, impl: str = "kernel", seed: int = 0,
-          device="cuda", params=None, tokens=None,
+          device="cuda", params=None, tokens=None, frontends=None,
           fleet_ranks: int = 0) -> ServeResult:
     """Serve `batch` requests of `prompt_len` tokens for `decode_steps`
     greedy decode steps, on `device` (the card unless the caller asks for
@@ -127,15 +143,20 @@ def serve(cfg: ArchConfig, *, batch: int, prompt_len: int,
     up to R x 16 sequences; without it one pool serves up to its 16
     hardware threads.
 
-    `params` (a `registry.init` tree) and `tokens` (int [batch,
-    prompt_len]) default to ones made from `seed`. The prompt is padded
-    with zeros to a whole number of pages, as the reference pads it."""
+    `params` (a `registry.init` tree), `tokens` (int [batch,
+    prompt_len], the text) and `frontends` (`registry.make_frontends`'
+    dict) default to ones made from `seed`. The prompt is padded with
+    zeros so that the prefill (the vlm's patch prefix included) covers a
+    whole number of pages, as the reference pads it."""
     dev = _device.resolve(device)
+    if cfg.family == "ssm":
+        raise ValueError("ssm decode has no paged KV cache to serve")
     cfg = dataclasses.replace(cfg, attend_impl=impl)
     mod = registry.get_module(cfg)
     B, S = batch, prompt_len
     page = cfg.page_size
-    max_seq = S + decode_steps + page
+    prefix = cfg.n_patches if cfg.family == "vlm" else 0
+    max_seq = prefix + S + decode_steps + page
     P = paged.pages_per_seq(max_seq, page)
 
     # ---- PIM-malloc page pool: one extent per request ---------------------
@@ -178,13 +199,18 @@ def serve(cfg: ArchConfig, *, batch: int, prompt_len: int,
     if tuple(tokens.shape) != (B, S):
         raise ValueError(f"tokens {tuple(tokens.shape)} != (batch, "
                          f"prompt_len) = {(B, S)}")
-    pad = (-S) % page
+    pad = (-(prefix + S)) % page
     if pad:  # page-align the prompt for prefill
         tokens = torch.nn.functional.pad(tokens, (0, pad))
+    if frontends is None:
+        frontends = registry.make_frontends(cfg, B, seed=seed, device=dev)
+    frontends = {k: torch.as_tensor(v, device=dev)
+                 for k, v in frontends.items()}
 
     _sync(dev)
     t0 = time.perf_counter()
-    cache, logits = mod.prefill(cfg, params, {"tokens": tokens}, cache)
+    cache, logits = mod.prefill(cfg, params, {"tokens": tokens, **frontends},
+                                cache)
     _sync(dev)
     prefill_s = time.perf_counter() - t0
 
@@ -228,7 +254,8 @@ def serve(cfg: ArchConfig, *, batch: int, prompt_len: int,
         timings={"prefill_s": prefill_s, "decode_s": decode_s,
                  "sync_s": sync_s, "pool_s": pool_s},
         cache=cache, params=params,
-        fleet_stats=None if router is None else router.stats)
+        fleet_stats=None if router is None else router.stats,
+        frontends=frontends)
 
 
 def main(argv=None) -> ServeResult:
@@ -259,7 +286,10 @@ def main(argv=None) -> ServeResult:
     dev = res.logits.device
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print("allocator stats after prefill extents:", res.prefill_stats)
-    print(f"prefill {B}x{S}: {res.timings['prefill_s']:.2f}s")
+    front = ", ".join(f"{k} {tuple(v.shape)}"
+                      for k, v in res.frontends.items())
+    print(f"prefill {B}x{S}" + (f" ({front})" if front else "")
+          + f": {res.timings['prefill_s']:.2f}s")
     total = args.decode_steps * B
     dt = res.timings["decode_s"]
     print(f"decode: {total} tokens in {dt:.2f}s ({total / dt:.1f} tok/s, "

@@ -1,13 +1,14 @@
 """Family dispatch, parameter init, input specs and seeded batches.
 
-The port of `repro.models.registry` for the dense family; the other
-families (ssm, hybrid, audio, moe, vlm) wait for ROADMAP A8. The specs are
-``device="meta"`` tensors (the counterpart of the reference's
+The port of `repro.models.registry` for the dense, moe, vlm and audio
+families; the recurrent families (ssm, hybrid) wait for ROADMAP A8. The
+specs are ``device="meta"`` tensors (the counterpart of the reference's
 ShapeDtypeStructs): shapes and dtypes, nothing allocated.
 
-`make_train_batch` and `make_prompts` draw from NumPy with a seed where
-the reference draws from `jax.random`, which the port cannot reproduce
-(ROADMAP C); the tests feed both packages the same NumPy batch.
+`make_train_batch`, `make_frontends` and `make_prompts` draw from NumPy
+with a seed where the reference draws from `jax.random`, which the port
+cannot reproduce (ROADMAP C); the tests feed both packages the same NumPy
+batch.
 """
 from __future__ import annotations
 
@@ -15,10 +16,11 @@ import numpy as np
 import torch
 
 from .. import device as _device
-from . import layers, transformer
+from . import encdec, layers, moe, transformer, vlm
 from .config import ArchConfig, ShapeConfig
 
-FAMILY_MODULES = {"dense": transformer}
+FAMILY_MODULES = {"dense": transformer, "audio": encdec, "moe": moe,
+                  "vlm": vlm}
 
 META = torch.device("meta")
 
@@ -114,6 +116,19 @@ def make_train_batch(cfg: ArchConfig, shape: ShapeConfig, seed: int = 0,
         batch[k] = torch.from_numpy(rng.standard_normal(
             shp, dtype=np.float32)).to(dev, layers.torch_dtype(dt))
     return batch
+
+
+def make_frontends(cfg: ArchConfig, batch: int, seed: int = 0,
+                   device="cuda") -> dict:
+    """The stub frontends' embeddings of `batch` requests (``patch_embeds``
+    for vlm, ``enc_embeds`` for audio, none for the other families):
+    standard normal in the config's dtype, made from `seed` with NumPy,
+    shaped as `_frontend` shapes them."""
+    dev = _device.resolve(device)
+    rng = np.random.default_rng(seed)
+    return {k: torch.from_numpy(rng.standard_normal(
+        shp, dtype=np.float32)).to(dev, layers.torch_dtype(dt))
+        for k, (shp, dt) in _frontend(cfg, batch).items()}
 
 
 def make_prompts(cfg: ArchConfig, batch: int, seq_len: int, seed: int = 0,

@@ -79,8 +79,16 @@ def _layer(params, l: int) -> dict:
     return {k: v[l] for k, v in params["blocks"].items()}
 
 
+def dense_mlp(cfg: ArchConfig, h, lp):
+    """The dense family's feed-forward of one layer: `layers.mlp` over
+    ``w1`` / ``w2`` (/ ``w3``). The other families that share this
+    module's block pass their own (``ffn``: the MoE's routed experts)."""
+    return layers.mlp(h, lp["w1"], lp["w2"], lp.get("w3"), cfg.mlp)
+
+
 # ---------------------------------------------------------------- training --
-def _block(cfg: ArchConfig, x, positions, lp, *, window: int = 0):
+def _block(cfg: ArchConfig, x, positions, lp, *, window: int = 0,
+           ffn=dense_mlp):
     B, S, D = x.shape
     H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     h = layers.rms_norm(x, lp["ln1"])
@@ -96,13 +104,13 @@ def _block(cfg: ArchConfig, x, positions, lp, *, window: int = 0):
     o = attn(q, k, v, causal=True, window=window)
     x = x + layers.out_proj(o, lp["wo"]).to(x.dtype)
     h2 = layers.rms_norm(x, lp["ln2"])
-    x = x + layers.mlp(h2, lp["w1"], lp["w2"], lp.get("w3"), cfg.mlp)
+    x = x + ffn(cfg, h2, lp)
     return x
 
 
-def forward_embeds(cfg: ArchConfig, params, x, positions):
+def forward_embeds(cfg: ArchConfig, params, x, positions, ffn=dense_mlp):
     """x [B, S, D] input embeddings -> final hidden [B, S, D]."""
-    blk = functools.partial(_block, cfg)
+    blk = functools.partial(_block, cfg, ffn=ffn)
     names = list(params["blocks"])
     per_layer = zip(*(torch.unbind(params["blocks"][k]) for k in names))
     for ws in per_layer:
@@ -146,16 +154,25 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device="cuda"):
         device=device)
 
 
-def prefill(cfg: ArchConfig, params, batch, cache):
+def prefill(cfg: ArchConfig, params, batch, cache, ffn=dense_mlp):
     """Full-sequence forward that also writes the paged KV cache (in
     place). Returns (cache, logits_last [B, V])."""
     tokens = batch["tokens"]
     B, S = tokens.shape
-    H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     positions = torch.arange(S, device=tokens.device).expand(B, S)
+    x = params["embed"][tokens].to(layers.torch_dtype(cfg.dtype))
+    return prefill_embeds(cfg, params, x, positions, cache, ffn=ffn)
+
+
+def prefill_embeds(cfg: ArchConfig, params, x, positions, cache,
+                   ffn=dense_mlp):
+    """`prefill` over input embeddings x [B, S, D] at `positions` [B, S]
+    (the VLM's patch prefix and text share it); writes the pages of all S
+    positions and sets seq_lens to S."""
+    B, S, _ = x.shape
+    H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     cos, sin = layers.rope_tables(positions, hd, cfg.rope_theta)
     attn = layers.pick_attention(S, S, cfg.flash_min_seq)
-    x = params["embed"][tokens].to(layers.torch_dtype(cfg.dtype))
     for l in range(cfg.n_layers):
         lp = _layer(params, l)
         h = layers.rms_norm(x, lp["ln1"])
@@ -165,16 +182,16 @@ def prefill(cfg: ArchConfig, params, batch, cache):
         o = attn(q, k, v, causal=True)
         x = x + layers.out_proj(o, lp["wo"]).to(x.dtype)
         h2 = layers.rms_norm(x, lp["ln2"])
-        x = x + layers.mlp(h2, lp["w1"], lp["w2"], lp.get("w3"), cfg.mlp)
+        x = x + ffn(cfg, h2, lp)
         paged.write_prefill(cache["k_pages"][l], k, cache["page_table"])
         paged.write_prefill(cache["v_pages"][l], v, cache["page_table"])
     x = layers.rms_norm(x, params["ln_f"])
     logits = logits_fn(cfg, params, x[:, -1])
-    seq_lens = torch.full((B,), S, dtype=torch.int32, device=tokens.device)
+    seq_lens = torch.full((B,), S, dtype=torch.int32, device=x.device)
     return dict(cache, seq_lens=seq_lens), logits
 
 
-def decode(cfg: ArchConfig, params, cache, batch):
+def decode(cfg: ArchConfig, params, cache, batch, ffn=dense_mlp):
     """One decode step: tokens [B, 1] -> (cache, logits [B, V]); writes
     the new token's K/V into the cache's pages in place.
 
@@ -202,7 +219,7 @@ def decode(cfg: ArchConfig, params, cache, batch):
         o = paged.attend(q, kp, vp, pt, seq_lens, impl=cfg.attend_impl)
         x = x + layers.out_proj(o[:, None], lp["wo"]).to(x.dtype)
         h2 = layers.rms_norm(x, lp["ln2"])
-        x = x + layers.mlp(h2, lp["w1"], lp["w2"], lp.get("w3"), cfg.mlp)
+        x = x + ffn(cfg, h2, lp)
     x = layers.rms_norm(x, params["ln_f"])
     logits = logits_fn(cfg, params, x[:, 0])
     return dict(cache, seq_lens=seq_lens), logits

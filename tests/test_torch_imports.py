@@ -9,8 +9,9 @@ constants the port keeps in its own copy), the region and sanitizer
 frontends, the oracle module (the port's own copy of a pure-Python
 module of the reference), the checkpoint module, the closed-loop and
 elastic serving tiers, and the training path (the optimizer, compression,
-token stream, train and serve steps, fault-tolerant loop and trainer); the
-registry lists all seven kinds."""
+token stream, train and serve steps, fault-tolerant loop and trainer), and
+the moe, vlm and audio model families; the registry lists all seven kinds
+and serves four model families."""
 import subprocess
 import sys
 from pathlib import Path
@@ -37,7 +38,7 @@ from repro_torch.launch import elastic, serve, serve_fleet, steps, train
 from repro_torch.optim import adamw, compression
 from repro_torch.data import pipeline
 from repro_torch.runtime import fault
-from repro_torch.models import layers, registry, transformer
+from repro_torch.models import encdec, layers, moe, registry, transformer, vlm
 assert all(callable(f) for f in (
     ckpt.save, ckpt.restore, ckpt.latest_step, ckpt.AsyncCheckpointer,
     serve_fleet.FleetServe, serve_fleet.serve_session,
@@ -47,7 +48,10 @@ assert all(callable(f) for f in (
     pipeline.to_device, steps.make_train_step, steps.opt_state_specs,
     fault.run_with_recovery, train.main, train.build, layers.cross_entropy,
     transformer.loss, registry.loss_fn, registry.param_specs,
-    registry.make_train_batch))
+    registry.make_train_batch, registry.make_frontends, moe._moe_mlp,
+    moe.prefill, moe.decode, vlm.prefill, vlm.loss, encdec.encode,
+    encdec.prefill, encdec.decode))
+assert sorted(registry.FAMILY_MODULES) == ["audio", "dense", "moe", "vlm"]
 assert heap.kinds() == ("strawman", "sw", "hwsw", "sanitizer", "arena",
                         "tlregion", "fused")
 assert design_space.STRATEGIES[-1] == "pim_meta_pim_exec"

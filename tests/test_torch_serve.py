@@ -18,6 +18,9 @@ carried across by `convert.params_from_reference`):
     exact; the two kinds' page ids against each other;
   * `serve` end to end against the reference's `serve.main` steps replayed
     here: tokens, page ids and pool stats exact;
+  * `_prefill_decode_both` and `_reference_serve` take any family with a
+    paged cache (the moe, vlm and audio families use them in
+    tests/test_torch_families.py, with their stub frontends' embeddings);
   * the device rule: the entry points default to the card and raise here.
 """
 import dataclasses
@@ -68,7 +71,7 @@ def _close(got, want, tol):
 
 
 # --------------------------------------------------------------- configs --
-@pytest.mark.parametrize("name", tconfigs.DENSE)
+@pytest.mark.parametrize("name", tconfigs.PORTED)
 def test_dense_configs_match_reference(name):
     got, want = tconfigs.get(name), jconfigs.get(name)
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
@@ -80,11 +83,13 @@ def test_dense_configs_match_reference(name):
 
 
 def test_other_families_are_not_ported_yet():
+    """Only the recurrent families (ssm, hybrid) still raise."""
+    assert set(tconfigs.NOT_PORTED) == {"mamba2_130m", "recurrentgemma_9b"}
     for name in tconfigs.NOT_PORTED:
         with pytest.raises(NotImplementedError, match="ROADMAP A8"):
             tconfigs.get(name)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        treg.get_module(jconfigs.get("mamba2_130m"))
+        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+            treg.get_module(jconfigs.get(name))
 
 
 # ---------------------------------------------------------------- layers --
@@ -198,30 +203,54 @@ def _ref_params(cfg, seed=0):
         jax.tree.map(np.asarray, params), device="cpu")
 
 
+def frontends(cfg, batch, seed=8):
+    """The stub frontends' embeddings (vlm patches, audio frames) as
+    NumPy fp32 from `seed`, shaped as the registry shapes them."""
+    rng = np.random.default_rng(seed)
+    return {k: rng.standard_normal(shp).astype(np.float32)
+            for k, (shp, _) in treg._frontend(cfg, batch).items()}
+
+
+def prefix_len(cfg):
+    """Positions before the text: the vlm's patch prefix."""
+    return cfg.n_patches if cfg.family == "vlm" else 0
+
+
 def _prefill_decode_both(name, **overrides):
     """Prefill + STEPS greedy decode steps of `name` reduced through both
-    packages, with the reference's parameters; asserts at every step."""
+    packages (its family's module on each side, the stub frontends from a
+    NumPy seed), with the reference's parameters; asserts at every
+    step. The text prompt is S tokens, more where the vlm's patch prefix
+    needs them to fill whole pages."""
     cfg = dataclasses.replace(jconfigs.get(name).reduced(), **overrides)
     tcfg = dataclasses.replace(tconfigs.get(name).reduced(), **overrides)
+    jmod, tmod = jreg.get_module(cfg), treg.get_module(tcfg)
     jparams, tparams = _ref_params(cfg)
-    max_seq = S + STEPS + cfg.page_size
+    prefix = prefix_len(cfg)
+    St = S + (-(prefix + S)) % cfg.page_size
+    max_seq = prefix + St + STEPS + cfg.page_size
     P = jpaged.pages_per_seq(max_seq, cfg.page_size)
     pt = np.stack([(np.arange(P) + b + 1) % P for b in range(B)]).astype(
         np.int32)  # rotated extents, as serving hands them out
-    toks = np.random.default_rng(6).integers(0, cfg.vocab, (B, S))
+    toks = np.random.default_rng(6).integers(0, cfg.vocab, (B, St))
+    front = frontends(cfg, B)
 
-    jspec = jtr.cache_spec(cfg, B, max_seq)
-    assert {k: v[0] for k, v in ttr.cache_spec(tcfg, B, max_seq).items()} \
+    jspec = jmod.cache_spec(cfg, B, max_seq)
+    assert {k: v[0] for k, v in tmod.cache_spec(tcfg, B, max_seq).items()} \
         == {k: v.shape for k, v in jspec.items()}
     jcache = jax.tree.map(lambda s: jnp.zeros(s.shape, s.dtype), jspec)
     jcache["page_table"] = jnp.asarray(pt)
-    tcache = ttr.init_cache(tcfg, B, max_seq, device="cpu")
+    tcache = tmod.init_cache(tcfg, B, max_seq, device="cpu")
     tcache["page_table"] = torch.from_numpy(pt)
 
-    jcache, jlog = jtr.prefill(cfg, jparams, {"tokens": jnp.asarray(toks)},
-                               jcache)
-    tcache, tlog = ttr.prefill(tcfg, tparams,
-                               {"tokens": torch.from_numpy(toks)}, tcache)
+    jcache, jlog = jmod.prefill(
+        cfg, jparams, {"tokens": jnp.asarray(toks),
+                       **{k: jnp.asarray(v) for k, v in front.items()}},
+        jcache)
+    tcache, tlog = tmod.prefill(
+        tcfg, tparams, {"tokens": torch.from_numpy(toks),
+                        **{k: torch.from_numpy(v) for k, v in front.items()}},
+        tcache)
     for step in range(STEPS + 1):
         want = np.asarray(jlog)
         tol = 1e-4 * np.abs(want[:, :cfg.vocab]).max() + 1e-5
@@ -231,17 +260,19 @@ def _prefill_decode_both(name, **overrides):
         ttok = torch.argmax(tlog, dim=-1)[:, None]
         np.testing.assert_array_equal(ttok.numpy(), np.asarray(jtok))
         if step < STEPS:
-            jcache, jlog = jtr.decode(cfg, jparams, jcache, {"tokens": jtok})
-            tcache, tlog = ttr.decode(tcfg, tparams, tcache,
-                                      {"tokens": ttok})
-    for key in ("k_pages", "v_pages"):
+            jcache, jlog = jmod.decode(cfg, jparams, jcache,
+                                       {"tokens": jtok})
+            tcache, tlog = tmod.decode(tcfg, tparams, tcache,
+                                       {"tokens": ttok})
+    assert set(tcache) == set(jcache)
+    for key in sorted(set(jcache) - {"page_table", "seq_lens"}):
         want = np.asarray(jcache[key])
         np.testing.assert_allclose(tcache[key].numpy(), want,
                                    atol=1e-5 * np.abs(want).max(), rtol=0,
                                    err_msg=key)
     np.testing.assert_array_equal(tcache["seq_lens"].numpy(),
                                   np.asarray(jcache["seq_lens"]))
-    assert int(tcache["seq_lens"][0]) == S + STEPS
+    assert int(tcache["seq_lens"][0]) == prefix + St + STEPS
 
 
 @pytest.mark.parametrize("setting", list(SETTINGS))
@@ -400,9 +431,12 @@ def _client_script(jc, tc):
 
 
 # ------------------------------------------------------------ serve e2e --
-def _reference_serve(cfg, params, toks, decode_steps):
+def _reference_serve(cfg, params, toks, decode_steps, front=None):
     """The reference's `serve.main` steps (single PagePool, kind sw), with
-    the given parameters and prompt; returns (tokens, page ids, stats)."""
+    the given parameters, text prompt and stub frontends' embeddings
+    (`frontends`); returns (tokens, page ids, stats). Its cache holds
+    S + decode_steps + page positions, without the vlm's patch prefix."""
+    mod = jreg.get_module(cfg)
     B, S = toks.shape
     max_seq = S + decode_steps + cfg.page_size
     P = jpaged.pages_per_seq(max_seq, cfg.page_size)
@@ -411,11 +445,16 @@ def _reference_serve(cfg, params, toks, decode_steps):
     rows = [pool.alloc_pages(P, thread=b % pool.cfg.num_threads)
             for b in range(B)]
     cache = jax.tree.map(lambda s: jnp.zeros(s.shape, s.dtype),
-                         jtr.cache_spec(cfg, B, max_seq))
+                         mod.cache_spec(cfg, B, max_seq))
     cache["page_table"] = jnp.stack(rows) % P
-    prefill = jax.jit(lambda p, b, c: jtr.prefill(cfg, p, b, c))
-    decode = jax.jit(lambda p, c, b: jtr.decode(cfg, p, c, b))
-    cache, logits = prefill(params, {"tokens": jnp.asarray(toks)}, cache)
+    batch = {"tokens": jnp.asarray(toks),
+             **{k: jnp.asarray(v) for k, v in (front or {}).items()}}
+    pad = (-(S + prefix_len(cfg))) % cfg.page_size
+    if pad:
+        batch["tokens"] = jnp.pad(batch["tokens"], ((0, 0), (0, pad)))
+    prefill = jax.jit(lambda p, b, c: mod.prefill(cfg, p, b, c))
+    decode = jax.jit(lambda p, c, b: mod.decode(cfg, p, c, b))
+    cache, logits = prefill(params, batch, cache)
     toks_out = [jnp.argmax(logits, axis=-1)[:, None]]
     for _ in range(decode_steps):
         pos = np.asarray(cache["seq_lens"])

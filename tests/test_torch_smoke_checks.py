@@ -13,7 +13,9 @@ engine disagrees with hwsw, a doctored report and a miscounted launch;
 phase 5e's chaos check each broken guarantee of the elastic tier.
 Phase 11's gradient check passes a summation-order difference and fails
 a perturbed leaf and a broken `rms_norm`; its FLOP count and kernel
-classes are pinned.
+classes are pinned. Phase 12's expected launch counts, kernel 4's bytes
+bound at each new head shape, its kernels-line entries and the expert-id
+comparison are pinned.
 """
 import dataclasses
 import sys
@@ -420,3 +422,66 @@ def test_train_flops_and_kernel_classes():
     assert got == {"fp32 GEMM": (2.0, 1), "bf16 GEMM": (1.0, 2),
                    "softmax": (0.5, 1), "reduce": (0.0, 0),
                    "elementwise": (0.25, 3), "other": (0.125, 1)}
+
+
+# ------------------------------------------------------------- phase 12 --
+FAMILY_LAUNCHES = {"olmoe_1b_7b": 16 * 64, "qwen2_moe_a2_7b": 24 * 64,
+                   "paligemma_3b": 18 * 64, "whisper_small": 12 * 64}
+
+
+@pytest.mark.parametrize("name", chip_smoke.FAMILY_ARCHS)
+def test_family_launches_and_kernel_4_bound_at_each_shape(name):
+    """Phase 12 (b)'s expected paged-attention launches (decoder layers x
+    decode steps) and (c)'s bound at the last decode step's layer-0
+    inputs: bytes of the valid K/V rows at full width, as `pa_bound`
+    counts them from the tensors (olmoe and qwen2-moe ~11.3 us,
+    paligemma ~1.4 us, whisper ~2.4 us)."""
+    from repro_torch import configs
+    from repro_torch.kvcache import paged
+    cfg = configs.get(name)
+    steps, B = chip_smoke.FAM_STEPS, chip_smoke.FAM_BATCH
+    assert chip_smoke.family_launches(cfg, steps) == FAMILY_LAUNCHES[name]
+    prefix = cfg.n_patches if cfg.family == "vlm" else 0
+    seq = prefix + chip_smoke.FAM_PROMPT[name] + steps
+    P = paged.pages_per_seq(seq + cfg.page_size, cfg.page_size)
+    H, KVH, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    nbytes, nops = chip_smoke.pa_work(B, H, KVH, D, B * seq, B * P, 2)
+    assert nbytes == 2 * B * seq * KVH * D * 2 + 2 * B * H * D * 2 \
+        + 4 * B * P + 4 * B
+    q = torch.zeros((B, H, D), dtype=torch.bfloat16)
+    pool = torch.zeros((B * P, cfg.page_size, KVH, D), dtype=torch.bfloat16)
+    lens = torch.full((B,), seq, dtype=torch.int32)
+    assert chip_smoke.pa_bound(q, pool, lens, torch.zeros(
+        (B, P), dtype=torch.int32)) == (nbytes, nops)
+    bytes_us = 1e6 * nbytes / chip_smoke.HBM_BYTES_PER_S
+    ops_us = 1e6 * nops / chip_smoke.FP32_OPS_PER_S
+    want_us = {"moe": 11.3, "vlm": 1.4, "audio": 2.4}[cfg.family]
+    assert abs(bytes_us - want_us) < 0.05 and ops_us < bytes_us
+
+
+def test_family_entries_and_expert_flips():
+    """One kernels-line entry per new head shape, with every key the
+    record needs, its launches summed over the archs at that shape; the
+    expert-id comparison reports each differing (token, k) with its
+    probability gap."""
+    reading = dict(err=1e-3, ms=0.02, plain_ms=0.3, sdpa_ms=0.09,
+                   bytes_ms=0.011, ops_ms=0.002)
+    e = chip_smoke.pa_entry("paged_attention_moe", 2560, 1e-3, reading)
+    assert set(e) == {"name", "route", "source", "replaces", "launches",
+                      "max_abs_err", "ms", "plain_ms", "bound_ms",
+                      "bound_by", "library_ms"}
+    assert (e["bound_ms"], e["bound_by"], e["route"]) == \
+        (0.011, "bytes", "cuda")
+    assert e["replaces"] == "src/repro/kernels/paged_attention.py:94"
+    assert [n for n, _ in chip_smoke.FAM_PA_ENTRIES] == [
+        "paged_attention_moe", "paged_attention_paligemma",
+        "paged_attention_whisper"]
+    assert sorted(a for _, archs in chip_smoke.FAM_PA_ENTRIES
+                  for a in archs) == sorted(chip_smoke.FAMILY_ARCHS)
+    probs = torch.tensor([[0.5, 0.25, 0.2500001, 0.0], [0.1, 0.2, 0.3, 0.4]])
+    a = torch.tensor([[0, 1], [3, 2]])
+    b = torch.tensor([[0, 2], [3, 2]])
+    flips = chip_smoke.expert_flips(a, b, probs)
+    assert [(t, k) for t, k, _ in flips] == [(0, 1)]
+    assert flips[0][2] < chip_smoke.FAM_TIE_GAP
+    assert chip_smoke.expert_flips(a, a, probs) == []

@@ -209,7 +209,7 @@ def _spec_shapes(tree):
     return (tuple(tree.shape), str(jnp.dtype(tree.dtype)))
 
 
-@pytest.mark.parametrize("name", tconfigs.DENSE)
+@pytest.mark.parametrize("name", tconfigs.PORTED)
 def test_specs_match_reference(name):
     cfg, tcfg = jconfigs.get(name), tconfigs.get(name)
     assert _spec_shapes(treg.param_specs(tcfg)) == \
