@@ -208,7 +208,36 @@ Phases (each raises on failure; nothing is caught and carried on):
      under the profiler (launches, busy share); (c) paged attention at
      each model's last decode step's layer-0 inputs against its plain
      version (bf16 to 2e-2) with its device time per call, the plain
-     version's, SDPA's over gathered K/V and the bound.
+     version's, SDPA's over gathered K/V and the bound;
+ 13. the recurrent families (mamba2-130m: SSD; recurrentgemma-9b: RG-LRU
+     + local attention), which launch none of the five kernels (weights
+     from ``--seed``, each model freed before the next): (a) each at full
+     width in fp32 (mamba2's 24 layers, recurrentgemma's first group of
+     3), 8 x 256 prompt tokens (two SSD chunks) and 8 greedy decode steps
+     on the card and on the CPU, the CPU fed the card's tokens: every
+     step's logits and every cached state (``ssm_state``, ``conv_state``,
+     ``rg_state``, ``win_k``, ``win_v``) within 1e-3 of its max, the CPU's
+     greedy tokens == the card's, the same limit failing a prefill with
+     `rms_norm`'s ``1 +`` dropped; the loss and its gradients at B=1,
+     S=256 as phase 11 (a) holds them (recurrentgemma's with flat
+     attention weights; with its attn_4d ones they are printed); (b)
+     each at full width and depth in bf16, 8 requests of 512 prompt
+     tokens and 64 greedy decode steps, the five counters set to 0 just
+     before and read (0) just after:
+     recurrentgemma through `launch.serve.serve` (the pool's rounds and
+     the threads that reached its backend), mamba2 through
+     `ssm.prefill` / `ssm.decode` (serve refuses ssm, as the reference
+     does); prefill s, decode ms/step, tokens/s, peak memory, every
+     step's logits finite, and 4 more steps under the profiler (launches,
+     busy share); (c) each trained through `launch.train.build` +
+     `make_train_step` in bf16 with remat at full width, 4 x 4096 tokens a
+     step (mamba2 all 24 layers in 2 microbatches; recurrentgemma 5 of 38
+     layers, one group and the 2-layer tail, in 4): the state plan beside
+     the peak, a warm-up step, 4 timed steps (the counters read 0),
+     tokens/s, MFU, one profiled step's launches, busy share and device
+     time by kernel class; then one batch repeated 4 times from the init
+     (recurrentgemma with flat attention weights, as in phase 11), its
+     loss falling at every step.
 
 In the ``kernels`` record, each kernel's ``ms``, ``plain_ms``,
 ``bound_ms`` and ``library_ms`` are per launch: averaged over the launches
@@ -3258,18 +3287,33 @@ def train_card_vs_cpu(seed, device):
 
 def train_flops(cfg, tokens, B, S):
     """FLOPs of one step: 6 N tokens (forward and backward) + 2 N tokens
-    (remat's recomputed forward) over the N matmul parameters (every block
-    weight but the norms, and the head; not the embedding's lookup), plus
-    the attention's (3 + 1) * 4 B S^2 H hd L (its two products in the
-    forward, the backward's two times as many, and the recompute; full
-    S^2, causal or not)."""
+    (remat's recomputed forward) over the N matmul parameters (every
+    stacked weight matrix of every block tree, ``blocks`` or the hybrid's
+    ``rec1`` / ``rec2`` / ``attn`` / ``tail``, but the norms and the
+    causal convs' taps; and the head, which is the embedding where it is
+    tied; not the embedding's lookup), plus (3 + 1) times the forward's
+    sequence products: the attention's two, 4 B S T H hd on each
+    attention layer (T = S, full S^2 causal or not; the hybrid's local
+    attention T = min(S, window)), and the SSD's four on each ssm layer,
+    2 B S' (l n + l H P + 2 H P n) over S' = S padded to chunks of l."""
     from repro_torch.models import registry
     spec = registry.param_specs(cfg)
-    n_mm = sum(t.numel() for k, t in spec["blocks"].items()
-               if not k.startswith("ln")) + spec["head"].numel()
-    attn = (3 + 1) * 4 * B * S * S * cfg.n_heads * cfg.head_dim \
-        * cfg.n_layers
-    return (6 + 2) * n_mm * tokens + attn, n_mm
+    head = spec.get("head", spec["embed"])
+    n_mm = head.numel() + sum(
+        t.numel() for k, t in named_leaves(
+            {k: v for k, v in spec.items() if isinstance(v, dict)}).items()
+        if t.dim() >= 3 and not k.split("/")[-1].startswith("conv"))
+    if cfg.family == "ssm":
+        d_inner = cfg.ssm_expand * cfg.d_model
+        H, P, N, l = (d_inner // cfg.ssm_head_dim, cfg.ssm_head_dim,
+                      cfg.ssm_state, cfg.ssm_chunk)
+        seq = 2 * B * (-(-S // l) * l) * (l * N + l * H * P + 2 * H * P * N)
+        n_seq = cfg.n_layers
+    else:
+        T = min(S, cfg.window) if cfg.family == "hybrid" else S
+        seq = 4 * B * S * T * cfg.n_heads * cfg.head_dim
+        n_seq = cfg.n_layers // 3 if cfg.family == "hybrid" else cfg.n_layers
+    return (6 + 2) * n_mm * tokens + (3 + 1) * seq * n_seq, n_mm
 
 
 # kernel classes of a training step, by name (cuBLAS runs the bf16 GEMMs
@@ -3294,10 +3338,10 @@ def kernel_classes(kernels):
     return {k: tuple(v) for k, v in classes.items()}
 
 
-def train_setup(cfg, seed, device, total_steps):
+def train_setup(cfg, seed, device, total_steps, n_micro=TRAIN_MICRO):
     """(params, opt_state, run(params, opt, i)) for `cfg` on the card:
     the trainer's AdamW settings (lr 1e-3, warmup 10) and its TokenStream
-    at TRAIN_BATCH x TRAIN_SEQ, TRAIN_MICRO microbatches a step."""
+    at TRAIN_BATCH x TRAIN_SEQ, `n_micro` microbatches a step."""
     from repro_torch.data.pipeline import StreamConfig, TokenStream, \
         to_device
     from repro_torch.launch import steps
@@ -3308,7 +3352,7 @@ def train_setup(cfg, seed, device, total_steps):
                                 moment_dtype=cfg.opt_moment_dtype)
     params = registry.init(cfg, seed=seed, device=device)
     opt = adamw.init(opt_cfg, params)
-    step = steps.make_train_step(cfg, opt_cfg, n_micro=TRAIN_MICRO)
+    step = steps.make_train_step(cfg, opt_cfg, n_micro=n_micro)
     stream = TokenStream(StreamConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
                                       global_batch=TRAIN_BATCH, seed=seed))
 
@@ -3779,6 +3823,454 @@ def phase_families(seed, device):
     return out, entries
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the recurrent families (no kernel of their own)
+REC_ARCHS = ("mamba2_130m", "recurrentgemma_9b")
+REC_CHECK_LAYERS = {"mamba2_130m": 24,       # (a): full width, fp32; all
+                    "recurrentgemma_9b": 3}  # one (rec, rec, attn) group
+REC_CHECK_BATCH = 8
+REC_CHECK_PROMPT = 256  # (a): two of mamba2's SSD chunks
+REC_CHECK_STEPS = 8
+REC_CHECK_SEQ = 256     # (a): the loss and its gradients at B=1
+REC_LOGIT_TOL = 1e-3    # (a): max |card - CPU| / max |CPU| of a step's
+                        # logits, and of each cached state
+REC_BATCH = 8           # (b): requests
+REC_PROMPT = 512        # (b): prompt tokens
+REC_STEPS = 64          # (b): greedy decode steps
+REC_PROFILE = 4         # (b): decode steps under the profiler
+# (c): (layers, microbatches) at full width, TRAIN_BATCH x TRAIN_SEQ:
+# mamba2 whole; recurrentgemma one group and the 2-layer tail (its 38
+# layers need ~150 GB of state), 4 microbatches (its fp32 logits are
+# 4.2 GB a sequence)
+REC_TRAIN = {"mamba2_130m": (24, 2), "recurrentgemma_9b": (5, 4)}
+
+
+def rms_norm_without_one(x, scale, eps=1e-6):
+    """`layers.rms_norm` with its ``1 +`` dropped: the broken layer that
+    phase 13 (a)'s check must fail."""
+    xf = x.float()
+    y = xf * xf.square().mean(-1, keepdim=True).add(eps).rsqrt()
+    return (y * scale.float()).to(x.dtype)
+
+
+def logit_reading(got, want, vocab):
+    """The largest max |got - want| / max |want| over the steps' logits
+    (lists of [B, V] on the CPU) on the unpadded vocabulary; inf where
+    `got` is not finite."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        g, w = g[:, :vocab].float(), w[:, :vocab].float()
+        if not bool(g.isfinite().all()):
+            return math.inf
+        worst = max(worst, float((g - w).abs().max()) / float(
+            w.abs().max()))
+    return worst
+
+
+def rec_run(cfg, params, tokens, steps, device, feed=None):
+    """Prefill then `steps` decode steps of a recurrent family on
+    `device`, each step fed the column of `feed` ([B, steps] on the CPU)
+    or greedy: (every step's logits on the CPU, the tokens fed, the final
+    cache on the CPU)."""
+    import torch
+    from repro_torch.models import registry
+    mod = registry.get_module(cfg)
+    B, S = tokens.shape
+    cache = mod.init_cache(cfg, B, S + steps + cfg.page_size, device=device)
+    cache, logits = mod.prefill(cfg, params, {"tokens": tokens.to(device)},
+                                cache)
+    out, fed = [logits.cpu()], []
+    for i in range(steps):
+        fed.append(torch.argmax(out[-1], -1) if feed is None else feed[:, i])
+        cache, logits = mod.decode(cfg, params, cache, {
+            "tokens": fed[-1][:, None].to(device)})
+        out.append(logits.cpu())
+    fed = torch.stack(fed, 1) if fed else torch.zeros((B, 0), dtype=int)
+    return out, fed, tree_to(cache, "cpu")
+
+
+def rec_card_vs_cpu(name, seed, device):
+    """Phase 13 (a): `name` at full width, REC_CHECK_LAYERS[name] layers,
+    fp32: prefill REC_CHECK_BATCH x REC_CHECK_PROMPT tokens and
+    REC_CHECK_STEPS greedy decode steps on the card and on the CPU from
+    the same parameters, the CPU fed the card's tokens: every step's
+    logits and every cached state within REC_LOGIT_TOL of its max, the
+    CPU's greedy tokens == the card's; the card's prefill with
+    `rms_norm_without_one` fails the limit; the loss and its gradients at
+    B=1, S=REC_CHECK_SEQ (`rec_grads`) within TRAIN_LOSS_TOL /
+    TRAIN_GRAD_TOL, with flat attention weights where the config's are
+    3-D (read with those too)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import layers, registry
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    cfg = dataclasses.replace(configs.get(name),
+                              n_layers=REC_CHECK_LAYERS[name],
+                              dtype="float32")
+    B, S, steps = REC_CHECK_BATCH, REC_CHECK_PROMPT, REC_CHECK_STEPS
+    params = registry.init(cfg, seed=seed, device=device)
+    cpu_params = tree_to(params, cpu)
+    tokens = registry.make_prompts(cfg, B, S, seed=seed, device=cpu)
+    card, feed, card_cache = rec_run(cfg, params, tokens, steps, device)
+    ref, _, cpu_cache = rec_run(cfg, cpu_params, tokens, steps, cpu,
+                                feed=feed)
+    share = logit_reading(card, ref, cfg.vocab)
+    greedy = torch.stack([torch.argmax(x, -1) for x in ref[:-1]], 1)
+    states = {k: float((card_cache[k].float() - v.float()).abs().max())
+              / max(float(v.float().abs().max()), 1e-30)
+              for k, v in cpu_cache.items() if k != "seq_lens"}
+    if not share <= REC_LOGIT_TOL:
+        raise AssertionError(f"{name} (a): card logits differ from the "
+                             f"CPU's by {share:.3g} of max |logit| (limit "
+                             f"{REC_LOGIT_TOL})")
+    if not torch.equal(greedy, feed):
+        raise AssertionError(f"{name} (a): the CPU's greedy tokens differ "
+                             f"from the card's")
+    bad = {k: v for k, v in states.items() if not v <= REC_LOGIT_TOL}
+    if bad or not torch.equal(card_cache["seq_lens"],
+                              cpu_cache["seq_lens"]):
+        raise AssertionError(f"{name} (a): cached states differ: {bad}")
+    real = layers.rms_norm
+    layers.rms_norm = rms_norm_without_one
+    try:
+        mut, _, _ = rec_run(cfg, params, tokens, 0, device)
+    finally:
+        layers.rms_norm = real
+    mut_share = logit_reading(mut, ref[:1], cfg.vocab)
+    if mut_share <= REC_LOGIT_TOL:
+        raise AssertionError(f"{name} (a): the check passes rms_norm "
+                             f"without `1 +`")
+    del params, cpu_params
+    torch.cuda.empty_cache()
+    # the loss and its gradients: with the config's weights (read), and
+    # held to the limits with flat attention weights where the config has
+    # 3-D ones (the hybrid: under attn_4d the reference's init takes the
+    # head count as their fan-in, KVH = 1 for wk / wv, so the scores reach
+    # ~1e3 and the softmax turns fp32 rounding at near-ties into
+    # gradient differences of parts in 10^3; ROADMAP C)
+    grads = {"config": rec_grads(cfg, seed, device)}
+    flat = dataclasses.replace(cfg, attn_4d=False)
+    held = grads["config"]
+    if flat != cfg:
+        grads["flat"] = held = rec_grads(flat, seed, device)
+    loss_rel, worst, bad, n_leaves = held[:4]
+    if not loss_rel <= TRAIN_LOSS_TOL or bad:
+        raise AssertionError(f"{name} (a): loss or gradients card != CPU: "
+                             f"loss rel {loss_rel}, leaves past "
+                             f"{TRAIN_GRAD_TOL}: {bad}")
+    out = dict(layers=cfg.n_layers, logit_share=share, states=states,
+               mutant_share=mut_share,
+               grads={k: dict(loss_rel=g[0], worst=g[1][1],
+                              worst_leaf=g[1][0], leaves_past=g[2],
+                              leaves=g[3], loss_card=g[4], loss_cpu=g[5])
+                      for k, g in grads.items()},
+               seconds=time.perf_counter() - t0)
+    c = grads["config"]
+    print(f"{name} (a): {cfg.n_layers} layers at full width in fp32, "
+          f"B={B} x {S} prompt tokens, {steps} greedy decode steps: card == "
+          f"CPU, logits max |diff| {share:.3g} of max |logit| (limit "
+          f"{REC_LOGIT_TOL}), the CPU's greedy tokens == the card's, "
+          f"states " + ", ".join(f"{k} {v:.3g}" for k, v in states.items())
+          + f"; rms_norm without `1 +` reads {mut_share:.3g}; loss at B=1, "
+          f"S={REC_CHECK_SEQ} rel {loss_rel:.3g} (tol {TRAIN_LOSS_TOL}), "
+          f"gradients max |diff| / max |g| at most {worst[1]:.3g} "
+          f"({worst[0]}) over {n_leaves} leaves (tol {TRAIN_GRAD_TOL})"
+          + ("" if flat == cfg else
+             f" with flat attention weights; with the config's attn_4d "
+             f"weights loss rel {c[0]:.3g}, gradients at most "
+             f"{c[1][1]:.3g} ({c[1][0]}), {len(c[2])} of {c[3]} leaves "
+             f"past {TRAIN_GRAD_TOL} (read, not held)")
+          + f" [{out['seconds']:.1f} s]")
+    return out
+
+
+def rec_grads(cfg, seed, device):
+    """The loss and gradients of `cfg` at B=1, S=REC_CHECK_SEQ on the card
+    against the CPU, from the same parameters: `grad_reading`'s (loss
+    rel, worst leaf, leaves past TRAIN_GRAD_TOL) + (leaves, loss card,
+    loss CPU)."""
+    import torch
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import registry
+    from repro_torch.models.config import ShapeConfig
+    cpu = torch.device("cpu")
+    params = registry.init(cfg, seed=seed, device=device)
+    cpu_params = tree_to(params, cpu)
+    batch = registry.make_train_batch(
+        cfg, ShapeConfig("check", REC_CHECK_SEQ, 1, "train"), seed=seed,
+        device=cpu)
+    grad_fn = steps_lib.make_grad_fn(cfg)
+    want = grad_fn(cpu_params, batch)
+    del cpu_params
+    got = grad_fn(params, {k: v.to(device) for k, v in batch.items()})
+    reading = grad_reading((got[0][0], got[1]), (want[0][0], want[1]))
+    out = reading + (len(named_leaves(want[1])), float(got[0][0]),
+                     float(want[0][0]))
+    del params, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def rec_profile(cfg, params, cache, toks, n=REC_PROFILE):
+    """`n` more greedy decode steps (after one warm-up step) under the
+    profiler: per step device busy ms (None where the profiler recorded
+    no device time), wall ms and device launches, and the top kernels."""
+    import torch
+    from repro_torch.models import registry
+    mod = registry.get_module(cfg)
+    cache, logits = mod.decode(cfg, params, cache, {"tokens": toks})
+    state = [cache, logits]
+
+    def run():
+        for _ in range(n):
+            toks = torch.argmax(state[1], dim=-1)[:, None]
+            state[:] = mod.decode(cfg, params, state[0], {"tokens": toks})
+
+    _, busy, wall, launches, top = profile_call(run, top=6)
+    return dict(busy_ms=None if busy is None else busy / n,
+                wall_ms=wall / n, launches=launches / n,
+                top=[[ms / n, c / n, k] for ms, c, k in top])
+
+
+def rec_serve(name, seed, device, smi):
+    """Phase 13 (b): `name` at full width and depth in bf16, REC_BATCH
+    requests of REC_PROMPT tokens and REC_STEPS greedy decode steps, the
+    five kernel counters set to 0 just before and read just after (they
+    must read 0): the hybrid through `launch.serve.serve` (its `sw` pool
+    hands out the extents and the decode-time pages), mamba2 through
+    `ssm.prefill` / `ssm.decode` (serve refuses ssm, as the reference
+    does); then REC_PROFILE more steps under the profiler."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import serve as srv
+    from repro_torch.models import registry
+    cfg = configs.get(name)
+    mod = registry.get_module(cfg)
+    B, S, steps = REC_BATCH, REC_PROMPT, REC_STEPS
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    params = registry.init(cfg, seed=seed, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in named_leaves(params).values())
+    counters = kernel_counters()
+    pool = {}
+    for f in counters.values():
+        f.launches = 0
+    if cfg.family == "hybrid":
+        res = srv.serve(cfg, batch=B, prompt_len=S, decode_steps=steps,
+                        impl="kernel", seed=seed, device=device,
+                        params=params)
+        torch.cuda.synchronize()
+        out, cache, finite = res.tokens, res.cache, res.logits_finite
+        pf_s, dec_s = res.timings["prefill_s"], res.timings["decode_s"]
+        st = res.stats
+        pool = dict(kind=res.pool_kind, rounds=res.pool_rounds,
+                    page_allocs=res.page_allocs, stats=st,
+                    backend=st["front_misses"] + st["bypass"])
+        if st["fails"] or st["front_hits"] <= 0 or res.pool_kind != "sw" \
+                or "page_table" in cache:
+            raise AssertionError(f"{name} (b): pool {pool}")
+    else:
+        tokens = registry.make_prompts(cfg, B, S, seed=seed, device=device)
+        cache = mod.init_cache(cfg, B, S + steps, device=device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache, logits = mod.prefill(cfg, params, {"tokens": tokens}, cache)
+        torch.cuda.synchronize()
+        pf_s = time.perf_counter() - t0
+        toks = torch.argmax(logits, dim=-1)[:, None]
+        out, finite = [toks], torch.isfinite(logits).all()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            cache, logits = mod.decode(cfg, params, cache, {"tokens": toks})
+            toks = torch.argmax(logits, dim=-1)[:, None]
+            out.append(toks)
+            finite &= torch.isfinite(logits).all()
+        torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t0
+        out, finite = torch.cat(out, 1), bool(finite)
+    launched = {k: f.launches for k, f in counters.items()}
+    if any(launched.values()):
+        raise AssertionError(f"{name} (b): a kernel was launched: "
+                             f"{launched}")
+    if not finite:
+        raise AssertionError(f"{name} (b): non-finite logits in some step")
+    if out.shape != (B, steps + 1) or int(out.max()) >= cfg.vocab or \
+            int(out.min()) < 0 or \
+            cache["seq_lens"].tolist() != [S + steps] * B:
+        raise AssertionError(f"{name} (b): tokens {tuple(out.shape)} "
+                             f"outside [0, {cfg.vocab}) or lengths "
+                             f"{cache['seq_lens'].tolist()}")
+    peak_gib = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    prof = rec_profile(cfg, params, cache, out[:, -1:])
+    busy = prof["busy_ms"]
+    busy_s = "not measured" if busy is None else \
+        f"{busy:.3f} of {prof['wall_ms']:.3f} ms/step " \
+        f"({100 * busy / prof['wall_ms']:.1f} %)"
+    print(f"{name} (b): {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{n_params / 1e9:.4f} B params in {cfg.dtype} (init {init_s:.2f} "
+          f"s); {B} x {S} prompt tokens, {steps} greedy decode steps "
+          + ("through launch.serve.serve: " if pool else
+             "through ssm.prefill / ssm.decode: ")
+          + (f"pool {pool['kind']}, {pool['rounds']} rounds, "
+             f"{pool['page_allocs']} decode-time pages, {pool['backend']} "
+             f"threads reached the heap's backend, stats {pool['stats']}; "
+             if pool else "")
+          + f"the five kernels launched {sum(launched.values())} times; "
+          f"all logits finite; prefill {pf_s:.4f} s; decode "
+          f"{1e3 * dec_s / steps:.3f} ms/step, {B * steps / dec_s:.2f} "
+          f"tokens/s; peak device memory {peak_gib:.2f} GiB; profiler "
+          f"over {REC_PROFILE} decode steps: {prof['launches']:.0f} device "
+          f"launches/step, busy {busy_s}; top: " + "; ".join(
+              f"{k} {ms:.3f} ms/step x{c:.0f}" for ms, c, k in prof["top"])
+          + f" [{smi}]")
+    result = dict(arch=cfg.name, n_params=n_params, init_s=init_s, batch=B,
+                  prompt=S, decode_steps=steps, pool=pool,
+                  kernel_launches=launched, prefill_s=pf_s,
+                  decode_ms_per_step=1e3 * dec_s / steps,
+                  tokens_per_s=B * steps / dec_s, peak_gib=peak_gib,
+                  profile=prof)
+    del params, cache
+    torch.cuda.empty_cache()
+    return result
+
+
+def rec_train(name, seed, device, smi):
+    """Phase 13 (c): `name` at full width, REC_TRAIN[name]'s layers and
+    microbatches, bf16, remat, through `launch.train.build` and its
+    `make_train_step` on the trainer's TokenStream at TRAIN_BATCH x
+    TRAIN_SEQ: a warm-up step, TRAIN_STEPS timed steps (the counters
+    must read 0), one profiled step; then, from a fresh init, one batch
+    repeated TRAIN_REPEAT times: its loss falls at every step."""
+    import torch
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch import train
+    from repro_torch.models import registry
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import tree_leaves
+    n_layers, n_micro = REC_TRAIN[name]
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    cfg, params, opt, step_fn, stream = train.build(
+        name, False, B, S, n_micro, TRAIN_STEPS + 2, device=device,
+        layers=n_layers)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    pspec = registry.param_specs(cfg)
+    n_params = sum(t.numel() for t in tree_leaves(pspec))
+    p_b = tree_bytes(pspec)
+    ospec = steps_lib.opt_state_specs(cfg, adamw.AdamWConfig(
+        moment_dtype=cfg.opt_moment_dtype))
+    mom_b = tree_bytes(ospec.m) + tree_bytes(ospec.v)
+    acc_b = 4 * n_params if n_micro > 1 else 0
+    plan_b = 2 * p_b + acc_b + mom_b     # params, grads, accumulator, m, v
+
+    def run(params, opt, i):
+        return step_fn(params, opt, to_device(stream.batch(i), device))
+
+    params, opt, m = run(params, opt, 0)    # the warm-up step
+    torch.cuda.synchronize()
+    losses = [float(m["loss"])]
+    counters = kernel_counters()
+    for f in counters.values():
+        f.launches = 0
+    times = []
+    for i in range(1, TRAIN_STEPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = run(params, opt, i)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    launched = {k: f.launches for k, f in counters.items()}
+    if any(launched.values()):
+        raise AssertionError(f"{name} (c): the training path launched a "
+                             f"kernel: {launched}")
+    (params, opt, m), busy, wall, launches, kernels = profile_call(
+        lambda: run(params, opt, TRAIN_STEPS + 1), top=None)
+    classes = kernel_classes(kernels)
+    losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(device)
+    del params, opt, m
+    torch.cuda.empty_cache()
+
+    # one batch repeated from the init, with flat attention weights where
+    # the config has 3-D ones (the hybrid): under attn_4d the reference's
+    # init takes the head count as their fan-in and saturates the softmax
+    # (phase 11 (b) says why that stops the loss from falling at every
+    # step); mamba2 has no attention and runs as built
+    flat = dataclasses.replace(cfg, attn_4d=False)
+    params, opt, run = train_setup(flat, seed, device, TRAIN_REPEAT,
+                                   n_micro=n_micro)
+    rep = []
+    for _ in range(TRAIN_REPEAT):
+        params, opt, m = run(params, opt, 0)
+        rep.append(float(m["loss"]))
+    del params, opt, m
+    torch.cuda.empty_cache()
+    if not all(math.isfinite(x) for x in losses + rep):
+        raise AssertionError(f"{name} (c): non-finite loss: {losses}, "
+                             f"{rep}")
+    if not all(a > b for a, b in zip(rep, rep[1:])):
+        raise AssertionError(f"{name} (c): the loss on a repeated batch "
+                             f"did not fall at every step: {rep}")
+    step_s = sum(times) / len(times)
+    tokens = B * S
+    flops, n_mm = train_flops(cfg, tokens, B, S)
+    mfu = flops / step_s / MFU_PEAK
+    busy_s = "not measured" if busy is None else \
+        f"{busy:.1f} of {wall:.1f} ms ({100 * busy / wall:.1f} %)"
+    print(f"{name} (c): {cfg.n_layers} layers at full width, "
+          f"{n_params / 1e9:.4f} B params, bf16, remat, fp32 moments, B={B} "
+          f"x S={S}, {n_micro} microbatches, through launch.train.build: "
+          f"plan params {p_b / 1e9:.2f} GB + grads {p_b / 1e9:.2f} + fp32 "
+          f"accumulator {acc_b / 1e9:.2f} + m, v {mom_b / 1e9:.2f} = "
+          f"{plan_b / 1e9:.2f} GB; init {init_s:.2f} s; step "
+          f"{1e3 * step_s:.1f} ms (mean of {len(times)}: " + ", ".join(
+              f"{1e3 * t:.1f}" for t in times) + f"), {tokens / step_s:.0f} "
+          f"tokens/s, MFU {100 * mfu:.2f} % of {MFU_PEAK / 1e12} TFLOP/s "
+          f"({flops / 1e12:.2f} TFLOP a step, {n_mm / 1e9:.4f} B matmul "
+          f"params); one profiled step: {launches} device launches, busy "
+          f"{busy_s}; by kernel class: " + "; ".join(
+              f"{k} {t:.1f} ms x{c}" for k, (t, c) in classes.items())
+          + f"; the five kernels launched {sum(launched.values())} times; "
+          f"losses {[round(x, 4) for x in losses]}; batch 0 repeated from "
+          f"the init" + (" (flat attention weights)" if cfg.attn_4d else "")
+          + f" {[round(x, 4) for x in rep]}; peak device memory "
+          f"{peak / 1e9:.2f} GB against the plan's {plan_b / 1e9:.2f} GB "
+          f"[{smi}]")
+    return dict(arch=cfg.name, layers=cfg.n_layers, n_params=n_params,
+                batch=B, seq=S, n_micro=n_micro, plan_bytes=plan_b,
+                peak_bytes=peak, init_s=init_s, step_s=times,
+                step_mean_s=step_s, tokens_per_s=tokens / step_s,
+                profile_busy_ms=busy, profile_wall_ms=wall,
+                launches_per_step=launches, profile_classes=classes,
+                losses=losses, repeated_losses=rep, flops=flops,
+                matmul_params=n_mm, mfu=mfu, kernel_launches=launched)
+
+
+def phase_recurrent(seed, device, smi):
+    """Phase 13; returns its result dict."""
+    t0 = time.perf_counter()
+    out = {"card_vs_cpu": {}, "serve": {}, "train": {}}
+    for name in REC_ARCHS:
+        out["card_vs_cpu"][name] = rec_card_vs_cpu(name, seed, device)
+    for name in REC_ARCHS:
+        out["serve"][name] = rec_serve(name, seed, device, smi)
+    for name in REC_ARCHS:
+        out["train"][name] = rec_train(name, seed, device, smi)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 13 took {out['seconds']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3859,6 +4351,9 @@ def main(argv=None) -> int:
     # ---- 12: the moe, vlm and audio families served at full width ----------
     family_result, entries = phase_families(args.seed, device)
     kernels += entries
+
+    # ---- 13: the recurrent families served and trained at full width -------
+    recurrent_result = phase_recurrent(args.seed, device, smi)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(result, scan=scan_result, regions=region_result,
@@ -3868,6 +4363,7 @@ def main(argv=None) -> int:
                            paged_vs_plain=worst, buddy=buddy_result,
                            freelist=fl_result, flash=fa_result,
                            train=train_result, families=family_result,
+                           recurrent=recurrent_result,
                            gpu=smi,
                            kernels=kernels), f, indent=1)
     print(json.dumps({"kernels": kernels}))

@@ -21,8 +21,11 @@ serving substrate:
 
 Every family with a paged KV cache is served: dense, moe, vlm (a patch
 prefix of ``n_patches`` positions before the text) and audio (an encoder
-over ``enc_frames`` stub frames, whose K/V the cache holds densely); ssm
-is refused, as in the reference. The stub frontends' embeddings come from
+over ``enc_frames`` stub frames, whose K/V the cache holds densely); and
+the hybrid, whose cache is its recurrent states and a rolling window of
+K/V (no page table: the pool still hands out each request's extent and
+its decode-time pages, as in the reference); ssm is refused, as in the
+reference. The stub frontends' embeddings come from
 `registry.make_frontends` unless the caller passes them.
 
 One deviation from the reference: it sizes the cache for ``prompt +
@@ -188,10 +191,11 @@ def serve(cfg: ArchConfig, *, batch: int, prompt_len: int,
     if params is None:
         params = registry.init(cfg, seed=seed, device=dev)
     cache = mod.init_cache(cfg, B, max_seq, device=dev)
-    # per-sequence page tables are slot indices into the sequence's own
-    # pool; the pool's ids map through modulo the extent
     page_ids = torch.stack(rows)
-    cache["page_table"] = (page_ids % P).to(torch.int32)
+    if "page_table" in cache:
+        # per-sequence page tables are slot indices into the sequence's
+        # own pool; the pool's ids map through modulo the extent
+        cache["page_table"] = (page_ids % P).to(torch.int32)
 
     if tokens is None:
         tokens = registry.make_prompts(cfg, B, S, seed=seed, device=dev)

@@ -11,8 +11,10 @@ drill with ``--fail-at``). It takes the reference's flags and prints its
 lines, plus ``--device`` (the card by default; without a GPU it raises
 unless ``--device cpu`` is given) and ``--dtype`` (the parameters' dtype,
 the config's by default: ``--reduced --dtype bfloat16`` runs the smoke
-config with bf16 weights and checkpoints). Parameters are random from
-seed 0, made on the device.
+config with bf16 weights and checkpoints). `build` also takes a cut depth
+(``layers=5`` trains recurrentgemma-9b's first group and its 2-layer tail
+at full width). The ssm and hybrid families train as the dense one
+does. Parameters are random from seed 0, made on the device.
 """
 from __future__ import annotations
 
@@ -33,15 +35,19 @@ from .steps import make_train_step
 
 
 def build(arch: str, reduced: bool, batch: int, seq: int, n_micro: int,
-          total_steps: int, device="cuda", dtype=None):
+          total_steps: int, device="cuda", dtype=None, layers=None):
     """(cfg, params, opt_state, step_fn, stream) of a training run on
-    `device`; `dtype` overrides the config's parameter dtype."""
+    `device`; `dtype` overrides the config's parameter dtype and `layers`
+    its depth (a full-width model whose training state does not fit one
+    card)."""
     dev = _device.resolve(device)
     cfg = configs.get(arch)
     if reduced:
         cfg = cfg.reduced()
     if dtype is not None:
         cfg = dataclasses.replace(cfg, dtype=dtype)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=total_steps,
                           moment_dtype=cfg.opt_moment_dtype)
     params = registry.init(cfg, seed=0, device=dev)

@@ -1,8 +1,8 @@
 """Family dispatch, parameter init, input specs and seeded batches.
 
-The port of `repro.models.registry` for the dense, moe, vlm and audio
-families; the recurrent families (ssm, hybrid) wait for ROADMAP A8. The
-specs are ``device="meta"`` tensors (the counterpart of the reference's
+The port of `repro.models.registry` for all six families: dense, moe,
+vlm, audio and the recurrent ssm and hybrid. The specs are
+``device="meta"`` tensors (the counterpart of the reference's
 ShapeDtypeStructs): shapes and dtypes, nothing allocated.
 
 `make_train_batch`, `make_frontends` and `make_prompts` draw from NumPy
@@ -16,20 +16,16 @@ import numpy as np
 import torch
 
 from .. import device as _device
-from . import encdec, layers, moe, transformer, vlm
+from . import encdec, hybrid, layers, moe, ssm, transformer, vlm
 from .config import ArchConfig, ShapeConfig
 
-FAMILY_MODULES = {"dense": transformer, "audio": encdec, "moe": moe,
-                  "vlm": vlm}
+FAMILY_MODULES = {"dense": transformer, "ssm": ssm, "hybrid": hybrid,
+                  "audio": encdec, "moe": moe, "vlm": vlm}
 
 META = torch.device("meta")
 
 
 def get_module(cfg: ArchConfig):
-    if cfg.family not in FAMILY_MODULES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet "
-            f"(ROADMAP A8); ported: {', '.join(FAMILY_MODULES)}")
     return FAMILY_MODULES[cfg.family]
 
 

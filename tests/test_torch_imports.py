@@ -10,8 +10,9 @@ frontends, the oracle module (the port's own copy of a pure-Python
 module of the reference), the checkpoint module, the closed-loop and
 elastic serving tiers, and the training path (the optimizer, compression,
 token stream, train and serve steps, fault-tolerant loop and trainer), and
-the moe, vlm and audio model families; the registry lists all seven kinds
-and serves four model families."""
+the moe, vlm and audio model families and the recurrent ones (ssm,
+hybrid); the registry lists all seven kinds and covers all six model
+families."""
 import subprocess
 import sys
 from pathlib import Path
@@ -38,7 +39,8 @@ from repro_torch.launch import elastic, serve, serve_fleet, steps, train
 from repro_torch.optim import adamw, compression
 from repro_torch.data import pipeline
 from repro_torch.runtime import fault
-from repro_torch.models import encdec, layers, moe, registry, transformer, vlm
+from repro_torch.models import encdec, hybrid, layers, moe, registry, ssm
+from repro_torch.models import transformer, vlm
 assert all(callable(f) for f in (
     ckpt.save, ckpt.restore, ckpt.latest_step, ckpt.AsyncCheckpointer,
     serve_fleet.FleetServe, serve_fleet.serve_session,
@@ -50,8 +52,11 @@ assert all(callable(f) for f in (
     transformer.loss, registry.loss_fn, registry.param_specs,
     registry.make_train_batch, registry.make_frontends, moe._moe_mlp,
     moe.prefill, moe.decode, vlm.prefill, vlm.loss, encdec.encode,
-    encdec.prefill, encdec.decode))
-assert sorted(registry.FAMILY_MODULES) == ["audio", "dense", "moe", "vlm"]
+    encdec.prefill, encdec.decode, ssm.ssd_chunked, ssm.ssd_recurrent_step,
+    ssm.loss, ssm.prefill, ssm.decode, hybrid.associative_scan,
+    hybrid.loss, hybrid.prefill, hybrid.decode))
+assert sorted(registry.FAMILY_MODULES) == ["audio", "dense", "hybrid", "moe",
+                                           "ssm", "vlm"]
 assert heap.kinds() == ("strawman", "sw", "hwsw", "sanitizer", "arena",
                         "tlregion", "fused")
 assert design_space.STRATEGIES[-1] == "pim_meta_pim_exec"

@@ -18,9 +18,12 @@ carried across by `convert.params_from_reference`):
     exact; the two kinds' page ids against each other;
   * `serve` end to end against the reference's `serve.main` steps replayed
     here: tokens, page ids and pool stats exact;
-  * `_prefill_decode_both` and `_reference_serve` take any family with a
-    paged cache (the moe, vlm and audio families use them in
-    tests/test_torch_families.py, with their stub frontends' embeddings);
+  * `_prefill_decode_both` and `_reference_serve` take any family (the
+    moe, vlm and audio families use them in tests/test_torch_families.py,
+    with their stub frontends' embeddings, the recurrent ones in
+    tests/test_torch_recurrent.py, whose caches have no page table);
+  * every arch of the reference resolves in the port with equal fields,
+    and `all_configs` matches;
   * the device rule: the entry points default to the card and raise here.
 """
 import dataclasses
@@ -82,14 +85,25 @@ def test_dense_configs_match_reference(name):
         {k: dataclasses.asdict(v) for k, v in jconfig.SHAPES.items()}
 
 
-def test_other_families_are_not_ported_yet():
-    """Only the recurrent families (ssm, hybrid) still raise."""
-    assert set(tconfigs.NOT_PORTED) == {"mamba2_130m", "recurrentgemma_9b"}
-    for name in tconfigs.NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-            tconfigs.get(name)
-        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-            treg.get_module(jconfigs.get(name))
+@pytest.mark.parametrize("name", jconfigs.ARCHS)
+def test_every_arch_resolves_like_the_reference(name):
+    """Every arch of the reference resolves in the port, by its id with
+    underscores or dashes, with equal fields, to the module of its
+    family."""
+    got = tconfigs.get(name)
+    assert dataclasses.asdict(got) == dataclasses.asdict(jconfigs.get(name))
+    assert tconfigs.get(name.replace("_", "-")) is got
+    assert treg.get_module(got).__name__.split(".")[-1] == \
+        jreg.get_module(jconfigs.get(name)).__name__.split(".")[-1]
+
+
+def test_all_configs_match_reference():
+    got, want = tconfigs.all_configs(), jconfigs.all_configs()
+    assert list(got) == list(want) == list(tconfigs.ARCHS)
+    assert {k: dataclasses.asdict(v) for k, v in got.items()} == \
+        {k: dataclasses.asdict(v) for k, v in want.items()}
+    with pytest.raises(ValueError, match="unknown arch"):
+        tconfigs.get("llama_7b")
 
 
 # ---------------------------------------------------------------- layers --
@@ -197,8 +211,9 @@ SETTINGS = {
 }
 
 
-def _ref_params(cfg, seed=0):
-    params = jreg.init(cfg, jax.random.PRNGKey(seed))
+def _ref_params(cfg, seed=0, jit=False):
+    init = jax.jit(jreg.init, static_argnums=0) if jit else jreg.init
+    params = init(cfg, jax.random.PRNGKey(seed))
     return params, convert.params_from_reference(
         jax.tree.map(np.asarray, params), device="cpu")
 
@@ -216,18 +231,24 @@ def prefix_len(cfg):
     return cfg.n_patches if cfg.family == "vlm" else 0
 
 
-def _prefill_decode_both(name, **overrides):
+def _prefill_decode_both(name, prompt=S, jit=False, **overrides):
     """Prefill + STEPS greedy decode steps of `name` reduced through both
     packages (its family's module on each side, the stub frontends from a
     NumPy seed), with the reference's parameters; asserts at every
-    step. The text prompt is S tokens, more where the vlm's patch prefix
-    needs them to fill whole pages."""
+    step. The text prompt is `prompt` tokens, more where they (after the
+    vlm's patch prefix) do not fill whole pages. The page table is set
+    where the family's cache has one. With `jit` the reference's init,
+    prefill and decode run jitted (as its serve runs them)."""
     cfg = dataclasses.replace(jconfigs.get(name).reduced(), **overrides)
     tcfg = dataclasses.replace(tconfigs.get(name).reduced(), **overrides)
     jmod, tmod = jreg.get_module(cfg), treg.get_module(tcfg)
-    jparams, tparams = _ref_params(cfg)
+    jparams, tparams = _ref_params(cfg, jit=jit)
+    jprefill, jdecode = jmod.prefill, jmod.decode
+    if jit:
+        jprefill = jax.jit(jprefill, static_argnums=0)
+        jdecode = jax.jit(jdecode, static_argnums=0)
     prefix = prefix_len(cfg)
-    St = S + (-(prefix + S)) % cfg.page_size
+    St = prompt + (-(prefix + prompt)) % cfg.page_size
     max_seq = prefix + St + STEPS + cfg.page_size
     P = jpaged.pages_per_seq(max_seq, cfg.page_size)
     pt = np.stack([(np.arange(P) + b + 1) % P for b in range(B)]).astype(
@@ -239,11 +260,12 @@ def _prefill_decode_both(name, **overrides):
     assert {k: v[0] for k, v in tmod.cache_spec(tcfg, B, max_seq).items()} \
         == {k: v.shape for k, v in jspec.items()}
     jcache = jax.tree.map(lambda s: jnp.zeros(s.shape, s.dtype), jspec)
-    jcache["page_table"] = jnp.asarray(pt)
     tcache = tmod.init_cache(tcfg, B, max_seq, device="cpu")
-    tcache["page_table"] = torch.from_numpy(pt)
+    if "page_table" in jspec:
+        jcache["page_table"] = jnp.asarray(pt)
+        tcache["page_table"] = torch.from_numpy(pt)
 
-    jcache, jlog = jmod.prefill(
+    jcache, jlog = jprefill(
         cfg, jparams, {"tokens": jnp.asarray(toks),
                        **{k: jnp.asarray(v) for k, v in front.items()}},
         jcache)
@@ -260,8 +282,7 @@ def _prefill_decode_both(name, **overrides):
         ttok = torch.argmax(tlog, dim=-1)[:, None]
         np.testing.assert_array_equal(ttok.numpy(), np.asarray(jtok))
         if step < STEPS:
-            jcache, jlog = jmod.decode(cfg, jparams, jcache,
-                                       {"tokens": jtok})
+            jcache, jlog = jdecode(cfg, jparams, jcache, {"tokens": jtok})
             tcache, tlog = tmod.decode(tcfg, tparams, tcache,
                                        {"tokens": ttok})
     assert set(tcache) == set(jcache)
@@ -446,7 +467,8 @@ def _reference_serve(cfg, params, toks, decode_steps, front=None):
             for b in range(B)]
     cache = jax.tree.map(lambda s: jnp.zeros(s.shape, s.dtype),
                          mod.cache_spec(cfg, B, max_seq))
-    cache["page_table"] = jnp.stack(rows) % P
+    if "page_table" in cache:
+        cache["page_table"] = jnp.stack(rows) % P
     batch = {"tokens": jnp.asarray(toks),
              **{k: jnp.asarray(v) for k, v in (front or {}).items()}}
     pad = (-(S + prefix_len(cfg))) % cfg.page_size

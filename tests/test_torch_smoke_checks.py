@@ -15,7 +15,9 @@ Phase 11's gradient check passes a summation-order difference and fails
 a perturbed leaf and a broken `rms_norm`; its FLOP count and kernel
 classes are pinned. Phase 12's expected launch counts, kernel 4's bytes
 bound at each new head shape, its kernels-line entries and the expert-id
-comparison are pinned.
+comparison are pinned. Phase 13's FLOP counts of the recurrent families
+and the training cut's state plan are pinned; its logit check passes fp32
+rounding and fails a broken `rms_norm`.
 """
 import dataclasses
 import sys
@@ -485,3 +487,84 @@ def test_family_entries_and_expert_flips():
     assert [(t, k) for t, k, _ in flips] == [(0, 1)]
     assert flips[0][2] < chip_smoke.FAM_TIE_GAP
     assert chip_smoke.expert_flips(a, a, probs) == []
+
+
+# ------------------------------------------------------------- phase 13 --
+def test_train_flops_of_the_recurrent_families():
+    """Phase 13 (c)'s MFU numerators at 4 x 4096 tokens: the matmul
+    parameters of every block tree (not the causal convs' taps or the fp32
+    vectors) plus the tied embedding as the head; mamba2's SSD products
+    on its 24 layers (32 chunks of 128); recurrentgemma's local attention
+    over min(S, window) keys on its one attention layer of 5."""
+    from repro_torch import configs
+    D, F, V = 4096, 12288, 256000
+    hy = dataclasses.replace(configs.get("recurrentgemma_9b"), n_layers=5)
+    flops, n_mm = chip_smoke.train_flops(hy, 4 * 4096, 4, 4096)
+    rec, attn = 5 * D * D + 3 * D * F, 2 * D * 16 * 256 + 2 * D * 256 \
+        + 3 * D * F
+    assert n_mm == 4 * rec + attn + V * D
+    assert flops == 8 * n_mm * 4 * 4096 + 4 * 4 * 4 * 4096 * 2048 * 16 * 256
+    assert round(flops / 1e12, 2) == 287.25
+    mb = configs.get("mamba2_130m")
+    flops, n_mm = chip_smoke.train_flops(mb, 4 * 4096, 4, 4096)
+    d, N, H, P, l = 768, 128, 24, 64, 128
+    assert n_mm == 24 * (2 * d * 2 * d + 2 * d * N + d * H + 2 * d * d) \
+        + 50432 * d
+    ssd = 2 * 4 * 4096 * (l * N + l * H * P + 2 * H * P * N)
+    assert flops == 8 * n_mm * 4 * 4096 + 4 * ssd * 24
+    assert round(flops / 1e12, 2) == 18.79
+    # a sequence that does not fill its last chunk is padded, as the SSD
+    # pads it
+    assert chip_smoke.train_flops(mb, 4 * 4000, 4, 4000)[0] == \
+        8 * n_mm * 4 * 4000 + 4 * ssd * 24
+
+
+def test_recurrent_training_plan_and_cuts():
+    """(c)'s cuts: recurrentgemma at one group and its 2-layer tail, 2.175 B
+    parameters whose state (bf16 params and grads, fp32 accumulator and
+    moments) is 34.8 GB; mamba2 whole."""
+    from repro_torch import configs
+    from repro_torch.launch import steps
+    from repro_torch.models import registry
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import tree_leaves
+    assert chip_smoke.REC_TRAIN == {"mamba2_130m": (24, 2),
+                                    "recurrentgemma_9b": (5, 4)}
+    cfg = dataclasses.replace(configs.get("recurrentgemma_9b"), n_layers=5)
+    spec = registry.param_specs(cfg)
+    assert sorted(spec) == ["attn", "embed", "ln_f", "rec1", "rec2", "tail"]
+    n = sum(t.numel() for t in tree_leaves(spec))
+    assert round(n / 1e9, 3) == 2.175
+    ospec = steps.opt_state_specs(cfg, adamw.AdamWConfig())
+    plan = 2 * chip_smoke.tree_bytes(spec) + 4 * n + \
+        chip_smoke.tree_bytes(ospec.m) + chip_smoke.tree_bytes(ospec.v)
+    assert round(plan / 1e9, 1) == 34.8
+    assert configs.get("mamba2_130m").n_layers == 24
+
+
+@pytest.mark.parametrize("name", ["mamba2_130m", "recurrentgemma_9b"])
+def test_recurrent_check_passes_rounding_and_fails_a_broken_rms_norm(
+        name, monkeypatch):
+    """Phase 13 (a)'s logit reading on the reduced config: logits moved by
+    a few fp32 roundings pass its limit; a prefill with rms_norm's ``1 +``
+    dropped fails it, and so do non-finite logits."""
+    from repro_torch import configs
+    from repro_torch.models import layers, registry
+    cfg = configs.get(name).reduced()
+    cpu = torch.device("cpu")
+    params = registry.init(cfg, seed=0, device=cpu)
+    tokens = registry.make_prompts(cfg, 2, 32, seed=0, device=cpu)
+    want, feed, cache = chip_smoke.rec_run(cfg, params, tokens, 3, cpu)
+    assert feed.shape == (2, 3) and cache["seq_lens"].tolist() == [35, 35]
+    g = torch.Generator().manual_seed(0)
+    rounded = [w * (1 + 2.0 ** -21 * torch.randn(w.shape, generator=g))
+               for w in want]
+    share = chip_smoke.logit_reading(rounded, want, cfg.vocab)
+    assert 0 < share <= 1e-5 < chip_smoke.REC_LOGIT_TOL
+    monkeypatch.setattr(layers, "rms_norm", chip_smoke.rms_norm_without_one)
+    mut, _, _ = chip_smoke.rec_run(cfg, params, tokens, 0, cpu)
+    assert chip_smoke.logit_reading(mut, want[:1], cfg.vocab) > \
+        chip_smoke.REC_LOGIT_TOL
+    bad = [want[0].clone()]
+    bad[0][0, 0] = float("nan")
+    assert chip_smoke.logit_reading(bad, want, cfg.vocab) == float("inf")
