@@ -79,9 +79,10 @@ Phases (each raises on failure; nothing is caught and carried on):
      kernel launch per recorded round); (b) the scenarios at the
      reference's ``record --full`` sizes on fused and on hwsw: equal tapes
      apart from ``recorded_kind``, lint clean, their replays fused ==
-     hwsw in full with residual 0; (c) `graphupd.compare_all` at the
-     paper's partition (384 nodes, 4000 + 2000 edges, 2 MiB heap) on every
-     kind, the fused row == the hwsw row; (d) DecodeServe at
+     hwsw in full with residual 0; (c) `graphupd.compare_all` at fig16's
+     smoke partition (96 nodes, 320 + 160 edges, 2 MiB heap; the paper's
+     partition runs in phase 14 (c), through examples/graph_update_torch.py)
+     on every kind, the fused row == the hwsw row; (d) DecodeServe at
      benchmarks/fig_decode.py's full size (R=2, C=4, T=16, 1 MiB heaps, 96
      rounds, 6 sessions a round, 32 tenants) on fused and hwsw in
      lockstep through `ScanEngine.run_segment`, bit for bit, residual 0,
@@ -237,7 +238,34 @@ Phases (each raises on failure; nothing is caught and carried on):
      tokens/s, MFU, one profiled step's launches, busy share and device
      time by kernel class; then one batch repeated 4 times from the init
      (recurrentgemma with flat attention weights, as in phase 11), its
-     loss falling at every step.
+     loss falling at every step;
+ 14. the moe, vlm and audio families trained (no kernel of their own: the
+     five counters read 0 over the timed steps), and the port's examples:
+     (a) each at full width in fp32 (the MoEs 1 layer, paligemma and
+     whisper 2, whisper's encoder too), B=1, 256 text tokens (paligemma
+     after its 256 patches): the loss and every gradient on the card
+     against the CPU as phase 11 (a) holds them, the MoEs with flat
+     attention weights (read with their attn_4d ones too), the router's
+     expert choices that differ between the two counted (each must be a
+     near-tie; the gradients are held where none differs), and the same
+     limits failing a broken layer (the MoEs' gate renormalisation summed
+     over the wrong axis, the others' `rms_norm` without ``1 +``); (b)
+     each trained as phase 13 (c) trains, at 4 x 4096 text tokens
+     (paligemma after its 256 patches, whisper over its 1536 frames):
+     olmoe-1b-7b 4 of 16 layers and qwen2-moe-a2.7b 2 of 24 in 2
+     microbatches, paligemma-3b all 18 in 4, whisper-small all 12 in 2;
+     MFU by `train_flops`, which counts a MoE token's routed experts at
+     top_k of them and each block at the positions it runs over (held
+     below 100 %); (c) the six examples (examples/*_torch.py) at their
+     default sizes, each in a subprocess with ``--device cuda``: exit 0,
+     the heap-step kernel launched by quickstart, graph_update (the
+     paper's partition on every kind; its fused row == its hwsw row),
+     serve_decode and serve_fleet (kind ``fused``), the paged-attention
+     kernel by serve_paged, train_lm's recovery drill; quickstart's and
+     graph_update's lines == their ``--device cpu`` runs' but the launch
+     count. The two CPU runs and graph_update's card run start with (a),
+     which is not timed, and the other card runs follow it; (b) runs
+     last, alone.
 
 In the ``kernels`` record, each kernel's ``ms``, ``plain_ms``,
 ``bound_ms`` and ``library_ms`` are per launch: averaged over the launches
@@ -258,6 +286,7 @@ import argparse
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -1737,8 +1766,9 @@ def wl_full(device):
 
 
 def wl_graph(device, gcfg=None):
-    """(c) `compare_all` at the paper's partition (`GraphConfig()`) on every
-    kind: the fused row == the hwsw row. Returns the rows and numbers."""
+    """(c) `compare_all` at `gcfg` (the paper's partition, `GraphConfig()`,
+    by default) on every kind: the fused row == the hwsw row. Returns the
+    rows and numbers."""
     from repro_torch.graphupd import workload as gw
     gcfg = gcfg or gw.GraphConfig()
     T = gcfg.num_threads
@@ -1908,6 +1938,10 @@ FLEET = ((SHARD_RANKS, CORES // SHARD_RANKS, 16), dict(
 # the highest of 6, 12, ..., 384 sessions a round at which the planner
 # drops at most 1 % of the offered sessions on FLEET (PERF.md §4)
 FLEET_RATE = 24.0
+# (c)'s partition: fig16's smoke one (the paper's, 384 nodes and 4000 +
+# 2000 edges, runs in phase 14 (c) through examples/graph_update_torch.py,
+# on the card and on the CPU)
+WL_GRAPH = dict(n_nodes=96, n_edges_pre=320, n_edges_new=160)
 
 
 def wl_decode_fleet(device, smi, fleet=FLEET, rate=FLEET_RATE,
@@ -3286,34 +3320,72 @@ def train_card_vs_cpu(seed, device):
 
 
 def train_flops(cfg, tokens, B, S):
-    """FLOPs of one step: 6 N tokens (forward and backward) + 2 N tokens
-    (remat's recomputed forward) over the N matmul parameters (every
-    stacked weight matrix of every block tree, ``blocks`` or the hybrid's
-    ``rec1`` / ``rec2`` / ``attn`` / ``tail``, but the norms and the
-    causal convs' taps; and the head, which is the embedding where it is
-    tied; not the embedding's lookup), plus (3 + 1) times the forward's
-    sequence products: the attention's two, 4 B S T H hd on each
+    """(FLOPs of one step, matmul parameters a token runs through): 6 per
+    matmul parameter and token it multiplies (forward and backward) + 2
+    (remat's recomputed forward), plus (3 + 1) times the forward's
+    sequence products.
+
+    The matmul parameters are every stacked weight matrix of every block
+    tree (``blocks``, the hybrid's ``rec1`` / ``rec2`` / ``attn`` /
+    ``tail``, the audio's ``enc`` / ``dec``), but the norms and the causal
+    convs' taps; and the head, which is the embedding where it is tied;
+    not the embedding's lookup. Each counts at the positions it runs over:
+
+      * dense, ssm, hybrid: the B S tokens;
+      * moe: the routed experts' three products at top_k / padded experts
+        of their stacked weights (a token runs top_k real experts; the
+        dummies and the capacity's padded slots are not counted), the
+        router and the shared experts whole;
+      * vlm: the blocks over the B (S + P) positions of the patch prefix
+        and the text, the head over the B S text tokens;
+      * audio: the encoder over B F frames, the decoder's cross-attention
+        K / V over the same B F encoder positions, the rest of the decoder
+        and the head over B S.
+
+    The sequence products: the attention's two, 4 B S T H hd on each
     attention layer (T = S, full S^2 causal or not; the hybrid's local
-    attention T = min(S, window)), and the SSD's four on each ssm layer,
-    2 B S' (l n + l H P + 2 H P n) over S' = S padded to chunks of l."""
+    attention T = min(S, window); the vlm S = T = S + P; the audio's
+    encoder S = T = F, its decoder's self-attention S = T = S and its
+    cross-attention T = F); the SSD's four on each ssm layer, 2 B S' (l n
+    + l H P + 2 H P n) over S' = S padded to chunks of l."""
     from repro_torch.models import registry
     spec = registry.param_specs(cfg)
     head = spec.get("head", spec["embed"])
-    n_mm = head.numel() + sum(
-        t.numel() for k, t in named_leaves(
-            {k: v for k, v in spec.items() if isinstance(v, dict)}).items()
-        if t.dim() >= 3 and not k.split("/")[-1].startswith("conv"))
+    mats = {k: t for k, t in named_leaves(
+        {k: v for k, v in spec.items() if isinstance(v, dict)}).items()
+        if t.dim() >= 3 and not k.split("/")[-1].startswith("conv")}
+    P = cfg.n_patches if cfg.family == "vlm" else 0
+    F = cfg.enc_frames if cfg.family == "audio" else 0
+
+    def active(name, t):     # the parameters a position runs through
+        if cfg.family == "moe" and name.split("/")[-1] in ("we1", "we2",
+                                                           "we3"):
+            return t.numel() * cfg.top_k // cfg.padded_experts
+        return t.numel()
+
+    def positions(name):
+        if name.startswith("enc/") or name in ("dec/xwk", "dec/xwv"):
+            return B * F
+        return B * (S + P)
+
+    n_mm = head.numel() + sum(active(k, t) for k, t in mats.items())
+    mm = head.numel() * tokens + sum(active(k, t) * positions(k)
+                                     for k, t in mats.items())
+    H, hd = cfg.n_heads, cfg.head_dim
     if cfg.family == "ssm":
         d_inner = cfg.ssm_expand * cfg.d_model
-        H, P, N, l = (d_inner // cfg.ssm_head_dim, cfg.ssm_head_dim,
-                      cfg.ssm_state, cfg.ssm_chunk)
-        seq = 2 * B * (-(-S // l) * l) * (l * N + l * H * P + 2 * H * P * N)
-        n_seq = cfg.n_layers
+        H, P_, N, l = (d_inner // cfg.ssm_head_dim, cfg.ssm_head_dim,
+                       cfg.ssm_state, cfg.ssm_chunk)
+        seq = cfg.n_layers * 2 * B * (-(-S // l) * l) * (
+            l * N + l * H * P_ + 2 * H * P_ * N)
+    elif cfg.family == "hybrid":
+        seq = cfg.n_layers // 3 * 4 * B * S * min(S, cfg.window) * H * hd
+    elif cfg.family == "audio":
+        seq = 4 * B * H * hd * (cfg.enc_layers * F * F
+                                + cfg.n_layers * (S * S + S * F))
     else:
-        T = min(S, cfg.window) if cfg.family == "hybrid" else S
-        seq = 4 * B * S * T * cfg.n_heads * cfg.head_dim
-        n_seq = cfg.n_layers // 3 if cfg.family == "hybrid" else cfg.n_layers
-    return (6 + 2) * n_mm * tokens + (3 + 1) * seq * n_seq, n_mm
+        seq = cfg.n_layers * 4 * B * (S + P) ** 2 * H * hd
+    return (6 + 2) * mm + (3 + 1) * seq, n_mm
 
 
 # kernel classes of a training step, by name (cuBLAS runs the bf16 GEMMs
@@ -3341,7 +3413,8 @@ def kernel_classes(kernels):
 def train_setup(cfg, seed, device, total_steps, n_micro=TRAIN_MICRO):
     """(params, opt_state, run(params, opt, i)) for `cfg` on the card:
     the trainer's AdamW settings (lr 1e-3, warmup 10) and its TokenStream
-    at TRAIN_BATCH x TRAIN_SEQ, `n_micro` microbatches a step."""
+    at TRAIN_BATCH x TRAIN_SEQ (with the stub frontends' embeddings, as
+    `launch.train.build` streams them), `n_micro` microbatches a step."""
     from repro_torch.data.pipeline import StreamConfig, TokenStream, \
         to_device
     from repro_torch.launch import steps
@@ -3353,8 +3426,11 @@ def train_setup(cfg, seed, device, total_steps, n_micro=TRAIN_MICRO):
     params = registry.init(cfg, seed=seed, device=device)
     opt = adamw.init(opt_cfg, params)
     step = steps.make_train_step(cfg, opt_cfg, n_micro=n_micro)
-    stream = TokenStream(StreamConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
-                                      global_batch=TRAIN_BATCH, seed=seed))
+    stream = TokenStream(StreamConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+        seed=seed, d_model=cfg.d_model,
+        enc_frames=cfg.enc_frames if cfg.family == "audio" else 0,
+        n_patches=cfg.n_patches if cfg.family == "vlm" else 0))
 
     def run(params, opt, i):
         return step(params, opt, to_device(stream.batch(i), device))
@@ -4138,13 +4214,14 @@ def rec_serve(name, seed, device, smi):
     return result
 
 
-def rec_train(name, seed, device, smi):
-    """Phase 13 (c): `name` at full width, REC_TRAIN[name]'s layers and
-    microbatches, bf16, remat, through `launch.train.build` and its
-    `make_train_step` on the trainer's TokenStream at TRAIN_BATCH x
-    TRAIN_SEQ: a warm-up step, TRAIN_STEPS timed steps (the counters
-    must read 0), one profiled step; then, from a fresh init, one batch
-    repeated TRAIN_REPEAT times: its loss falls at every step."""
+def train_family(name, seed, device, smi, n_layers, n_micro, label):
+    """Phases 13 (c) and 14 (b): `name` at full width, `n_layers` layers,
+    `n_micro` microbatches, bf16, remat, through `launch.train.build` and
+    its `make_train_step` on the trainer's TokenStream at TRAIN_BATCH x
+    TRAIN_SEQ text tokens (with the stub frontends' embeddings): a
+    warm-up step, TRAIN_STEPS timed steps (the counters must read 0), one
+    profiled step; then, from a fresh init, one batch repeated
+    TRAIN_REPEAT times: its loss falls at every step."""
     import torch
     from repro_torch.data.pipeline import to_device
     from repro_torch.launch import steps as steps_lib
@@ -4152,7 +4229,6 @@ def rec_train(name, seed, device, smi):
     from repro_torch.models import registry
     from repro_torch.optim import adamw
     from repro_torch.optim.adamw import tree_leaves
-    n_layers, n_micro = REC_TRAIN[name]
     B, S = TRAIN_BATCH, TRAIN_SEQ
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(device)
@@ -4190,7 +4266,7 @@ def rec_train(name, seed, device, smi):
         losses.append(float(m["loss"]))
     launched = {k: f.launches for k, f in counters.items()}
     if any(launched.values()):
-        raise AssertionError(f"{name} (c): the training path launched a "
+        raise AssertionError(f"{name} {label}: the training path launched a "
                              f"kernel: {launched}")
     (params, opt, m), busy, wall, launches, kernels = profile_call(
         lambda: run(params, opt, TRAIN_STEPS + 1), top=None)
@@ -4202,10 +4278,10 @@ def rec_train(name, seed, device, smi):
     torch.cuda.empty_cache()
 
     # one batch repeated from the init, with flat attention weights where
-    # the config has 3-D ones (the hybrid): under attn_4d the reference's
-    # init takes the head count as their fan-in and saturates the softmax
-    # (phase 11 (b) says why that stops the loss from falling at every
-    # step); mamba2 has no attention and runs as built
+    # the config has 3-D ones (the hybrid, the MoEs): under attn_4d the
+    # reference's init takes the head count as their fan-in and saturates
+    # the softmax (phase 11 (b) says why that stops the loss from falling
+    # at every step); the others run as built
     flat = dataclasses.replace(cfg, attn_4d=False)
     params, opt, run = train_setup(flat, seed, device, TRAIN_REPEAT,
                                    n_micro=n_micro)
@@ -4216,20 +4292,26 @@ def rec_train(name, seed, device, smi):
     del params, opt, m
     torch.cuda.empty_cache()
     if not all(math.isfinite(x) for x in losses + rep):
-        raise AssertionError(f"{name} (c): non-finite loss: {losses}, "
+        raise AssertionError(f"{name} {label}: non-finite loss: {losses}, "
                              f"{rep}")
     if not all(a > b for a, b in zip(rep, rep[1:])):
-        raise AssertionError(f"{name} (c): the loss on a repeated batch "
+        raise AssertionError(f"{name} {label}: the loss on a repeated batch "
                              f"did not fall at every step: {rep}")
     step_s = sum(times) / len(times)
     tokens = B * S
     flops, n_mm = train_flops(cfg, tokens, B, S)
     mfu = flops / step_s / MFU_PEAK
+    if not 0 < mfu < 1:
+        raise AssertionError(f"{name} {label}: MFU {mfu} outside (0, 1)")
     busy_s = "not measured" if busy is None else \
         f"{busy:.1f} of {wall:.1f} ms ({100 * busy / wall:.1f} %)"
-    print(f"{name} (c): {cfg.n_layers} layers at full width, "
+    front = {"vlm": f" after {cfg.n_patches} patches",
+             "audio": f" over {cfg.enc_frames} encoder frames ("
+                      f"{cfg.enc_layers} encoder layers)"}.get(cfg.family, "")
+    print(f"{name} {label}: {cfg.n_layers} layers at full width, "
           f"{n_params / 1e9:.4f} B params, bf16, remat, fp32 moments, B={B} "
-          f"x S={S}, {n_micro} microbatches, through launch.train.build: "
+          f"x S={S}{front}, {n_micro} microbatches, through "
+          f"launch.train.build: "
           f"plan params {p_b / 1e9:.2f} GB + grads {p_b / 1e9:.2f} + fp32 "
           f"accumulator {acc_b / 1e9:.2f} + m, v {mom_b / 1e9:.2f} = "
           f"{plan_b / 1e9:.2f} GB; init {init_s:.2f} s; step "
@@ -4265,9 +4347,328 @@ def phase_recurrent(seed, device, smi):
     for name in REC_ARCHS:
         out["serve"][name] = rec_serve(name, seed, device, smi)
     for name in REC_ARCHS:
-        out["train"][name] = rec_train(name, seed, device, smi)
+        out["train"][name] = train_family(name, seed, device, smi,
+                                          *REC_TRAIN[name], "(c)")
     out["seconds"] = time.perf_counter() - t0
     print(f"phase 13 took {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the moe, vlm and audio families trained (no kernel of their
+# own), and the port's examples
+# (a): full width, fp32, B=1: the MoEs 1 layer, the others 2 (whisper's
+# encoder too), TRAIN_CHECK_TEXT text tokens (paligemma after its patches)
+FAM_TRAIN_CHECK = {"olmoe_1b_7b": 1, "qwen2_moe_a2_7b": 1, "paligemma_3b": 2,
+                   "whisper_small": 2}
+TRAIN_CHECK_TEXT = 256
+# (b): (layers, microbatches) at full width, TRAIN_BATCH x TRAIN_SEQ text
+# tokens, 16 B of state a parameter: olmoe 4 of 16 layers (1.885 B params,
+# 30.2 GB), qwen2-moe 2 of 24 (1.833 B, 29.3 GB), paligemma and whisper
+# whole; paligemma in 4 microbatches (its fp32 logits are 4.2 GB a
+# sequence)
+FAM_TRAIN = {"olmoe_1b_7b": (4, 2), "qwen2_moe_a2_7b": (2, 2),
+             "paligemma_3b": (18, 4), "whisper_small": (12, 2)}
+# (c): the port's examples, each in a subprocess at its default size on the
+# card: (name, the kernel whose launches its last line counts)
+EXAMPLES = (("quickstart", "heap-step"), ("graph_update", "heap-step"),
+            ("serve_paged", "paged-attention"), ("serve_decode", "heap-step"),
+            ("serve_fleet", "heap-step"), ("train_lm", None))
+EXAMPLES_VS_CPU = ("quickstart", "graph_update")  # == their --device cpu runs
+EXAMPLES_AHEAD = ("graph_update",)  # its card run overlaps the others'
+EXAMPLE_TIMEOUT = 600   # seconds a subprocess may take
+
+
+def route_wrong_axis(cfg, xg, wr):
+    """`moe.route` with its gate renormalisation summed over the group's
+    tokens instead of each token's k choices: the broken layer that phase
+    14 (a)'s check must fail."""
+    import torch
+    from repro_torch.models import moe
+    E, K = cfg.padded_experts, cfg.top_k
+    logits = (xg @ wr.to(xg.dtype)).float()
+    if E != cfg.n_experts:
+        real = torch.arange(E, device=xg.device) < cfg.n_experts
+        logits = torch.where(real, logits, moe.MASKED)
+    gates, idx = moe.top_k(torch.softmax(logits, dim=-1), K)
+    gates = gates / torch.clamp(gates.sum(-2, keepdim=True), min=1e-9)
+    return gates, idx
+
+
+def routed_grads(cfg, params, batch):
+    """((loss, grads), [(probs, ids) on the CPU] of every routing of the
+    run: the forward's and remat's recomputed one) of `cfg`'s loss at
+    `batch`, on the parameters' device."""
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import moe
+    routes, top_k = [], moe.top_k
+
+    def record(x, k):
+        vals, idx = top_k(x, k)
+        routes.append((x.detach().reshape(-1, x.shape[-1]).cpu(),
+                       idx.reshape(-1, k).cpu()))
+        return vals, idx
+
+    moe.top_k = record
+    try:
+        (l, _), g = steps_lib.make_grad_fn(cfg)(params, batch)
+    finally:
+        moe.top_k = top_k
+    return (l, g), routes
+
+
+def fam_grads(cfg, seed, device):
+    """The loss and gradients of `cfg` at B=1 and TRAIN_CHECK_TEXT text
+    tokens on the card against the CPU, from the same parameters: the
+    reading (`grad_reading`'s parts, the leaves, both losses), the MoE's
+    expert choices that differ between the two with their probability
+    gaps, and the same reading of the card with the broken layer (the
+    MoEs' gate renormalisation over the wrong axis, the others' rms_norm
+    without ``1 +``)."""
+    import torch
+    from repro_torch.models import layers, moe, registry
+    from repro_torch.models.config import ShapeConfig
+    cpu = torch.device("cpu")
+    params = registry.init(cfg, seed=seed, device=device)
+    cpu_params = tree_to(params, cpu)
+    P = cfg.n_patches if cfg.family == "vlm" else 0
+    batch = registry.make_train_batch(
+        cfg, ShapeConfig("check", P + TRAIN_CHECK_TEXT, 1, "train"),
+        seed=seed, device=cpu)
+    want, cpu_routes = routed_grads(cfg, cpu_params, batch)
+    del cpu_params
+    dbatch = {k: v.to(device) for k, v in batch.items()}
+    got, card_routes = routed_grads(cfg, params, dbatch)
+    if len(card_routes) != len(cpu_routes):
+        raise AssertionError(f"{cfg.name} (a): {len(card_routes)} routings "
+                             f"on the card, {len(cpu_routes)} on the CPU")
+    flips, routed = [], 0
+    for (_, ia), (pb, ib) in zip(card_routes, cpu_routes):
+        routed += ia.numel()
+        flips += expert_flips(ia, ib, pb)
+    loss_rel, worst, bad = grad_reading(got, want)
+    loss_card = float(got[0])
+    del got
+    mod, attr, broken = ((moe, "route", route_wrong_axis)
+                         if cfg.family == "moe" else
+                         (layers, "rms_norm", rms_norm_without_one))
+    real = getattr(mod, attr)
+    setattr(mod, attr, broken)
+    try:
+        mut, _ = routed_grads(cfg, params, dbatch)
+    finally:
+        setattr(mod, attr, real)
+    mut_rel, mut_worst, mut_bad = grad_reading(mut, want)
+    out = dict(loss_rel=loss_rel, worst=worst[1], worst_leaf=worst[0],
+               leaves_past=bad, leaves=len(named_leaves(want[1])),
+               loss_card=loss_card, loss_cpu=float(want[0]), routed=routed,
+               flips=len(flips), gaps=[g for _, _, g in flips],
+               mutant=attr, mutant_loss_rel=mut_rel,
+               mutant_worst=mut_worst[1], mutant_leaves_past=len(mut_bad))
+    del params, mut, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def fam_train_card_vs_cpu(name, seed, device):
+    """Phase 14 (a): `name` at full width, FAM_TRAIN_CHECK[name] layers,
+    fp32, B=1: the loss and every gradient on the card against the CPU
+    (`fam_grads`) within TRAIN_LOSS_TOL / TRAIN_GRAD_TOL, with flat
+    attention weights where the config's are 3-D (the MoEs: their attn_4d
+    init saturates the scores, ROADMAP C; read with those too). The
+    gradients are held where no expert choice differs between the two
+    (a differing one must be a near-tie, <= FAM_TIE_GAP); the loss always.
+    The broken layer must fail the same limits."""
+    from repro_torch import configs
+    t0 = time.perf_counter()
+    n = FAM_TRAIN_CHECK[name]
+    cfg = dataclasses.replace(configs.get(name), n_layers=n, dtype="float32")
+    if cfg.family == "audio":
+        cfg = dataclasses.replace(cfg, enc_layers=n)
+    grads = {"config": fam_grads(cfg, seed, device)}
+    flat = dataclasses.replace(cfg, attn_4d=False)
+    held = grads["config"]
+    if flat != cfg:
+        grads["flat"] = held = fam_grads(flat, seed, device)
+    for what, g in grads.items():
+        if any(gap > FAM_TIE_GAP for gap in g["gaps"]):
+            raise AssertionError(f"{name} (a) {what}: an expert choice "
+                                 f"differs by more than a near-tie: "
+                                 f"{g['gaps']}")
+        if g["mutant_loss_rel"] <= TRAIN_LOSS_TOL and \
+                not g["mutant_leaves_past"]:
+            raise AssertionError(f"{name} (a) {what}: the check passes the "
+                                 f"broken {g['mutant']}")
+    if not held["loss_rel"] <= TRAIN_LOSS_TOL or \
+            (held["flips"] == 0 and held["leaves_past"]):
+        raise AssertionError(f"{name} (a): loss or gradients card != CPU: "
+                             f"loss rel {held['loss_rel']}, leaves past "
+                             f"{TRAIN_GRAD_TOL}: {held['leaves_past']}")
+    secs = time.perf_counter() - t0
+    P = cfg.n_patches if cfg.family == "vlm" else 0
+    c = grads["config"]
+
+    def mut(g):
+        return (f"{g['mutant']} broken: loss rel {g['mutant_loss_rel']:.3g}"
+                f", {g['mutant_leaves_past']} leaves past (worst "
+                f"{g['mutant_worst']:.3g})")
+
+    print(f"{name} (a): {cfg.n_layers} layers"
+          + (f" + {cfg.enc_layers} encoder layers over {cfg.enc_frames} "
+             f"frames" if cfg.family == "audio" else "")
+          + f" at full width in fp32, B=1 x {TRAIN_CHECK_TEXT} text tokens"
+          + (f" after {P} patches" if P else "")
+          + ": card == CPU"
+          + (" with flat attention weights" if flat != cfg else "")
+          + f": loss {held['loss_card']} vs {held['loss_cpu']} "
+          f"(rel {held['loss_rel']:.3g}, tol {TRAIN_LOSS_TOL}), gradients "
+          f"max |diff| / max |g| at most {held['worst']:.3g} "
+          f"({held['worst_leaf']}) over {held['leaves']} leaves (tol "
+          f"{TRAIN_GRAD_TOL}"
+          + (", held" if held["flips"] == 0 else
+             f", not held: {held['flips']} expert choices differ")
+          + ")"
+          + (f"; expert ids of {held['routed']} (token, k): "
+             f"{held['flips']} differ" if cfg.family == "moe" else "")
+          + f"; {mut(held)}"
+          + ("" if flat == cfg else
+             f"; with the config's attn_4d weights (read, not held): loss "
+             f"rel {c['loss_rel']:.3g}, gradients at most {c['worst']:.3g} "
+             f"({c['worst_leaf']}), {len(c['leaves_past'])} of "
+             f"{c['leaves']} leaves past {TRAIN_GRAD_TOL}, {c['flips']} of "
+             f"{c['routed']} expert choices differ, {mut(c)}")
+          + f" [{secs:.1f} s]")
+    return dict(layers=cfg.n_layers, grads=grads, seconds=secs)
+
+
+def finish(proc, what):
+    """A subprocess's stdout lines, once it exits with 0 within
+    EXAMPLE_TIMEOUT; it is killed otherwise, and the phase fails."""
+    try:
+        out, err = proc.communicate(timeout=EXAMPLE_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"{what}: no exit within {EXAMPLE_TIMEOUT} s")
+    if proc.returncode != 0:
+        raise AssertionError(f"{what}: exit code {proc.returncode}:\n"
+                             + err[-3000:])
+    return out.splitlines()
+
+
+def start_example(name, device, threads=None):
+    """(examples/NAME_torch.py --device DEVICE as a subprocess in the
+    checkout, with the port's sources on its path and `threads` capping a
+    CPU run's threads; its start time)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    if threads:
+        env.update(OMP_NUM_THREADS=str(threads), MKL_NUM_THREADS=str(threads))
+    cmd = [sys.executable, str(ROOT / "examples" / f"{name}_torch.py"),
+           "--device", device]
+    return (subprocess.Popen(cmd, cwd=ROOT, env=env, text=True,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE),
+            time.perf_counter())
+
+
+def start_examples_ahead():
+    """The example runs phase 14 starts before its (a), which they overlap
+    (it is not timed): quickstart and graph_update with ``--device cpu``
+    (two host threads each) and graph_update's card run (the longest: the
+    straw-man's host-bound rounds). {(name, device): (process, start)}."""
+    procs = {(name, "cpu"): start_example(name, "cpu", threads=2)
+             for name in EXAMPLES_VS_CPU}
+    procs.update({(name, "cuda"): start_example(name, "cuda")
+                  for name in EXAMPLES_AHEAD})
+    return procs
+
+
+def stop_examples(procs):
+    for proc, _ in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+
+
+def run_examples(smi, procs):
+    """Phase 14 (c): each port example (examples/*_torch.py) at its
+    default size in a subprocess with ``--device cuda``, one after the
+    other but those of `procs` (`start_examples_ahead`), which are
+    collected last; quickstart and graph_update also with ``--device
+    cpu``. Every run must exit with 0; the card's runs of quickstart and
+    graph_update print the same lines as the CPU's but their last (the
+    launch count), and graph_update's fused row == its hwsw row; the
+    kernel each example's last line counts was launched (> 0)."""
+    out = {}
+    try:
+        for name, kernel in sorted(EXAMPLES,
+                                   key=lambda e: e[0] in EXAMPLES_AHEAD):
+            if (name, "cuda") not in procs:
+                procs[name, "cuda"] = start_example(name, "cuda")
+            proc, t0 = procs[name, "cuda"]
+            lines = finish(proc, f"{name}_torch.py --device cuda")
+            secs = time.perf_counter() - t0
+            launches = None
+            if kernel:
+                head = f"{kernel} kernel launches: "
+                if not lines or not lines[-1].startswith(head):
+                    raise AssertionError(f"{name}: last line {lines[-1:]}")
+                launches = int(lines[-1][len(head):])
+                if launches <= 0:
+                    raise AssertionError(f"{name}: the {kernel} kernel was "
+                                         f"not launched")
+            out[name] = dict(seconds=secs, launches=launches, lines=lines)
+            print(f"{name}_torch.py --device cuda: exit 0 in {secs:.1f} s; "
+                  + (f"{kernel} kernel launches {launches}; " if kernel
+                     else "")
+                  + "last lines: " + " | ".join(lines[-3:]))
+        for name in EXAMPLES_VS_CPU:
+            proc, t0 = procs[name, "cpu"]
+            want = finish(proc, f"{name}_torch.py --device cpu")
+            got = out[name]["lines"]
+            if got[:-1] != want[:-1] or \
+                    want[-1] != "heap-step kernel launches: 0":
+                raise AssertionError(f"{name}: the card's lines != the "
+                                     f"CPU's:\n" + "\n".join(got) + "\n--\n"
+                                     + "\n".join(want))
+            out[name]["cpu_s"] = time.perf_counter() - t0
+            print(f"{name}_torch.py: the card's {len(got) - 1} result lines "
+                  f"== the CPU run's bit for bit (the CPU run done within "
+                  f"{out[name]['cpu_s']:.1f} s)")
+        rows = {ln.split()[0]: ln.split()[1:] for ln in
+                out["graph_update"]["lines"] if ln[:1].isalpha()}
+        if rows.get("fused") != rows.get("hwsw"):
+            raise AssertionError(f"graph_update: fused {rows.get('fused')} "
+                                 f"!= hwsw {rows.get('hwsw')}")
+    finally:
+        stop_examples(procs)
+    print(f"(c) the six examples [{smi}]")
+    return out
+
+
+def phase_train_families(seed, device, smi):
+    """Phase 14, in the order (a), (c), (b): the examples started ahead
+    overlap (a), and (b)'s timed steps run alone. Returns its result
+    dict."""
+    t0 = time.perf_counter()
+    out = {"card_vs_cpu": {}, "train": {}}
+    procs = start_examples_ahead()
+    try:
+        for name in FAMILY_ARCHS:
+            out["card_vs_cpu"][name] = fam_train_card_vs_cpu(name, seed,
+                                                             device)
+        out["a_s"] = time.perf_counter() - t0
+        out["examples"] = run_examples(smi, procs)
+    finally:
+        stop_examples(procs)
+    out["c_s"] = time.perf_counter() - t0 - out["a_s"]
+    for name in FAMILY_ARCHS:
+        out["train"][name] = train_family(name, seed, device, smi,
+                                          *FAM_TRAIN[name], "(b)")
+    out["seconds"] = time.perf_counter() - t0
+    out["b_s"] = out["seconds"] - out["a_s"] - out["c_s"]
+    print(f"phase 14 took {out['seconds']:.1f} s: (a) {out['a_s']:.1f}, "
+          f"(c) {out['c_s']:.1f} (the examples started with (a)), (b) "
+          f"{out['b_s']:.1f}")
     return out
 
 
@@ -4277,6 +4678,11 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None, help="also write results as JSON")
     args = ap.parse_args(argv)
 
+    # the caching allocator's segments grow in place: phase 14 (b) trains
+    # paligemma-3b whole in ~62 GB, and with fixed segments its AdamW
+    # update found 18 GB reserved but unallocated and ran out of memory
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4317,7 +4723,9 @@ def main(argv=None) -> int:
     region_result = phase_regions(args.seed, device, smi)
 
     # ---- 5d: the workload generators and the decode-serving engine --------
-    workload_result = phase_workloads(device, smi)
+    from repro_torch.graphupd.workload import GraphConfig
+    workload_result = phase_workloads(device, smi,
+                                      graph=GraphConfig(**WL_GRAPH))
 
     # ---- 5e: the closed-loop and elastic serving tiers ---------------------
     fleet_result = phase_fleet_serve(device, smi)
@@ -4354,6 +4762,9 @@ def main(argv=None) -> int:
 
     # ---- 13: the recurrent families served and trained at full width -------
     recurrent_result = phase_recurrent(args.seed, device, smi)
+
+    # ---- 14: the moe, vlm and audio families trained; the examples --------
+    family_train_result = phase_train_families(args.seed, device, smi)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(result, scan=scan_result, regions=region_result,
@@ -4364,6 +4775,7 @@ def main(argv=None) -> int:
                            freelist=fl_result, flash=fa_result,
                            train=train_result, families=family_result,
                            recurrent=recurrent_result,
+                           family_train=family_train_result,
                            gpu=smi,
                            kernels=kernels), f, indent=1)
     print(json.dumps({"kernels": kernels}))

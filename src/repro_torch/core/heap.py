@@ -40,6 +40,10 @@ OP_REALLOC = 3
 OP_CALLOC = 4
 OP_EPOCH_RESET = 5
 
+OP_NAMES = {OP_NOOP: "noop", OP_MALLOC: "malloc", OP_FREE: "free",
+            OP_REALLOC: "realloc", OP_CALLOC: "calloc",
+            OP_EPOCH_RESET: "epoch_reset"}
+
 NULL_PTR = -1  # free(-1) is benign, alloc failure returns it
 INT32_MAX = 2 ** 31 - 1
 

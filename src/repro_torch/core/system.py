@@ -58,6 +58,18 @@ from .heap import (OP_CALLOC, OP_FREE, OP_MALLOC, OP_NOOP, OP_REALLOC,
                    AllocRequest, AllocResponse)
 from .pim_malloc import INVALID, PimMallocConfig
 
+
+
+# The kinds have one source of truth, the protocol registry
+# (`heap.REGISTRY`, filled by the `@heap.register` decorators below):
+# `KINDS` is read from it on attribute access (PEP 562), as the
+# reference's is, with ``fused`` where the reference says ``pallas``.
+def __getattr__(name: str):
+    if name == "KINDS":
+        return heap.kinds()
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 # kinds whose backend metadata goes through the LRU buddy cache
 HW_CACHE_KINDS = ("hwsw", "fused", "sanitizer", "arena", "tlregion")
 # the backends an arena kind can spill to (the reference's "pallas" is the
@@ -260,6 +272,15 @@ class HeapTelemetry(NamedTuple):
     hwm_bytes: torch.Tensor
 
 
+def telemetry_init(device="cuda") -> HeapTelemetry:
+    """One core's zeroed counters (int32 scalars) on `device` (the card
+    unless the caller asks for the CPU)."""
+    device = _device.resolve(device)
+    return HeapTelemetry(
+        live_bytes=torch.zeros((), dtype=torch.int32, device=device),
+        hwm_bytes=torch.zeros((), dtype=torch.int32, device=device))
+
+
 def _advance_telemetry(t: HeapTelemetry, alloc_bytes, freed_bytes):
     live = t.live_bytes + alloc_bytes - freed_bytes
     return HeapTelemetry(live_bytes=live,
@@ -292,14 +313,13 @@ def system_init(cfg: SystemConfig, prepopulate: bool = True,
         # empty and refill from spills on demand
         from . import arena
         return _stack(arena.init_state(cfg, device=device), num_cores)
-    z = torch.zeros((), dtype=torch.int32, device=device)
     if cfg.kind == "strawman":
         alloc = strawman_init(cfg.straw, device=device)
     else:
         alloc = pim_malloc.init(cfg.pm, prepopulate=prepopulate,
                                 device=device)
     one = SystemState(alloc=alloc, cache=cfg.cache_init(device),
-                      telem=HeapTelemetry(live_bytes=z, hwm_bytes=z))
+                      telem=telemetry_init(device))
     if cfg.kind == "sanitizer":
         from . import sanitizer
         one = sanitizer.init_state(cfg, one)

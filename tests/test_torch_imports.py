@@ -1,6 +1,8 @@
 """The port stands alone: importing every module of `repro_torch`,
-chip_smoke.py and the tools (flash_mutants, heap_mutants, kernel_ab,
-scan_ops, serve_phase, warp_latency) pulls in neither JAX nor any module of the reference.
+chip_smoke.py, the tools (flash_mutants, heap_mutants, kernel_ab,
+scan_ops, serve_phase, warp_latency) and the six port examples
+(`examples/*_torch.py`) pulls in neither JAX nor any module of the
+reference.
 
 Among them the kernel entry point `kernels.ops` with its oracles
 `kernels.ref`, the modules of the buddy, freelist and flash-attention
@@ -12,7 +14,7 @@ elastic serving tiers, and the training path (the optimizer, compression,
 token stream, train and serve steps, fault-tolerant loop and trainer), and
 the moe, vlm and audio model families and the recurrent ones (ssm,
 hybrid); the registry lists all seven kinds and covers all six model
-families."""
+families; `repro_torch.core` re-exports the reference's names."""
 import subprocess
 import sys
 from pathlib import Path
@@ -20,7 +22,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 PROBE = """
-import importlib, pkgutil, sys
+import importlib, importlib.util, pkgutil, sys
 sys.path[:0] = [{src!r}, {root!r}, {tools!r}]
 import repro_torch
 for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
@@ -32,6 +34,16 @@ import kernel_ab
 import scan_ops
 import serve_phase
 import warp_latency
+for name in ("quickstart", "graph_update", "serve_paged", "serve_decode",
+             "serve_fleet", "train_lm"):
+    spec = importlib.util.spec_from_file_location(
+        name, {root!r} + f"/examples/{{name}}_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    assert callable(mod.main)
+from repro_torch.core import initAllocator, Allocator, MultiCoreHeap
+from repro_torch.core import system_init, malloc_round, system as _system
+assert _system.KINDS and callable(_system.telemetry_init)
 from repro_torch.kernels import ops
 from repro_torch.core import arena, design_space, heap, oracle, sanitizer
 from repro_torch.checkpoint import ckpt

@@ -17,7 +17,9 @@ classes are pinned. Phase 12's expected launch counts, kernel 4's bytes
 bound at each new head shape, its kernels-line entries and the expert-id
 comparison are pinned. Phase 13's FLOP counts of the recurrent families
 and the training cut's state plan are pinned; its logit check passes fp32
-rounding and fails a broken `rms_norm`.
+rounding and fails a broken `rms_norm`. Phase 14's FLOP counts of the moe,
+vlm and audio families and their training cuts are pinned; its gradient
+check fails a broken gate renormalisation and a broken `rms_norm`.
 """
 import dataclasses
 import sys
@@ -519,6 +521,52 @@ def test_train_flops_of_the_recurrent_families():
         8 * n_mm * 4 * 4000 + 4 * ssd * 24
 
 
+def test_train_flops_of_the_moe_vlm_and_audio_families():
+    """Phase 14 (b)'s MFU numerators, by hand at the reduced configs (B=2,
+    S=16): a MoE token runs top_k of the real experts (qwen2-moe's dummies
+    and the capacity's padded slots uncounted), the router and the shared
+    expert whole; the vlm's blocks run over the patch prefix and the text,
+    its tied head over the text; the audio's encoder and its decoder's
+    cross K / V over the frames, the rest over the text; the attention
+    products at their own lengths. granite's and the recurrent families'
+    counts stand as they were (the two tests above)."""
+    from repro_torch import configs
+    B, S = 2, 16
+    T = B * S
+    for name, over in (("olmoe_1b_7b", {}),
+                       ("qwen2_moe_a2_7b", dict(n_experts=6,
+                                                pad_experts_to=4))):
+        cfg = dataclasses.replace(configs.get(name).reduced(), **over)
+        L, D, V, H, KVH, hd = 2, 128, cfg.padded_vocab, 4, 2, 32
+        K, Fe, Fs = 2, 64, 64 * cfg.n_shared_experts
+        assert (cfg.padded_experts, cfg.top_k, cfg.expert_d_ff) == (8, K, Fe)
+        layer = 2 * D * H * hd + 2 * D * KVH * hd + D * 8 + 3 * D * Fe * K \
+            + 3 * D * Fs
+        n_mm = L * layer + D * V
+        flops, got = chip_smoke.train_flops(cfg, T, B, S)
+        assert got == n_mm, name
+        assert flops == 8 * n_mm * T + 4 * L * 4 * B * S * S * H * hd, name
+    vlm = configs.get("paligemma_3b").reduced()
+    L, D, V, H, KVH, hd, Fd, P = 2, 128, vlm.padded_vocab, 4, 1, 32, 256, 8
+    assert (vlm.n_kv_heads, vlm.n_patches, vlm.tie_embeddings) == (1, P, True)
+    layer = 2 * D * H * hd + 2 * D * KVH * hd + 3 * D * Fd   # geglu
+    flops, got = chip_smoke.train_flops(vlm, T, B, S)
+    assert got == L * layer + V * D
+    assert flops == 8 * (L * layer * B * (S + P) + V * D * T) \
+        + 4 * L * 4 * B * (S + P) ** 2 * H * hd
+    au = configs.get("whisper_small").reduced()
+    L, Le, F, V, KVH = 2, 2, 16, au.padded_vocab, 2
+    attn_q, attn_kv, mlp = 2 * D * H * hd, 2 * D * KVH * hd, 2 * D * Fd
+    assert (au.enc_layers, au.enc_frames) == (Le, F)
+    flops, got = chip_smoke.train_flops(au, T, B, S)
+    assert got == Le * (attn_q + attn_kv + mlp) \
+        + L * (2 * attn_q + 2 * attn_kv + mlp) + V * D
+    mm = Le * (attn_q + attn_kv + mlp) * B * F \
+        + L * ((2 * attn_q + attn_kv + mlp) * T + attn_kv * B * F) + V * D * T
+    seq = 4 * B * H * hd * (Le * F * F + L * (S * S + S * F))
+    assert flops == 8 * mm + 4 * seq
+
+
 def test_recurrent_training_plan_and_cuts():
     """(c)'s cuts: recurrentgemma at one group and its 2-layer tail, 2.175 B
     parameters whose state (bf16 params and grads, fp32 accumulator and
@@ -540,6 +588,56 @@ def test_recurrent_training_plan_and_cuts():
         chip_smoke.tree_bytes(ospec.m) + chip_smoke.tree_bytes(ospec.v)
     assert round(plan / 1e9, 1) == 34.8
     assert configs.get("mamba2_130m").n_layers == 24
+
+
+# ------------------------------------------------------------- phase 14 --
+def test_family_training_plan_and_cuts():
+    """Phase 14 (b)'s cuts at full width: olmoe 4 of 16 layers, qwen2-moe 2
+    of 24, paligemma and whisper whole, with their parameters and their
+    state (bf16 params and grads, the fp32 router's own, the fp32
+    accumulator and moments: ~16 B a parameter)."""
+    from repro_torch import configs
+    from repro_torch.launch import steps
+    from repro_torch.models import registry
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import tree_leaves
+    assert chip_smoke.FAM_TRAIN == {
+        "olmoe_1b_7b": (4, 2), "qwen2_moe_a2_7b": (2, 2),
+        "paligemma_3b": (18, 4), "whisper_small": (12, 2)}
+    want = {"olmoe_1b_7b": (1.885, 30.2), "qwen2_moe_a2_7b": (1.833, 29.3),
+            "paligemma_3b": (2.509, 40.1), "whisper_small": (0.238, 3.8)}
+    for name, (layers, _) in chip_smoke.FAM_TRAIN.items():
+        full = configs.get(name)
+        assert layers <= full.n_layers
+        cfg = dataclasses.replace(full, n_layers=layers)
+        spec = registry.param_specs(cfg)
+        n = sum(t.numel() for t in tree_leaves(spec))
+        ospec = steps.opt_state_specs(cfg, adamw.AdamWConfig())
+        plan = 2 * chip_smoke.tree_bytes(spec) + 4 * n + \
+            chip_smoke.tree_bytes(ospec.m) + chip_smoke.tree_bytes(ospec.v)
+        assert (round(n / 1e9, 3), round(plan / 1e9, 1)) == want[name], name
+
+
+@pytest.mark.parametrize("name", ["olmoe_1b_7b", "paligemma_3b"])
+def test_family_gradient_check_fails_the_broken_layer(name, monkeypatch):
+    """Phase 14 (a) on the reduced config, both sides on the CPU: the
+    reading is 0 and held; the MoE's gate renormalisation summed over the
+    wrong axis (the vlm's rms_norm without ``1 +``) fails the same
+    limits on every leaf."""
+    from repro_torch import configs
+    get = configs.get
+    monkeypatch.setattr(configs, "get", lambda n: get(n).reduced())
+    monkeypatch.setitem(chip_smoke.FAM_TRAIN_CHECK, name, 2)
+    monkeypatch.setattr(chip_smoke, "TRAIN_CHECK_TEXT", 16)
+    out = chip_smoke.fam_train_card_vs_cpu(name, 0, torch.device("cpu"))
+    held = out["grads"]["flat" if name == "olmoe_1b_7b" else "config"]
+    assert held["loss_rel"] == 0 and held["worst"] == 0 and held["flips"] == 0
+    assert held["mutant"] == ("route" if name == "olmoe_1b_7b" else
+                              "rms_norm")
+    assert held["mutant_loss_rel"] > chip_smoke.TRAIN_LOSS_TOL
+    assert held["mutant_leaves_past"] == held["leaves"]
+    if name == "olmoe_1b_7b":   # the routing of every layer was compared
+        assert held["routed"] == 2 * 16 * 2
 
 
 @pytest.mark.parametrize("name", ["mamba2_130m", "recurrentgemma_9b"])
