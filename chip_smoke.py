@@ -73,13 +73,14 @@ Phases (each raises on failure; nothing is caught and carried on):
  5d. the workload generators and the decode-serving engine (the heap
      kernel's launch counter set to 0 just before each path and read just
      after): (a) the four scenarios re-recorded at the reference's smoke
-     sizes on ``hwsw`` with the seven kinds' expect blocks attached, each
+     sizes on ``hwsw`` with the seven kinds' expect blocks attached (from
+     phases 4, 5b and 5c's replays of the committed tapes), each
      serialised byte-equal to its committed tape (in memory: nothing is
      written), and recorded again on ``fused``: the same requests (one
-     kernel launch per recorded round); (b) the scenarios at the
-     reference's ``record --full`` sizes on fused and on hwsw: equal tapes
-     apart from ``recorded_kind``, lint clean, their replays fused ==
-     hwsw in full with residual 0; (c) `graphupd.compare_all` at fig16's
+     kernel launch per recorded round); (b) the four scenarios at the
+     reference's ``record --full`` sizes on fused and on hwsw: equal tapes apart from
+     ``recorded_kind``, lint clean, their replays fused == hwsw in full
+     with residual 0; (c) `graphupd.compare_all` at fig16's
      smoke partition (96 nodes, 320 + 160 edges, 2 MiB heap; the paper's
      partition runs in phase 14 (c), through examples/graph_update_torch.py)
      on every kind, the fused row == the hwsw row; (d) DecodeServe at
@@ -97,7 +98,8 @@ Phases (each raises on failure; nothing is caught and carried on):
      C=128, T=16, 32 MiB heaps, 96 rounds, 2048 tenants, queue 4096, seed
      17), the heap kernel's launch counter set to 0 just before each path
      and read just after: (a) FleetServe at 128 arrivals a round
-     (``least_loaded``) on fused and hwsw in lockstep, bit for bit, the
+     (``least_loaded``) over 48 rounds on fused and hwsw in lockstep,
+     bit for bit, the
      reports equal on every field, residual 0, no drops, the kernel once
      a round; ms per round per kind (host clock), one profiled round's
      launches and busy share, the planner's host seconds; (b) the same at
@@ -257,15 +259,34 @@ Phases (each raises on failure; nothing is caught and carried on):
      MFU by `train_flops`, which counts a MoE token's routed experts at
      top_k of them and each block at the positions it runs over (held
      below 100 %); (c) the six examples (examples/*_torch.py) at their
-     default sizes, each in a subprocess with ``--device cuda``: exit 0,
-     the heap-step kernel launched by quickstart, graph_update (the
-     paper's partition on every kind; its fused row == its hwsw row),
-     serve_decode and serve_fleet (kind ``fused``), the paged-attention
-     kernel by serve_paged, train_lm's recovery drill; quickstart's and
-     graph_update's lines == their ``--device cpu`` runs' but the launch
-     count. The two CPU runs and graph_update's card run start with (a),
-     which is not timed, and the other card runs follow it; (b) runs
-     last, alone.
+     default sizes (graph_update at the paper's partition), each in a
+     subprocess with ``--device cuda``: exit 0, the heap-step kernel
+     launched by quickstart, graph_update (every kind; its fused row ==
+     its hwsw row), serve_decode and serve_fleet (kind ``fused``), the
+     paged-attention kernel by serve_paged, train_lm's recovery drill;
+     quickstart's and graph_update's lines == their ``--device cpu``
+     runs' but the launch count. The two CPU runs and graph_update's card
+     run start with (a), which is not timed, and the other card runs
+     follow it side by side; (b) runs last, alone;
+ 15. the analysis tooling, the kernel counters read before and after:
+     (a) `repro_torch.analysis.pimcheck --all-kinds --tapes --fixtures
+     --device cuda`: exit 0, the seven kinds at the three tiers (C=1,
+     C=2, R=2 x C=2; one mixed round each, recorded on the card) with 0
+     findings and 0 suppressed, ``fused``'s recordings one
+     ``repro_torch::heap_step`` node a round (checked through its plain
+     version's ops), each seeded-bug fixture flagged by its pass, the
+     four committed tapes lint-clean; and with the write-race pass left
+     out, exit 1 on exactly the fixture planted for it; (b) the dry-run
+     (`launch.dryrun.dryrun_cell`) of phase 11 (b)'s cell on fake CUDA
+     tensors: its argument bytes == the parameters, AdamW's m, v and
+     count and the batch of phase 11's specs, byte for byte; its peak
+     estimate between phase 11's state plan and phase 11's measured peak
+     of this run; its FLOPs within 5 % of `train_flops` less what the
+     checkpointed step does not run (`recompute_skipped`); a decode step
+     at phase 7's shape records 40 paged-attention nodes and launches
+     nothing; (c) the `dryrun --all` grid's decode cells (long_500k,
+     decode_32k) until GRID_BUDGET_S is spent, one line each (its prefill
+     and train cells take minutes each: tools/dryrun_grid.py).
 
 In the ``kernels`` record, each kernel's ``ms``, ``plain_ms``,
 ``bound_ms`` and ``library_ms`` are per launch: averaged over the launches
@@ -854,11 +875,13 @@ def run(seed, device, cores=CORES, rounds=ROUNDS):
 # ---------------------------------------------------------------------------
 # phase 5b: the scan-based design points
 # ---------------------------------------------------------------------------
-def phase_scan_tapes(device, fused_reports):
+def phase_scan_tapes(device, tape_reports):
     """(a) The committed tapes through strawman, sw and hwsw, each held to
     its own expect block, and `check_trace` over all four kinds (phase 4's
-    fused reports reused): lint clean, fused == hwsw in full, sw == hwsw
-    on the semantic fields, residual 0. Returns the rounds replayed."""
+    fused reports reused, ``tape_reports[tape]["fused"]``): lint clean,
+    fused == hwsw in full, sw == hwsw on the semantic fields, residual 0.
+    Adds each scan kind's report to `tape_reports`. Returns the rounds
+    replayed."""
     from repro_torch.workloads import replay, trace
     replayed = 0
     for name in TAPES:
@@ -869,7 +892,8 @@ def phase_scan_tapes(device, fused_reports):
             raise AssertionError(f"tape {name}: " + "; ".join(lint))
         results = {k: replay.replay(tape, k, device=device)[2]
                    for k in SCAN_KINDS}
-        results["fused"] = fused_reports[name]
+        results["fused"] = tape_reports[name]["fused"]
+        tape_reports[name].update(results)
         errs = replay.check_trace(tape, results=results)
         if errs:
             raise AssertionError(f"tape {name}: " + "; ".join(errs))
@@ -1070,7 +1094,7 @@ def print_times(label, times, prof, smi=None, ops=None,
     return out
 
 
-def phase_scan(seed, device, fused_reports, cores=CORES,
+def phase_scan(seed, device, tape_reports, cores=CORES,
                rounds=CHECK_ROUNDS, straw_rounds=STRAW_ROUNDS, smi=None):
     """Phase 5b: (a) the tapes through the scan-based kinds; (b) the first
     `rounds` rounds of phase 5's stream through hwsw, sw, strawman (its
@@ -1085,7 +1109,7 @@ def phase_scan(seed, device, fused_reports, cores=CORES,
     from repro_torch.core.heap import AllocResponse
     from repro_torch.kernels import heap_step
     t_phase = time.perf_counter()
-    replayed = phase_scan_tapes(device, fused_reports)
+    replayed = phase_scan_tapes(device, tape_reports)
     t_tapes = time.perf_counter() - t_phase
 
     t0 = time.perf_counter()
@@ -1173,11 +1197,12 @@ def spill_backend(req, resp):
     return int((~need.any(-1)).sum()), int(need.sum())
 
 
-def region_tapes(device):
+def region_tapes(device, tape_reports=None):
     """(a) The committed tapes through sanitizer, arena and tlregion, the
     region kinds over each spill backend: every report held to its kind's
     committed expect block (digests, ok ops, dropped frees, live and hwm
-    bytes) and residual 0. Returns (rounds replayed, heap-kernel
+    bytes) and residual 0; each kind's report over hwsw added to
+    `tape_reports` (if given). Returns (rounds replayed, heap-kernel
     launches)."""
     from repro_torch.kernels import heap_step
     from repro_torch.workloads import replay, trace
@@ -1197,6 +1222,8 @@ def region_tapes(device):
                 raise AssertionError(f"tape {name} {kind} over {inner}: "
                                      + "; ".join(errs))
             replayed += tape.rounds
+            if tape_reports is not None and inner == "hwsw":
+                tape_reports[name][kind] = rep
             digests.append(f"{kind}/{inner} {rep['digest_full'][:12]}...")
         print(f"tape {name}: " + ", ".join(digests) + " == their expect "
               "blocks (digests, ok ops, dropped frees, live and hwm "
@@ -1618,7 +1645,8 @@ def sharded_phase(seed, device, cores=CORES, ranks=SHARD_RANKS,
     return out
 
 
-def phase_regions(seed, device, smi, cores=CORES, rounds=CHECK_ROUNDS):
+def phase_regions(seed, device, smi, cores=CORES, rounds=CHECK_ROUNDS,
+                  tape_reports=None):
     """Phase 5c: (a) the tapes through sanitizer, arena and tlregion;
     (b) the arena session with resets over both spill backends; (c) the
     sanitizer's clean and misuse streams; (d) the sharded tier; (e) each
@@ -1631,7 +1659,7 @@ def phase_regions(seed, device, smi, cores=CORES, rounds=CHECK_ROUNDS):
         torch.cuda.reset_peak_memory_stats(device)
     t_phase = time.perf_counter()
     t0 = time.perf_counter()
-    replayed, tape_launches = region_tapes(device)
+    replayed, tape_launches = region_tapes(device, tape_reports)
     out = {"tape_rounds": replayed, "tape_launches": tape_launches,
            "tapes_s": time.perf_counter() - t0}
     print(f"tapes: {replayed} rounds replayed, the heap kernel launched "
@@ -1698,43 +1726,42 @@ def record_pair(name, device, smoke=True):
     return a, b, launches
 
 
-def wl_tapes(device):
+def wl_tapes(device, tape_reports):
     """(a) The four scenarios re-recorded at the reference's smoke sizes on
     hwsw, the seven kinds' expect blocks attached: byte-equal to the
     committed tapes (compared in memory); recorded again on fused: the
-    same tape. Returns {name: per-tape numbers}."""
+    same tape. The blocks come from `tape_reports` (phases 4, 5b and 5c's
+    replays of the committed tapes, {tape: {kind: report}}: the same
+    requests, so the same reports, if the recording is right). Returns
+    {name: per-tape numbers}."""
     from repro_torch.workloads import replay
     out = {}
     for name in TAPES:
         t0 = time.perf_counter()
         tape, _, rec_launches = record_pair(name, device)
-        launched = fresh_launches()
-        replay.attach_expectations(tape, device=device)
-        attach_launches = launched()
-        check_launches(device, f"{name}: attach_expectations",
-                       attach_launches, tape.rounds)
+        tape.expect = replay.expect_blocks(tape_reports[name])
         want = (ROOT / "benchmarks" / "tapes" / f"{name}.json").read_text()
         if tape_text(tape) != want:
             raise AssertionError(f"tape {name}: the port's recording is not "
                                  "byte-equal to the committed tape")
         out[name] = dict(rounds=tape.rounds, bytes=len(want),
                          fused_record_launches=rec_launches,
-                         attach_launches=attach_launches,
                          s=time.perf_counter() - t0)
         print(f"tape {name}: re-recorded on hwsw, {tape.rounds} rounds, the "
-              f"seven expect blocks attached: byte-equal to the committed "
-              f"tape ({len(want)} B); recorded on fused: the same tape, "
-              f"heap kernel launched {rec_launches} times by the recording "
-              f"and {attach_launches} by the expect blocks' fused replay "
-              f"[{out[name]['s']:.1f} s]")
+              f"seven expect blocks attached (from phases 4-5c's replays): "
+              f"byte-equal to the committed tape ({len(want)} B); recorded "
+              f"on fused: the same "
+              f"tape, heap kernel launched {rec_launches} times by the "
+              f"recording [{out[name]['s']:.1f} s]")
     return out
 
 
 def wl_full(device):
-    """(b) The scenarios at the reference's ``record --full`` sizes on
-    fused and on hwsw: equal apart from `recorded_kind`, lint clean, and
-    `check_trace` over the two kinds' replays: fused == hwsw in full,
-    residual 0. Returns {name: per-tape numbers}."""
+    """(b) The four scenarios at the reference's ``record
+    --full`` sizes on fused and on hwsw: equal apart from
+    `recorded_kind`, lint clean, and `check_trace` over the two kinds'
+    replays: fused == hwsw in full, residual 0. Returns {name: per-tape
+    numbers}."""
     from repro_torch.workloads import replay, trace
     out = {}
     for name in TAPES:
@@ -1993,9 +2020,10 @@ def wl_decode_fleet(device, smi, fleet=FLEET, rate=FLEET_RATE,
     return out
 
 
-def phase_workloads(device, smi, graph=None, full=True, small=FIG_DECODE,
-                    fleet=FLEET, fleet_cfg=paper_cfg):
-    """Phase 5d: (a) the tapes re-recorded byte for byte; (b) the
+def phase_workloads(device, smi, tape_reports, graph=None, full=True,
+                    small=FIG_DECODE, fleet=FLEET, fleet_cfg=paper_cfg):
+    """Phase 5d: (a) the tapes re-recorded byte for byte against
+    `tape_reports` (`wl_tapes`); (b) the
     full-scale recordings with parity (skipped with `full` False); (c)
     `compare_all` at the paper's partition (or `graph`); (d) DecodeServe at
     fig_decode's size; (e) DecodeServe on the paper's fleet. Each path
@@ -2003,7 +2031,7 @@ def phase_workloads(device, smi, graph=None, full=True, small=FIG_DECODE,
     just after. Returns the result dict."""
     t_phase = time.perf_counter()
     out = {}
-    for key, fn in (("tapes", lambda: wl_tapes(device)),
+    for key, fn in (("tapes", lambda: wl_tapes(device, tape_reports)),
                     ("full", lambda: wl_full(device) if full else None),
                     ("graph", lambda: wl_graph(device, graph)),
                     ("decode_small", lambda: wl_decode_small(device, small)),
@@ -2030,6 +2058,7 @@ def phase_workloads(device, smi, graph=None, full=True, small=FIG_DECODE,
 SERVE_FLEET = ((SHARD_RANKS, CORES // SHARD_RANKS, 16), dict(
     seed=17, rounds=96, num_tenants=2048, queue_cap=4096))
 SERVE_RATE = 128.0
+STEADY_ROUNDS = 48   # (a)'s session: the steady state, half of the plan's
 OVERLOAD_RATE = 512.0
 # the chaos session at the same fleet: one dominant tenant (zipf 2.2) homed
 # chunked onto rank 0, 2 kills, 2 stalls and a dropped round from seed 9,
@@ -2058,6 +2087,7 @@ def fs_steady(device, smi, fleet=SERVE_FLEET, rate=SERVE_RATE,
     seconds."""
     from repro_torch.launch.serve_fleet import FleetServe, TrafficConfig
     shape, traffic = fleet
+    traffic = dict(traffic, rounds=min(traffic["rounds"], STEADY_ROUNDS))
     tc = TrafficConfig(arrival_rate=rate, **traffic)
     engines = {k: FleetServe(cfg_of(k), shape[0], shape[1], traffic=tc,
                              placement="least_loaded", device=device)
@@ -4591,19 +4621,21 @@ def stop_examples(procs):
 
 def run_examples(smi, procs):
     """Phase 14 (c): each port example (examples/*_torch.py) at its
-    default size in a subprocess with ``--device cuda``, one after the
-    other but those of `procs` (`start_examples_ahead`), which are
-    collected last; quickstart and graph_update also with ``--device
-    cpu``. Every run must exit with 0; the card's runs of quickstart and
+    default size (graph_update at the paper's partition: the only run of
+    it at that size) in a subprocess with ``--device cuda``, all side by
+    side (those of `procs`, `start_examples_ahead`, collected last);
+    quickstart and graph_update also with ``--device cpu``. Every run must
+    exit with 0; the card's runs of quickstart and
     graph_update print the same lines as the CPU's but their last (the
     launch count), and graph_update's fused row == its hwsw row; the
     kernel each example's last line counts was launched (> 0)."""
     out = {}
     try:
-        for name, kernel in sorted(EXAMPLES,
-                                   key=lambda e: e[0] in EXAMPLES_AHEAD):
+        for name, _ in EXAMPLES:
             if (name, "cuda") not in procs:
                 procs[name, "cuda"] = start_example(name, "cuda")
+        for name, kernel in sorted(EXAMPLES,
+                                   key=lambda e: e[0] in EXAMPLES_AHEAD):
             proc, t0 = procs[name, "cuda"]
             lines = finish(proc, f"{name}_torch.py --device cuda")
             secs = time.perf_counter() - t0
@@ -4672,6 +4704,238 @@ def phase_train_families(seed, device, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the analysis tooling
+# ---------------------------------------------------------------------------
+FLOP_BAND = 0.05        # (b): |dry-run FLOPs / the step's count - 1|
+DECODE_CELL = ("decode_32k", SERVE_PROMPT + SERVE_STEPS + 128, SERVE_BATCH)
+GRID_BUDGET_S = 30.0    # (c): cells of `dryrun --all` run until this is spent
+# (c)'s shapes: a decode cell records 2-11k ops (~1-4 s); a prefill or
+# train cell up to ~10^6 (minutes), which tools/dryrun_grid.py runs
+GRID_ORDER = ("long_500k", "decode_32k")
+RACE_PASS = "write-race"
+
+
+def check_pimcheck(rc, report, kinds, tiers, card=True):
+    """(a): pimcheck's report on every kind at every tier, the fixtures and
+    the tapes: exit code 0, each kind/tier row with 0 findings and 0
+    suppressed, ``fused``'s rows one ``repro_torch::heap_step`` node (the
+    round's; none off the card, where the plain version runs), the other
+    kinds' none, each fixture flagged by its own pass, every tape clean.
+    Raises AssertionError."""
+    rows = report["rows"]
+    kt = [r for r in rows if not r["target"].startswith(("fixture:",
+                                                          "tape:"))]
+    fx = [r for r in rows if r["target"].startswith("fixture:")]
+    tapes = [r for r in rows if r["target"].startswith("tape:")]
+    errs = []
+    if rc != 0:
+        errs.append(f"exit code {rc}")
+    if sorted((r["target"], r["tier"]) for r in kt) != sorted(
+            (k, t) for k in kinds for t in tiers):
+        errs.append(f"kind/tier rows {[(r['target'], r['tier']) for r in kt]}")
+    for r in kt:
+        want = {"repro_torch::heap_step": 1} \
+            if r["target"] == "fused" and card else {}
+        if r["findings"] or r["suppressed"] or r["kernel_nodes"] != want:
+            errs.append(f"{r['target']}/{r['tier']}: findings "
+                        f"{r['findings']}, suppressed {r['suppressed']}, "
+                        f"kernel nodes {r['kernel_nodes']} (want {want})")
+    if len(fx) != 4 or not all(r["flagged_by_expected"] for r in fx):
+        errs.append(f"fixtures {fx}")
+    if len(tapes) != len(TAPES) or any(r["findings"] for r in tapes):
+        errs.append(f"tapes {tapes}")
+    if report["findings"] or report["fixture_failures"] or \
+            report["tape_errors"] or report["suppressed"]:
+        errs.append(f"report {report['findings'][:3]} "
+                    f"{report['fixture_failures']} {report['tape_errors']}")
+    if errs:
+        raise AssertionError("pimcheck (a): " + "; ".join(errs))
+
+
+def check_pass_disabled(rc, report, fixture="aliased_scatter"):
+    """(a): with the write-race pass left out, pimcheck misses exactly the
+    fixture planted for it and exits 1. Raises AssertionError."""
+    if rc != 1 or len(report["fixture_failures"]) != 1 or \
+            fixture not in report["fixture_failures"][0]:
+        raise AssertionError(f"pimcheck (a) without {RACE_PASS}: exit code "
+                             f"{rc}, misses {report['fixture_failures']}")
+
+
+def recompute_skipped(cfg, tokens):
+    """FLOPs `train_flops` counts that the dense family's step does not
+    run: the head is outside the checkpointed blocks (6 a parameter and
+    token, not 8), and a non-reentrant checkpoint stops its recompute at
+    the block's last saved activation, so each layer's down projection
+    (w2) is not run twice."""
+    from repro_torch.models import registry
+    spec = registry.param_specs(cfg)
+    head = spec.get("head", spec["embed"])
+    return 2 * tokens * (head.numel() + spec["blocks"]["w2"].numel())
+
+
+def check_dry_train(ana, want_args, plan, peak, want_flops):
+    """(b): the dry-run of phase 11's cell against phase 11's run: its
+    argument bytes == the step's inputs (parameters, AdamW's m, v and
+    count, the batch) byte for byte; plan <= its peak estimate <= the
+    measured peak; its FLOPs within FLOP_BAND of `want_flops`. Raises
+    AssertionError."""
+    errs = []
+    if ana["argument_bytes"] != want_args:
+        errs.append(f"argument bytes {ana['argument_bytes']} != "
+                    f"{want_args}")
+    if not plan <= ana["peak_bytes"] <= peak:
+        errs.append(f"peak estimate {ana['peak_bytes']} outside [{plan}, "
+                    f"{peak}]")
+    if not abs(ana["flops"] / want_flops - 1) <= FLOP_BAND:
+        errs.append(f"FLOPs {ana['flops']} vs {want_flops} (band "
+                    f"{FLOP_BAND})")
+    if errs:
+        raise AssertionError("dry-run (b): " + "; ".join(errs))
+
+
+def dry_line(res):
+    """One line for a dry-run cell."""
+    if res["status"] != "ok":
+        return (f"{res['arch']}/{res['shape']}/{res['mesh']}: "
+                f"{res['status']} ({res.get('reason', res.get('error'))})")
+    a, rf = res["op_analysis"], res["roofline"]
+    state = sum(res["state_bytes_per_device"].values())
+    return (f"{res['arch']}/{res['shape']}/{res['mesh']}: layers "
+            f"{res['layers']}, B={res['global_batch']}, S={res['seq_len']}"
+            + (f", n_micro {res['n_micro']}" if "n_micro" in res else "")
+            + f"; {a['flops'] / 1e12:.2f} TFLOP, memory "
+            f"{a['memory_bytes'] / 1e12:.3f} TB, peak {a['peak_bytes'] / 1e9:.2f}"
+            f" GB (fits one card: {res['fits_one_card']}), state per device "
+            f"{state / 1e9:.3f} GB; compute {rf['compute_s']:.4g} s, memory "
+            f"{rf['memory_s']:.4g} s ({rf['bottleneck']}); {a['n_ops']} ops "
+            f"recorded in {res['record_s']} s")
+
+
+def phase_analysis(seed, device, smi, train_result):
+    """Phase 15: (a) pimcheck on the card, and again without the
+    write-race pass; (b) the dry-run of phase 11's cell on fake tensors
+    against phase 11's plan, measured peak and FLOP count, and of a
+    decode step at phase 7's shape (one paged-attention node a layer, no
+    launch); (c) as many decode cells of the `dryrun --all` grid as fit
+    GRID_BUDGET_S. Returns its result dict."""
+    import tempfile
+
+    from repro_torch import configs
+    from repro_torch.analysis import pimcheck
+    from repro_torch.core import heap
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.models import registry
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import adamw
+    t_phase = time.perf_counter()
+    out = {}
+    where, card = device.type, device.type == "cuda"
+
+    # ---- (a) pimcheck ------------------------------------------------------
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        rep = os.path.join(tmp, "all.json")
+        rc = pimcheck.main(["--all-kinds", "--tapes", "--fixtures",
+                            "--device", where, "--json", rep])
+        with open(rep) as f:
+            report = json.load(f)
+        check_pimcheck(rc, report, heap.kinds(), pimcheck.TIERS, card)
+        keep = [p for p in pimcheck.PASS_NAMES if p != RACE_PASS]
+        rep2 = os.path.join(tmp, "no_race.json")
+        rc2 = pimcheck.main(["--fixtures", "--passes", ",".join(keep),
+                             "--device", where, "--json", rep2])
+        with open(rep2) as f:
+            report2 = json.load(f)
+        check_pass_disabled(rc2, report2)
+    ops = {f"{r['target']}/{r['tier']}": r["ops"] for r in report["rows"]
+           if "kernel_nodes" in r}
+    out["pimcheck"] = dict(rc=rc, rc_without_race=rc2, ops=ops,
+                           s=time.perf_counter() - t0)
+    print(f"(a) pimcheck --all-kinds --tapes --fixtures on the card: exit 0, "
+          f"{len(ops)} kind/tier rounds with 0 findings and 0 suppressed "
+          f"(ops recorded: " + ", ".join(f"{k} {v}" for k, v in ops.items())
+          + "), fused one repro_torch::heap_step node a round checked through"
+          f" its plain version, 4 fixtures each flagged by its pass, "
+          f"{len(TAPES)} tapes clean; without {RACE_PASS}: exit 1, "
+          f"{report2['fixture_failures'][0]!r} "
+          f"[{out['pimcheck']['s']:.1f} s]")
+
+    # ---- (b) the dry-run of phase 11's cell and a decode step --------------
+    t0 = time.perf_counter()
+    counters = kernel_counters()
+    before = {k: f.launches for k, f in counters.items()}
+    cell = ShapeConfig("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train")
+    res = dryrun.dryrun_cell(SERVE_ARCH, cell, n_micro=TRAIN_MICRO,
+                             layers=TRAIN_LAYERS, device=where,
+                             verbose=False)
+    ana = res["op_analysis"]
+    cfg = dataclasses.replace(configs.get(SERVE_ARCH), n_layers=TRAIN_LAYERS)
+    ospec = steps.opt_state_specs(cfg, adamw.AdamWConfig(
+        moment_dtype=cfg.opt_moment_dtype))
+    want_args = (tree_bytes(registry.param_specs(cfg)) + tree_bytes(
+        {"m": ospec.m, "v": ospec.v, "c": ospec.count})
+        + tree_bytes(registry.train_specs(cfg, cell)))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    tf, _ = train_flops(cfg, tokens, TRAIN_BATCH, TRAIN_SEQ)
+    skipped = recompute_skipped(cfg, tokens)
+    plan, peak = train_result["plan_bytes"], train_result["peak_bytes"]
+    check_dry_train(ana, want_args, plan, peak, tf - skipped)
+    shape = ShapeConfig(*DECODE_CELL[:2], DECODE_CELL[2], "decode")
+    dec = dryrun.dryrun_cell(SERVE_ARCH, shape, device=where,
+                             verbose=False)
+    nodes = dec["op_analysis"]["kernel_nodes"]
+    want_nodes = {"repro_torch::paged_attention":
+                  configs.get(SERVE_ARCH).n_layers} if card else {}
+    launched = {k: f.launches - before[k] for k, f in counters.items()}
+    if nodes != want_nodes or any(launched.values()):
+        raise AssertionError(f"dry-run (b) decode: kernel nodes {nodes} "
+                             f"(want {want_nodes}); launches {launched}")
+    out["dry_train"] = res
+    out["dry_decode"] = dec
+    out["b_s"] = time.perf_counter() - t0
+    print(f"(b) dry-run of phase 11's cell ({SERVE_ARCH}, {TRAIN_LAYERS} "
+          f"layers, {TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_MICRO} microbatches, "
+          f"fake CUDA tensors): argument bytes {ana['argument_bytes']} == "
+          f"parameters + m + v + count + batch (phase 11's plan "
+          f"{plan / 1e9:.2f} GB also holds the gradients and the fp32 "
+          f"accumulator the step makes); peak estimate "
+          f"{ana['peak_bytes'] / 1e9:.3f} GB in [plan {plan / 1e9:.3f}, "
+          f"measured {peak / 1e9:.3f}]; {ana['flops'] / 1e12:.3f} TFLOP = "
+          f"{ana['flops'] / (tf - skipped):.5f} x the step's count "
+          f"{(tf - skipped) / 1e12:.3f} (train_flops {tf / 1e12:.3f} less "
+          f"{skipped / 1e12:.3f} not recomputed; {ana['flops'] / tf:.4f} x "
+          f"train_flops), memory {ana['memory_bytes'] / 1e12:.3f} TB, "
+          f"{ana['n_ops']} ops in {res['record_s']} s; decode at phase 7's "
+          f"shape (B={shape.global_batch}, {shape.seq_len} positions): "
+          f"{nodes}, {dec['op_analysis']['flops'] / 1e9:.2f} GFLOP, peak "
+          f"{dec['op_analysis']['peak_bytes'] / 1e9:.2f} GB, 0 launches "
+          f"[{out['b_s']:.1f} s] [{smi}]")
+
+    # ---- (c) the grid, as far as the budget goes ---------------------------
+    t0 = time.perf_counter()
+    grid = [(a, n, mp) for n in GRID_ORDER for a in configs.ARCHS
+            for mp in (False, True)]
+    programs, cells = {}, []
+    for arch, name, mp in grid:
+        if time.perf_counter() - t0 > GRID_BUDGET_S:
+            break
+        cells.append(dryrun.dryrun_cell(arch, name, multi_pod=mp,
+                                        device=where, verbose=False,
+                                        _programs=programs))
+        print("(c) " + dry_line(cells[-1]))
+    out["grid"] = cells
+    out["c_s"] = time.perf_counter() - t0
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"(c) {len(cells)} of the grid's {len(grid)} decode cells in "
+          f"{out['c_s']:.1f} s (the whole grid of 80: "
+          f"tools/dryrun_grid.py)")
+    print(f"phase 15 took {out['seconds']:.1f} s: (a) "
+          f"{out['pimcheck']['s']:.1f}, (b) {out['b_s']:.1f}, (c) "
+          f"{out['c_s']:.1f} [{smi}]")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4716,15 +4980,19 @@ def main(argv=None) -> int:
     result, kernels = run(args.seed, device)
 
     # ---- 5b: the scan-based design points ----------------------------------
-    scan_result = phase_scan(args.seed, device,
-                             result.pop("fused_reports"), smi=smi)
+    # the committed tapes' replay reports, {tape: {kind: report}}: phase 4's
+    # fused ones, 5b's scan kinds', 5c's; 5d's re-recordings reuse them
+    tape_reports = {name: {"fused": rep}
+                    for name, rep in result.pop("fused_reports").items()}
+    scan_result = phase_scan(args.seed, device, tape_reports, smi=smi)
 
     # ---- 5c: region frontends, sanitizer, sharded tier ---------------------
-    region_result = phase_regions(args.seed, device, smi)
+    region_result = phase_regions(args.seed, device, smi,
+                                  tape_reports=tape_reports)
 
     # ---- 5d: the workload generators and the decode-serving engine --------
     from repro_torch.graphupd.workload import GraphConfig
-    workload_result = phase_workloads(device, smi,
+    workload_result = phase_workloads(device, smi, tape_reports,
                                       graph=GraphConfig(**WL_GRAPH))
 
     # ---- 5e: the closed-loop and elastic serving tiers ---------------------
@@ -4765,6 +5033,10 @@ def main(argv=None) -> int:
 
     # ---- 14: the moe, vlm and audio families trained; the examples --------
     family_train_result = phase_train_families(args.seed, device, smi)
+
+    # ---- 15: the analysis tooling ------------------------------------------
+    analysis_result = phase_analysis(args.seed, device, smi,
+                                     train_result["full"])
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(result, scan=scan_result, regions=region_result,
@@ -4776,6 +5048,7 @@ def main(argv=None) -> int:
                            train=train_result, families=family_result,
                            recurrent=recurrent_result,
                            family_train=family_train_result,
+                           analysis=analysis_result,
                            gpu=smi,
                            kernels=kernels), f, indent=1)
     print(json.dumps({"kernels": kernels}))

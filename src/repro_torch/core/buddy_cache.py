@@ -149,7 +149,7 @@ def simulate_traces(access_fn, cache_state, traces):
     valid = flat >= 0
     order = torch.argsort((~valid).to(torch.int8), dim=1, stable=True)
     nodes = torch.where(valid.gather(1, order), flat.gather(1, order), -1)
-    steps = int(valid.sum(1).max()) if flat.numel() else 0
+    steps = int(valid.sum(1, dtype=torch.int32).max()) if flat.numel() else 0
     hits, dram = [], []
     for k in range(steps):
         cache_state, hit, d = access_fn(cache_state, nodes[:, k])

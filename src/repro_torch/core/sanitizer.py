@@ -220,7 +220,7 @@ def step(cfg, st: SanitizerState, req: AllocRequest, inner_step):
     # ---- the wrapped hwsw round on the filtered request ------------------
     inner_req = AllocRequest(
         op=torch.where(passthrough, op,
-                       torch.where(evict, OP_FREE, 0)).to(torch.int32),
+                       torch.where(evict, OP_FREE, 0).to(torch.int32)),
         size=torch.where(passthrough, size, 0).to(torch.int32),
         ptr=torch.where(passthrough, ptr,
                         torch.where(evict, evicted, INVALID))

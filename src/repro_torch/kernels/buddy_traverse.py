@@ -29,6 +29,7 @@ import ctypes
 import torch
 
 from ..core import buddy
+from . import _library
 
 # the kernel holds a core's whole tree in shared memory (at most 227 KiB
 # a block on Hopper), so at most 2^15 nodes (128 KiB)
@@ -90,10 +91,12 @@ def buddy_alloc_batch_kernel(tree, sizes, *, heap_bytes: int,
     Cores proceed in parallel; within a core requests are served in order.
     Returns (offsets int32 [C, B], new tree int32 [C, n_nodes]).
 
-    For CUDA tensors this launches the hand-written kernel
-    (``csrc/buddy_traverse.cu``) on the current stream; a build or launch
-    error raises, as does a tree above `MAX_NODES` nodes. For CPU tensors
-    it runs `buddy_alloc_batch_plain`. Any other device raises.
+    For CUDA tensors this calls the operator
+    ``torch.ops.repro_torch.buddy_alloc_batch``, whose CUDA implementation
+    launches the hand-written kernel (``csrc/buddy_traverse.cu``) on the
+    current stream; a build or launch error raises, as does a tree above
+    `MAX_NODES` nodes. For CPU tensors it runs `buddy_alloc_batch_plain`.
+    Any other device raises.
     `buddy_alloc_batch_kernel.launches` counts kernel launches."""
     if tree.device.type == "cpu":
         return buddy_alloc_batch_plain(tree, sizes, heap_bytes=heap_bytes,
@@ -103,15 +106,21 @@ def buddy_alloc_batch_kernel(tree, sizes, *, heap_bytes: int,
                          f"{tree.device}")
     cfg = _cfg(tree, heap_bytes, min_block)
     _check(tree, sizes, cfg)
+    return _OP(tree, sizes, heap_bytes, min_block)
+
+
+def _launch(tree, sizes, heap_bytes, min_block):
+    """The operator's CUDA implementation: launch the kernel."""
     from . import _build
     lib = _build.load("buddy_traverse")
+    n_nodes = tree.shape[1]
     C, B = sizes.shape
     offs = torch.empty_like(sizes)
     new_tree = torch.empty_like(tree)
     vp = ctypes.c_void_p
     err = lib.buddy_traverse_launch(
         vp(tree.data_ptr()), vp(sizes.data_ptr()), vp(offs.data_ptr()),
-        vp(new_tree.data_ptr()), C, B, cfg.n_nodes, heap_bytes, min_block,
+        vp(new_tree.data_ptr()), C, B, n_nodes, heap_bytes, min_block,
         vp(torch.cuda.current_stream(tree.device).cuda_stream))
     if err != 0:
         raise RuntimeError(f"buddy_alloc_batch kernel launch failed: "
@@ -121,6 +130,12 @@ def buddy_alloc_batch_kernel(tree, sizes, *, heap_bytes: int,
 
 
 buddy_alloc_batch_kernel.launches = 0
+_OP = _library.define(
+    "buddy_alloc_batch", "(Tensor tree, Tensor sizes, int heap_bytes, "
+    "int min_block) -> (Tensor, Tensor)", _launch,
+    lambda tree, sizes, *_: (torch.empty_like(sizes), torch.empty_like(tree)),
+    lambda tree, sizes, heap_bytes, min_block: list(buddy_alloc_batch_plain(
+        tree, sizes, heap_bytes=heap_bytes, min_block=min_block)))
 
 
 # ---------------------------------------------------------------------------

@@ -25,6 +25,8 @@ import ctypes
 
 import torch
 
+from . import _library
+
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256
 ROW_BLOCK = 1024  # query rows per pass of the plain version
@@ -112,10 +114,11 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0,
     """Flash attention forward: q [B, S, H, hd]; k, v [B, T, KVH, hd] ->
     [B, S, H, hd] in q's dtype (H a multiple of KVH).
 
-    For CUDA tensors this launches the hand-written kernel
-    (``csrc/flash_attention.cu``) on the current stream: fp32 or bf16,
-    head_dim up to `MAX_HEAD_DIM`, contiguous inputs; anything else, or a
-    build or launch error, raises. For CPU tensors it runs
+    For CUDA tensors this calls the operator
+    ``torch.ops.repro_torch.flash_attention``, whose CUDA implementation
+    launches the hand-written kernel (``csrc/flash_attention.cu``) on the
+    current stream: fp32 or bf16, head_dim up to `MAX_HEAD_DIM`,
+    contiguous inputs; anything else, or a build or launch error, raises. For CPU tensors it runs
     `flash_attention_plain`. Any other device raises.
     `flash_attention_kernel.launches` counts kernel launches and
     `flash_attention_kernel.route_launches` those of each route in
@@ -128,6 +131,11 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0,
                          f"{q.device}")
     _validate(q, k, v, window, block_q, block_kv)
     _check(q, k, v)
+    return _OP(q, k, v, bool(causal), window)
+
+
+def _launch(q, k, v, causal, window):
+    """The operator's CUDA implementation: launch the kernel."""
     from . import _build
     lib = _build.load("flash_attention")
     B, S, H, hd = q.shape
@@ -138,7 +146,7 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0,
     err = lib.flash_attention_launch(
         vp(q.data_ptr()), vp(k.data_ptr()), vp(v.data_ptr()),
         vp(out.data_ptr()), _DTYPES[q.dtype], B, S, T, H, KVH, hd,
-        int(bool(causal)), window,
+        int(causal), window,
         vp(torch.cuda.current_stream(q.device).cuda_stream),
         ctypes.byref(route))
     if err != 0:
@@ -151,3 +159,8 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0,
 
 flash_attention_kernel.launches = 0
 flash_attention_kernel.route_launches = dict.fromkeys(ROUTES, 0)
+_OP = _library.define(
+    "flash_attention", "(Tensor q, Tensor k, Tensor v, bool causal, "
+    "int window) -> Tensor", _launch, lambda q, *_: torch.empty_like(q),
+    lambda q, k, v, causal, window: [flash_attention_plain(
+        q, k, v, causal=causal, window=window)])

@@ -27,6 +27,8 @@ import ctypes
 
 import torch
 
+from . import _library
+
 
 def _wrap_clamp(i, n: int):
     """A negative index counts from the end; then clamp into [0, n-1]."""
@@ -90,16 +92,23 @@ def freelist_op_kernel(stacks, counts, op, cls, ptr_in):
     stacks int32 [T, NC, CAP]; counts int32 [T, NC]; op / cls / ptr_in
     int32 [T]. Returns (ptr_out int32 [T], new counts, new stacks).
 
-    For CUDA tensors this launches the hand-written kernel
-    (``csrc/freelist.cu``) on the current stream; a build or launch error
-    raises. For CPU tensors it runs `freelist_op_plain`. Any other device
-    raises. `freelist_op_kernel.launches` counts kernel launches."""
+    For CUDA tensors this calls the operator
+    ``torch.ops.repro_torch.freelist_op``, whose CUDA implementation
+    launches the hand-written kernel (``csrc/freelist.cu``) on the current
+    stream; a build or launch error raises. For CPU tensors it runs
+    `freelist_op_plain`. Any other device raises.
+    `freelist_op_kernel.launches` counts kernel launches."""
     if stacks.device.type == "cpu":
         return freelist_op_plain(stacks, counts, op, cls, ptr_in)
     if stacks.device.type != "cuda":
         raise ValueError(f"freelist_op runs on cuda or cpu, not "
                          f"{stacks.device}")
     _check(stacks, counts, op, cls, ptr_in)
+    return _OP(stacks, counts, op, cls, ptr_in)
+
+
+def _launch(stacks, counts, op, cls, ptr_in):
+    """The operator's CUDA implementation: launch the kernel."""
     from . import _build
     lib = _build.load("freelist")
     T, NC, CAP = stacks.shape
@@ -119,6 +128,13 @@ def freelist_op_kernel(stacks, counts, op, cls, ptr_in):
 
 
 freelist_op_kernel.launches = 0
+_OP = _library.define(
+    "freelist_op", "(Tensor stacks, Tensor counts, Tensor op, Tensor cls, "
+    "Tensor ptr_in) -> (Tensor, Tensor, Tensor)", _launch,
+    lambda stacks, counts, op, *_: (torch.empty_like(op),
+                                    torch.empty_like(counts),
+                                    torch.empty_like(stacks)),
+    lambda *a: list(freelist_op_plain(*a)))
 
 
 def bulk_refill(stacks, counts, sel, cls, rows, new_counts):

@@ -34,6 +34,7 @@ import torch
 
 from ..core.buddy import ilog2, next_pow2
 from ..core.buddy_cache import NODES_PER_WORD
+from . import _library
 from . import buddy_traverse as bt
 from . import freelist as fl
 
@@ -508,10 +509,12 @@ def fused_heap_step(op, size, ptr, longest, counts, stacks, block_cls,
     caller that needs the previous state keeps a clone. (The reference is
     functional; a round touches O(T·depth) tree nodes, and copying ~0.7 MiB
     of state per core per round would move far more bytes than the round
-    needs.) For CUDA tensors this launches the hand-written kernel
-    (``csrc/heap_step.cu``, one CTA per core); for CPU tensors it runs the
-    plain `protocol_round` and copies its state back into the inputs. Any
-    other device raises. ``batch_refill`` (None: `batch_refill_default`)
+    needs.) For CUDA tensors this calls the operator
+    ``torch.ops.repro_torch.heap_step`` (its schema marks the nine state
+    tensors as written), whose CUDA implementation launches the
+    hand-written kernel (``csrc/heap_step.cu``, one CTA per core); for CPU
+    tensors it runs the plain `protocol_round` and copies its state back
+    into the inputs. Any other device raises. ``batch_refill`` (None: `batch_refill_default`)
     chooses between the run-carve and the serial walk inside either
     version; both give the same outputs. `fused_heap_step.launches` counts
     kernel launches.
@@ -542,8 +545,22 @@ def fused_heap_step(op, size, ptr, longest, counts, stacks, block_cls,
                            size=size, ptr=ptr), T=T, nb=nb, E=E)
     if stacks.shape[-1] < max_sub:
         raise ValueError("stack capacity below one carved block")
+    rec = _OP(op, size, ptr, *state, heap_bytes, block_bytes,
+              list(size_classes), bool(batch_refill))
+    return FusedRoundOut(*state, *rec.unbind(0))
+
+
+def _launch(op, size, ptr, longest, counts, stacks, block_cls, block_free,
+            big_log2, tags, last_used, clock, heap_bytes, block_bytes,
+            size_classes, batch_refill):
+    """The operator's CUDA implementation: launch the kernel, which updates
+    the nine state tensors in place; returns the records int32[22, C,
+    T]."""
     from . import _build
     lib = _build.load("heap_step")
+    C, T = op.shape
+    _, _, csizes = _launch_geometry(heap_bytes, block_bytes,
+                                    tuple(size_classes))
     rec = torch.empty((N_RECORDS, C, T), dtype=torch.int32, device=op.device)
     vp = ctypes.c_void_p
     err = lib.heap_step_launch(
@@ -552,13 +569,33 @@ def fused_heap_step(op, size, ptr, longest, counts, stacks, block_cls,
         vp(block_cls.data_ptr()), vp(block_free.data_ptr()),
         vp(big_log2.data_ptr()), vp(tags.data_ptr()),
         vp(last_used.data_ptr()), vp(clock.data_ptr()), csizes,
-        vp(rec.data_ptr()), C, T, len(csizes), stacks.shape[-1], E,
-        heap_bytes, block_bytes, int(bool(batch_refill)),
+        vp(rec.data_ptr()), C, T, len(csizes), stacks.shape[-1],
+        tags.shape[-1], heap_bytes, block_bytes, int(batch_refill),
         vp(torch.cuda.current_stream(op.device).cuda_stream))
     if err != 0:
         raise RuntimeError(f"heap_step kernel launch failed: CUDA error {err}")
     fused_heap_step.launches += 1
-    return FusedRoundOut(*state, *rec.unbind(0))
+    return rec
+
+
+def _plain(op, size, ptr, *rest):
+    """The operator's function in plain PyTorch: the nine new state values,
+    then the records stacked as the kernel returns them."""
+    state, (heap_bytes, block_bytes, size_classes, batch_refill) = \
+        rest[:N_STATE], rest[N_STATE:]
+    out = protocol_round(op, size, ptr, *state, heap_bytes=heap_bytes,
+                         block_bytes=block_bytes,
+                         size_classes=tuple(size_classes),
+                         batch_refill=batch_refill)
+    return [*out[:N_STATE], torch.stack(out[N_STATE:])]
 
 
 fused_heap_step.launches = 0
+_OP = _library.define(
+    "heap_step", "(Tensor op, Tensor size, Tensor ptr, Tensor(a!) longest, "
+    "Tensor(b!) counts, Tensor(c!) stacks, Tensor(d!) block_cls, "
+    "Tensor(e!) block_free, Tensor(f!) big_log2, Tensor(g!) tags, "
+    "Tensor(h!) last_used, Tensor(i!) clock, int heap_bytes, "
+    "int block_bytes, int[] size_classes, bool batch_refill) -> Tensor",
+    _launch, lambda op, *_: op.new_empty((N_RECORDS,) + tuple(op.shape)),
+    _plain)

@@ -16,7 +16,8 @@ dense gather and a masked softmax). `paged_attention` is the wrapper the
 serving path calls: for CUDA tensors it launches
 ``csrc/paged_attention.cu`` (each sequence split over `split_plan`'s CTAs,
 online softmax over each split's pages, then a merge of the splits), for
-CPU tensors it runs the plain version.
+CPU tensors it runs the plain version. The CUDA launch is the operator
+``repro_torch::paged_attention`` (`_library`).
 """
 from __future__ import annotations
 
@@ -24,6 +25,8 @@ import ctypes
 import functools
 
 import torch
+
+from . import _library
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -113,12 +116,14 @@ def paged_attention(q, k_pages, v_pages, page_table, seq_lens):
     page_table int32 [B, P] physical page ids (-1 = unmapped, reads page
     0); seq_lens int32 [B]. fp32 or bf16. Returns [B, H, D] in q's dtype.
 
-    For CUDA tensors this launches the hand-written kernels
-    (``csrc/paged_attention.cu``: the split kernel, then the merge unless
-    there is one split) on the current stream; a build or launch error
-    raises. For CPU tensors it runs `paged_attention_plain`. Any other
-    device raises. `paged_attention.launches` counts the calls that
-    launched the kernels."""
+    For CUDA tensors this calls the operator
+    ``torch.ops.repro_torch.paged_attention``, whose CUDA implementation
+    launches the hand-written kernels (``csrc/paged_attention.cu``: the
+    split kernel, then the merge unless there is one split) on the current
+    stream; a build or launch error raises. For CPU tensors it runs
+    `paged_attention_plain`. Any other device raises.
+    `paged_attention.launches` counts the calls that launched the
+    kernels."""
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pages, v_pages, page_table,
                                      seq_lens)
@@ -126,6 +131,11 @@ def paged_attention(q, k_pages, v_pages, page_table, seq_lens):
         raise ValueError(f"paged_attention runs on cuda or cpu, not "
                          f"{q.device}")
     _check(q, k_pages, v_pages, page_table, seq_lens)
+    return _OP(q, k_pages, v_pages, page_table, seq_lens)
+
+
+def _launch(q, k_pages, v_pages, page_table, seq_lens):
+    """The operator's CUDA implementation: launch the kernels."""
     from . import _build
     lib = _build.load("paged_attention")
     B, H, D = q.shape
@@ -157,3 +167,8 @@ def paged_attention(q, k_pages, v_pages, page_table, seq_lens):
 
 
 paged_attention.launches = 0
+_OP = _library.define(
+    "paged_attention", "(Tensor q, Tensor k_pages, Tensor v_pages, "
+    "Tensor page_table, Tensor seq_lens) -> Tensor", _launch,
+    lambda q, *_: torch.empty_like(q),
+    lambda *a: [paged_attention_plain(*a)])

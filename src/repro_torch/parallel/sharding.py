@@ -1,0 +1,222 @@
+"""Sharding rules as pure placement functions over a mesh shape.
+
+The port of `repro.parallel.sharding`'s rules. A mesh shape is an ordered
+mapping of axis names to sizes (``{"data": 16, "model": 16}``, or with a
+leading ``"pod"``); a placement is a tuple with, for each dimension of a
+leaf, the mesh axes it is split over (an axis name, a tuple of two or
+more) or ``None``: what a ``PartitionSpec`` holds. Nothing here touches
+a device. Turning placements into DTensor placements on a live ``DeviceMesh`` (the
+reference's ``named``) waits for the multi-GPU tier (ROADMAP A7).
+
+Conventions (divisibility-aware — falls back per dimension):
+  * batch/sequence data shard over all non-'model' axes ('pod','data').
+  * Megatron TP: qkv/up projections shard their output dim over 'model';
+    out/down projections shard their input dim.
+  * FSDP (>= ~8B params): every 2D+ weight additionally shards its largest
+    remaining dim over 'data' — optimizer state inherits param specs.
+  * MoE experts shard the expert dim over 'model' when divisible (olmoe:
+    64 % 16 == 0), else the expert-FF dim (qwen2: 60 experts).
+  * KV pools: batch dim over ('pod','data'); KV heads over 'model' when
+    divisible, else the sequence / page dim; never head_dim.
+"""
+from __future__ import annotations
+
+
+def dp_axes(mesh: dict) -> tuple:
+    return tuple(a for a in mesh if a != "model")
+
+
+def _axsize(mesh: dict, axes) -> int:
+    if axes is None:
+        return 1
+    if isinstance(axes, str):
+        axes = (axes,)
+    n = 1
+    for a in axes:
+        n *= mesh[a]
+    return n
+
+
+def _maybe(mesh, dim: int, axes):
+    """axes if dim divisible by their product else None."""
+    return axes if dim % _axsize(mesh, axes) == 0 else None
+
+
+# --------------------------------------------------------------------- params
+_COL = ("wq", "wk", "wv", "w1", "w3", "m1", "m3", "ws1", "ws3", "in_proj",
+        "wx", "wy", "wz", "wb", "wc", "wdt", "w_r", "w_i", "xwq", "xwk",
+        "xwv")   # shard LAST dim (wxi matches "wx")
+_ROW = ("wo", "w2", "m2", "ws2", "out_proj", "w_out", "xwo")  # shard dim -2
+_REPL = ("ln", "scale", "norm", "a_param", "a_log", "dt_bias", "d_skip",
+         "conv_w", "conv_b")
+
+
+def _param_spec(mesh: dict, name: str, shape, fsdp: bool) -> tuple:
+    nd = len(shape)
+    spec = [None] * nd
+    if name.startswith(_REPL) or nd <= 1:
+        return tuple(spec)
+    if name.startswith("embed"):
+        if shape[0] % _axsize(mesh, "model") == 0:
+            spec[0] = "model"
+        elif shape[1] % _axsize(mesh, "model") == 0:
+            spec[1] = "model"
+        if fsdp:
+            free = 1 if spec[0] == "model" else 0
+            if spec[free] is None and shape[free] % _axsize(mesh, "data") == 0:
+                spec[free] = "data"
+        return tuple(spec)
+    if name == "head":  # [D, V]
+        spec[-1] = _maybe(mesh, shape[-1], "model")
+        if fsdp and spec[-1] is not None:
+            spec[0] = _maybe(mesh, shape[0], "data")
+        return tuple(spec)
+    if name in ("we1", "we3"):       # [L, E, D, Fe]
+        if shape[1] % _axsize(mesh, "model") == 0:
+            spec[1] = "model"
+        else:
+            spec[3] = _maybe(mesh, shape[3], "model")
+        if fsdp:
+            spec[2] = _maybe(mesh, shape[2], "data")
+        return tuple(spec)
+    if name == "we2":                # [L, E, Fe, D]
+        if shape[1] % _axsize(mesh, "model") == 0:
+            spec[1] = "model"
+        else:
+            spec[2] = _maybe(mesh, shape[2], "model")
+        if fsdp:
+            spec[3] = _maybe(mesh, shape[3], "data")
+        return tuple(spec)
+    if name == "wr":                 # [L, D, E] router
+        spec[1] = _maybe(mesh, shape[1], "data") if fsdp else None
+        spec[2] = _maybe(mesh, shape[2], "model")
+        return tuple(spec)
+    if name in ("wq", "wk", "wv", "xwq", "xwk", "xwv") and nd == 4:
+        # attn_4d layout [L, D, H, hd]: the head dim over 'model' when
+        # divisible, else replicated; never head_dim
+        h_s = _maybe(mesh, shape[2], "model")
+        if fsdp:
+            spec[1] = _maybe(mesh, shape[1], "data")
+        spec[2] = h_s
+        return tuple(spec)
+    if name in ("wo", "xwo") and nd == 4:     # [L, H, hd, D]
+        h_s = _maybe(mesh, shape[1], "model")
+        if fsdp:
+            spec[3] = _maybe(mesh, shape[3], "data")
+        spec[1] = h_s
+        return tuple(spec)
+    if name.startswith(_COL):
+        spec[-1] = _maybe(mesh, shape[-1], "model")
+        if fsdp:
+            spec[-2] = _maybe(mesh, shape[-2], "data")
+        return tuple(spec)
+    if name.startswith(_ROW):
+        spec[-2] = _maybe(mesh, shape[-2], "model")
+        if fsdp:
+            spec[-1] = _maybe(mesh, shape[-1], "data")
+        return tuple(spec)
+    # default: try model on last dim
+    spec[-1] = _maybe(mesh, shape[-1], "model")
+    return tuple(spec)
+
+
+def _map(fn, tree, name=None):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v, k) for k, v in tree.items()}
+    return fn(name, tree)
+
+
+def param_specs(mesh: dict, shapes, fsdp: bool = False) -> dict:
+    """A tree of tensors (meta or real) -> a tree of placements (by leaf
+    name)."""
+    return _map(lambda name, t: _param_spec(mesh, name, tuple(t.shape),
+                                            fsdp), shapes)
+
+
+# ------------------------------------------------------------- batch & cache
+def _dp_if_div(mesh: dict, dim: int):
+    """Largest suffix of the dp axes that divides `dim` (b=1 ->
+    replicate); one axis as its name, as a PartitionSpec holds it."""
+    dp = dp_axes(mesh)
+    while dp and dim % _axsize(mesh, dp) != 0:
+        dp = dp[1:]
+    if not dp:
+        return None
+    return dp[0] if len(dp) == 1 else dp
+
+
+def batch_specs(mesh: dict, batch) -> dict:
+    return _map(lambda _, t: (_dp_if_div(mesh, t.shape[0]),)
+                + (None,) * (t.dim() - 1), batch)
+
+
+def _kv_tail_spec(mesh, kvh: int, seq: int):
+    """(KVH, seq) preference: KV heads over 'model' when divisible, else
+    the sequence / page dim; never head_dim."""
+    if kvh % _axsize(mesh, "model") == 0:
+        return "model", None
+    if seq % _axsize(mesh, "model") == 0:
+        return None, "model"
+    return None, None
+
+
+def cache_specs(mesh: dict, cache) -> dict:
+    out = {}
+    for name, s in cache.items():
+        shape = tuple(s.shape)
+        if name in ("k_pages", "v_pages"):   # [L, B, P, page, KVH, hd]
+            dp = _dp_if_div(mesh, shape[1])
+            kvh_s, seq_s = _kv_tail_spec(mesh, shape[4], shape[2])
+            out[name] = (None, dp, seq_s, None, kvh_s, None)
+        elif name in ("win_k", "win_v"):     # [G, B, win, KVH, hd]
+            dp = _dp_if_div(mesh, shape[1])
+            kvh_s, seq_s = _kv_tail_spec(mesh, shape[3], shape[2])
+            out[name] = (None, dp, seq_s, kvh_s, None)
+        elif name in ("enc_k", "enc_v"):     # [L, B, T, KVH, hd]
+            dp = _dp_if_div(mesh, shape[1])
+            kvh_s, seq_s = _kv_tail_spec(mesh, shape[3], shape[2])
+            out[name] = (None, dp, seq_s, kvh_s, None)
+        elif name == "ssm_state":            # [L, B, H, p, N]
+            dp = _dp_if_div(mesh, shape[1])
+            h_s = _maybe(mesh, shape[2], "model")
+            out[name] = (None, dp, h_s, None, None)
+        elif name == "conv_state":           # [L, B, W-1, C]
+            dp = _dp_if_div(mesh, shape[1])
+            out[name] = (None, dp, None, _maybe(mesh, shape[3], "model"))
+        elif name == "rg_state":             # [n_rec, B, D]
+            dp = _dp_if_div(mesh, shape[1])
+            out[name] = (None, dp, _maybe(mesh, shape[2], "model"))
+        elif name in ("page_table", "seq_lens"):
+            dp = _dp_if_div(mesh, shape[0])
+            out[name] = (dp,) + (None,) * (len(shape) - 1)
+        else:
+            out[name] = (None,) * len(shape)
+    return out
+
+
+def _sharded_bytes(tree, spec_tree, mesh: dict) -> int:
+    """Per-device bytes of a tree of tensors under its placements
+    (analytic: each leaf's bytes over the product of its axes' sizes)."""
+    leaves, specs = [], []
+
+    def walk(t, p):
+        if isinstance(t, dict):
+            for k in t:
+                walk(t[k], p[k])
+        else:
+            leaves.append(t)
+            specs.append(p)
+
+    walk(tree, spec_tree)
+    total = 0
+    for t, p in zip(leaves, specs):
+        n = t.numel()
+        div = 1
+        for axes in p:
+            if axes is None:
+                continue
+            for a in (axes if isinstance(axes, tuple) else (axes,)):
+                div *= mesh[a]
+        total += n * t.element_size() // max(div, 1)
+    return total
+

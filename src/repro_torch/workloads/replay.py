@@ -197,29 +197,30 @@ def check_trace(trace: Trace, kinds=None, results=None, device="cuda") -> list:
     return errs
 
 
-def attach_expectations(trace: Trace, kinds=None, device="cuda") -> dict:
-    """Replay on every kind (or `kinds`) and set `trace.expect` in the
-    reference's layout, in memory (nothing is written); returns the
-    reports.
+def expect_blocks(reports: dict) -> dict:
+    """A tape's ``expect`` from {kind: replay report}, in the reference's
+    layout: each kind's block under its `EXPECT_KEY`, the blocks sorted by
+    that key, whatever order `heap.kinds()` gives (the reference's
+    ``heap.kinds()`` is sorted), so a saved tape equals the reference's
+    byte for byte."""
+    return {EXPECT_KEY.get(kind, kind): {
+        "digest_full": rep["digest_full"],
+        "digest_sem": rep["digest_sem"],
+        "ok_ops": rep["ok_ops"],
+        "dropped_frees": rep["dropped_frees"],
+        "live_bytes": rep["telemetry"]["live_bytes"],
+        "hwm_bytes": rep["telemetry"]["hwm_bytes"],
+    } for kind, rep in sorted(reports.items(),
+                              key=lambda kv: EXPECT_KEY.get(kv[0], kv[0]))}
 
-    Each kind's block goes under its `EXPECT_KEY`, and the blocks are
-    inserted sorted by that key, whatever order `heap.kinds()` gives: the
-    reference's order (its ``heap.kinds()`` is sorted), so a saved tape
-    equals the reference's byte for byte."""
-    reports = {}
-    trace.expect = {}
-    results = replay_all_kinds(trace, kinds, device)
-    for kind in sorted(results, key=lambda k: EXPECT_KEY.get(k, k)):
-        rep = results[kind][1]
-        trace.expect[EXPECT_KEY.get(kind, kind)] = {
-            "digest_full": rep["digest_full"],
-            "digest_sem": rep["digest_sem"],
-            "ok_ops": rep["ok_ops"],
-            "dropped_frees": rep["dropped_frees"],
-            "live_bytes": rep["telemetry"]["live_bytes"],
-            "hwm_bytes": rep["telemetry"]["hwm_bytes"],
-        }
-        reports[kind] = rep
+
+def attach_expectations(trace: Trace, kinds=None, device="cuda") -> dict:
+    """Replay on every kind (or `kinds`) and set `trace.expect` to
+    `expect_blocks` of the reports, in memory (nothing is written);
+    returns the reports."""
+    reports = {k: rep for k, (_, rep) in
+               replay_all_kinds(trace, kinds, device).items()}
+    trace.expect = expect_blocks(reports)
     return reports
 
 

@@ -1,8 +1,8 @@
 """The port stands alone: importing every module of `repro_torch`,
-chip_smoke.py, the tools (flash_mutants, heap_mutants, kernel_ab,
-scan_ops, serve_phase, warp_latency) and the six port examples
-(`examples/*_torch.py`) pulls in neither JAX nor any module of the
-reference.
+chip_smoke.py, the tools (dryrun_grid, flash_mutants, heap_mutants,
+kernel_ab, op_cost, scan_ops, serve_phase, warp_latency) and the six port
+examples (`examples/*_torch.py`) pulls in neither JAX nor any module of
+the reference.
 
 Among them the kernel entry point `kernels.ops` with its oracles
 `kernels.ref`, the modules of the buddy, freelist and flash-attention
@@ -13,8 +13,11 @@ module of the reference), the checkpoint module, the closed-loop and
 elastic serving tiers, and the training path (the optimizer, compression,
 token stream, train and serve steps, fault-tolerant loop and trainer), and
 the moe, vlm and audio model families and the recurrent ones (ssm,
-hybrid); the registry lists all seven kinds and covers all six model
-families; `repro_torch.core` re-exports the reference's names."""
+hybrid), and the analysis tooling (pimcheck with its recorder, passes and
+fixtures, the op-level accounting, the dry-run, the mesh shapes and the
+sharding rules; the five kernels as `repro_torch` operators); the
+registry lists all seven kinds and covers all six model families;
+`repro_torch.core` re-exports the reference's names."""
 import subprocess
 import sys
 from pathlib import Path
@@ -34,6 +37,8 @@ import kernel_ab
 import scan_ops
 import serve_phase
 import warp_latency
+import op_cost
+import dryrun_grid
 for name in ("quickstart", "graph_update", "serve_paged", "serve_decode",
              "serve_fleet", "train_lm"):
     spec = importlib.util.spec_from_file_location(
@@ -67,6 +72,31 @@ assert all(callable(f) for f in (
     encdec.prefill, encdec.decode, ssm.ssd_chunked, ssm.ssd_recurrent_step,
     ssm.loss, ssm.prefill, ssm.decode, hybrid.associative_scan,
     hybrid.loss, hybrid.prefill, hybrid.decode))
+from repro_torch.analysis import (fixtures, passes, pimcheck,
+                                  sanitizer_report, trace_utils)
+from repro_torch.kernels import _library
+from repro_torch.launch import dryrun, mesh, op_analysis
+from repro_torch.parallel import sharding
+assert all(callable(f) for f in (
+    pimcheck.main, pimcheck.trace_kind, pimcheck.trace_fixture,
+    pimcheck.check_kinds, pimcheck.check_fixtures, pimcheck.lint_tapes,
+    pimcheck._step_summary, pimcheck._mixed_request, passes.run_passes,
+    trace_utils.record, trace_utils.iter_ops, trace_utils.producers,
+    trace_utils.forward_taint, trace_utils.derives_from, trace_utils.sig,
+    sanitizer_report, op_analysis.analyze, op_analysis.collective_schedule,
+    dryrun.main, dryrun.dryrun_cell, dryrun.input_specs, dryrun.save_result,
+    mesh.make_production_mesh, mesh.make_host_mesh, sharding.dp_axes,
+    sharding.param_specs, sharding.batch_specs, sharding.cache_specs,
+    sharding._sharded_bytes))
+assert pimcheck.TIERS == ("single", "vmap", "sharded")
+assert passes.PASS_NAMES == ("donation", "int-width", "index-bounds",
+                             "write-race") and passes.SUPPRESSIONS == ()
+assert sorted(fixtures.FIXTURES) == ["aliased_scatter", "dropped_donation",
+                                     "float_leak", "unclamped_index"]
+assert sorted(_library.PLAIN) == [
+    "repro_torch::buddy_alloc_batch", "repro_torch::flash_attention",
+    "repro_torch::freelist_op", "repro_torch::heap_step",
+    "repro_torch::paged_attention"]
 assert sorted(registry.FAMILY_MODULES) == ["audio", "dense", "hybrid", "moe",
                                            "ssm", "vlm"]
 assert heap.kinds() == ("strawman", "sw", "hwsw", "sanitizer", "arena",

@@ -20,6 +20,12 @@ and the training cut's state plan are pinned; its logit check passes fp32
 rounding and fails a broken `rms_norm`. Phase 14's FLOP counts of the moe,
 vlm and audio families and their training cuts are pinned; its gradient
 check fails a broken gate renormalisation and a broken `rms_norm`.
+Phase 15's pimcheck check fails a finding, a missed fixture, a missing
+tape, a kernel node that is not there, and a run whose missing fixture is
+not the write-race pass's; its dry-run check fails a peak above the
+measured one, argument bytes a leaf short and FLOPs outside the band, and
+the FLOPs it holds (train_flops less what the checkpointed step does not
+recompute) equal a reduced cut's dry-run to the unit.
 """
 import dataclasses
 import sys
@@ -666,3 +672,89 @@ def test_recurrent_check_passes_rounding_and_fails_a_broken_rms_norm(
     bad = [want[0].clone()]
     bad[0][0, 0] = float("nan")
     assert chip_smoke.logit_reading(bad, want, cfg.vocab) == float("inf")
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the analysis tooling
+# ---------------------------------------------------------------------------
+def _pimcheck_report(tmp_path, *argv):
+    import json
+    from repro_torch.analysis import pimcheck
+    out = tmp_path / f"r{len(list(tmp_path.iterdir()))}.json"
+    rc = pimcheck.main([*argv, "--device", "cpu", "--json", str(out)])
+    return rc, json.loads(out.read_text())
+
+
+def test_pimcheck_checks_fail_a_finding_a_missed_fixture_and_a_node(
+        tmp_path):
+    import copy
+    rc, rep = _pimcheck_report(tmp_path, "--kinds", "sw,fused", "--tiers",
+                               "single", "--tapes", "--fixtures")
+    kinds, tiers = ("sw", "fused"), ("single",)
+    chip_smoke.check_pimcheck(rc, rep, kinds, tiers, card=False)
+    with pytest.raises(AssertionError, match="heap_step"):
+        chip_smoke.check_pimcheck(rc, rep, kinds, tiers, card=True)
+    on_card = copy.deepcopy(rep)
+    next(r for r in on_card["rows"] if r["target"] == "fused")[
+        "kernel_nodes"] = {"repro_torch::heap_step": 1}
+    chip_smoke.check_pimcheck(rc, on_card, kinds, tiers, card=True)
+    for doctor in (
+            lambda r: r["rows"][0].update(findings=1),
+            lambda r: next(x for x in r["rows"] if x["target"].startswith(
+                "fixture:")).update(flagged_by_expected=False),
+            lambda r: next(x for x in r["rows"] if x["target"].startswith(
+                "tape:")).update(findings=2),
+            lambda r: r["rows"].pop(0)):
+        bad = copy.deepcopy(rep)
+        doctor(bad)
+        with pytest.raises(AssertionError, match="pimcheck"):
+            chip_smoke.check_pimcheck(rc, bad, kinds, tiers, card=False)
+    with pytest.raises(AssertionError, match="exit code 1"):
+        chip_smoke.check_pimcheck(1, rep, kinds, tiers, card=False)
+
+
+def test_pimcheck_check_fails_unless_the_race_pass_is_what_is_missing(
+        tmp_path):
+    from repro_torch.analysis import passes
+    keep = [p for p in passes.PASS_NAMES if p != chip_smoke.RACE_PASS]
+    rc, rep = _pimcheck_report(tmp_path, "--fixtures", "--passes",
+                               ",".join(keep))
+    chip_smoke.check_pass_disabled(rc, rep)
+    for argv in (("--fixtures",), ("--fixtures", "--passes", "donation")):
+        rc, rep = _pimcheck_report(tmp_path, *argv)
+        with pytest.raises(AssertionError, match="write-race"):
+            chip_smoke.check_pass_disabled(rc, rep)
+
+
+def test_dry_run_check_fails_a_high_peak_a_missing_leaf_and_flops():
+    """(b)'s check against phase 11: the dry-run's program FLOPs equal
+    train_flops less what the checkpointed step does not recompute, to the
+    unit, at a reduced granite cut; a peak above the measured one, argument
+    bytes one leaf short, and FLOPs outside the band fail."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    from repro_torch.models.config import ShapeConfig
+    cfg = dataclasses.replace(configs.get("granite_3_8b").reduced(),
+                              n_layers=2, remat=True, dtype="bfloat16")
+    B, S = 4, 64
+    ana, _ = dryrun.program(cfg, ShapeConfig("train_4k", S, B, "train"), 2,
+                            "cpu")
+    tf, _ = chip_smoke.train_flops(cfg, B * S, B, S)
+    want = tf - chip_smoke.recompute_skipped(cfg, B * S)
+    assert ana["flops"] == want < tf
+    plan, peak, args = 3 * ana["argument_bytes"] // 2, \
+        ana["peak_bytes"] + 1, ana["argument_bytes"]
+    chip_smoke.check_dry_train(ana, args, plan, peak, want)
+    leaf = cfg.d_model * 4  # one ln leaf of fp32
+    for bad, match in (
+            (dict(ana, peak_bytes=peak + 1), "peak"),
+            (dict(ana, argument_bytes=args - leaf), "argument"),
+            (dict(ana, flops=int(want * (1 + 1.01 * chip_smoke.FLOP_BAND))),
+             "FLOPs"),
+            (dict(ana, flops=int(want * (1 - 1.01 * chip_smoke.FLOP_BAND))),
+             "FLOPs")):
+        with pytest.raises(AssertionError, match=match):
+            chip_smoke.check_dry_train(bad, args, plan, peak, want)
+    with pytest.raises(AssertionError, match="peak"):
+        chip_smoke.check_dry_train(ana, args, ana["peak_bytes"] + 1,
+                                   peak, want)
