@@ -286,7 +286,38 @@ Phases (each raises on failure; nothing is caught and carried on):
      at phase 7's shape records 40 paged-attention nodes and launches
      nothing; (c) the `dryrun --all` grid's decode cells (long_500k,
      decode_32k) until GRID_BUDGET_S is spent, one line each (its prefill
-     and train cells take minutes each: tools/dryrun_grid.py).
+     and train cells take minutes each: tools/dryrun_grid.py);
+ 16. the heap fleet and sequence-parallel decode across processes
+     (`repro_torch.launch.mesh.spawn`; ``nccl`` where there is a card for
+     every process, ``gloo`` otherwise, its collectives staged through
+     the host; the backend and process counts printed; the kernels are
+     built before the processes start, and a process that fails fails
+     the phase): (a) phase 5e (a)'s steady FleetServe session on fused
+     over a rank mesh of 4 processes, one rank each == the same session
+     with ``mesh=False`` in this process, bit for bit: every process's
+     report, the gathered responses (every field) and the state leaves
+     of the ranks it holds (sha256 digests); each process's heap-step
+     launches (one a round), its ms a round and the share spent in the
+     response gather; then ShardedHeap(R=8, C=16) (2 ranks a process) and
+     ShardedHeap(R=2, C=64) (processes 2 and 3 hold none) == mesh=False
+     over 4 malloc / realloc / free rounds; (b) phase 5e (c)'s chaos
+     session snapshotted at round 48 on the mesh (process 0 writes the
+     one set of files) and finished with ``mesh=False`` here, and
+     snapshotted here and finished on the mesh: each == the uninterrupted
+     run, the heap step once a round on every process; (c) granite-3-8b
+     at full width (40 layers, bf16, flat attention weights made on each
+     process from ``--seed``) through `launch.serve.serve(mesh=)` on a
+     (data=1, model=2) mesh of 2 processes, 8 x 512 prompt tokens, 16
+     greedy decode steps, each process holding half of each sequence's
+     pages: paged attention launched 0 times there; against the same
+     greedy decode on one device (paged-attention kernel; its top-2 gaps
+     read from its logits), the mesh's decode fed the one-device tokens
+     picks the same token at every step but where the one-device gap is
+     below SEQPAR_BF16_GAP of max |logit| (each printed), and the
+     free-running decode (and `serve` on one device) first differs only
+     at such a step; ms a step and
+     the all-reduces' share; a 2-layer slice in fp32 with the config's
+     weights within SEQPAR_FP32_TOL of max |logit|, tokens equal.
 
 In the ``kernels`` record, each kernel's ``ms``, ``plain_ms``,
 ``bound_ms`` and ``library_ms`` are per launch: averaged over the launches
@@ -4936,6 +4967,608 @@ def phase_analysis(seed, device, smi, train_result):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the heap fleet and sequence-parallel decode across processes
+# ---------------------------------------------------------------------------
+MESH_PROCS = 4          # (a), (b): processes of the rank mesh
+MESH_SHARDS = ((8, 16), (2, 64))  # (a): ShardedHeap (R, C): 2 ranks a
+#                         process; 2 processes holding ranks and 2 none
+MESH_SHARD_ROUNDS = 4   # (a): malloc / realloc / free rounds of each
+SEQPAR_PROCS = 2        # (c): the ("data"=1, "model"=2) mesh
+SEQPAR_STEPS = 16       # (c): greedy decode steps after 8 x 512 prompts
+SEQPAR_BF16_GAP = 2e-2  # (c): a top-2 gap / max |logit| below it may flip
+# (c) decodes with flat attention weights (attn_4d off): under the
+# config's attn_4d init the softmax is one-hot and 40 layers amplify any
+# change of summation order, so that even the one-device kernel and plain
+# attention disagree on every token after the first decode step
+# (tools/seqpar_divergence.py)
+SEQPAR_CHECK = (2, 2, 256, 4)  # (c) fp32: layers, batch, prompt, steps
+SEQPAR_FP32_TOL = 1e-4  # (c) fp32: max |mesh - one device| / max |logit|
+def mesh_device():
+    """A spawned process's device: its current card."""
+    import torch
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def host_digest(x):
+    """sha256 of a tensor's bytes (on the host)."""
+    import hashlib
+    return hashlib.sha256(
+        x.detach().contiguous().cpu().view(-1).numpy().tobytes()).hexdigest()
+
+
+def resp_digests(resp):
+    return {f: host_digest(getattr(resp, f)) for f in resp._fields}
+
+
+def leaf_digests(tree, rows=None):
+    """Each state leaf's digest, of its rows `rows` (a slice) where given."""
+    from repro_torch import convert
+    return [host_digest(x if rows is None else x[rows])
+            for x in convert.leaves(tree)]
+
+
+def digests_equal(got, want, what):
+    if got != want:
+        bad = ([f for f in want if got.get(f) != want[f]]
+               if isinstance(want, dict) else
+               [i for i, (a, b) in enumerate(zip(got, want)) if a != b])
+        raise AssertionError(f"{what}: differs on {bad or 'length'}")
+
+
+def gather_timer(comm, name="all_gather"):
+    """Wrap `comm.<name>` to add its host seconds to a counter; returns
+    (the counter list, a restore function)."""
+    real = getattr(comm, name)
+    spent = [0.0]
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        out = real(*a, **kw)
+        spent[0] += time.perf_counter() - t0
+        return out
+
+    setattr(comm, name, timed)
+    return spent, lambda: setattr(comm, name, real)
+
+
+def mesh_fleet_session(mesh, device):
+    """(a): the paper's fleet (phase 5e (a)'s steady session) on kind
+    fused; returns the engine, plan, final state and responses."""
+    from repro_torch.launch.serve_fleet import FleetServe, TrafficConfig
+    shape, traffic = SERVE_FLEET
+    tc = TrafficConfig(arrival_rate=SERVE_RATE,
+                       **dict(traffic, rounds=STEADY_ROUNDS))
+    eng = FleetServe(paper_cfg("fused"), shape[0], shape[1], traffic=tc,
+                     placement="least_loaded", mesh=mesh, device=device)
+    plan = eng.plan()
+    return eng, plan
+
+
+def mesh_shard_sizes(seed, R, C, T):
+    import numpy as np
+    rng = np.random.default_rng(seed + R)
+    return rng.choice([16, 100, 256, 2048, 3000, 8192],
+                      (MESH_SHARD_ROUNDS, R, C, T)).astype(np.int32)
+
+
+def mesh_shard_session(h, sizes):
+    """(a): malloc, realloc (rolled sizes), free the survivors, a round
+    each row of `sizes`; the responses' digests."""
+    import numpy as np
+    import torch
+    out = []
+    for s in sizes:
+        ra = h.malloc(s)
+        rr = h.realloc(ra.ptr, np.roll(s, 1, axis=-1))
+        rf = h.free(torch.where(rr.ptr >= 0, rr.ptr, ra.ptr))
+        out += [resp_digests(r) for r in (ra, rr, rf)]
+    return out
+
+
+def mesh_chaos_engine(mesh, device):
+    """(b): phase 5e (c)'s chaos session on fused."""
+    from repro_torch.launch import elastic
+    from repro_torch.launch.serve_fleet import TrafficConfig
+    shape, traffic = SERVE_FLEET
+    tc = TrafficConfig(arrival_rate=SERVE_RATE, zipf_a=CHAOS_ZIPF, **traffic)
+    faults = elastic.FaultPlan.generate(rounds=tc.rounds, shape=shape,
+                                        **CHAOS_FAULTS)
+    return elastic.ElasticFleetServe(
+        paper_cfg("fused"), shape[0], shape[1], traffic=tc,
+        placement="chunked", mesh=mesh, device=device, faults=faults,
+        migration=elastic.MigrationConfig(**CHAOS_MIGRATION))
+
+
+def mesh_held(eng):
+    return None if eng.shard is None else (eng.shard.lo, eng.shard.hi)
+
+
+def mesh_fleet_worker(seed, snap_mesh, snap_fold):
+    """Phase 16 (a) and (b) on one process of the group: the fleet
+    session, the two ShardedHeaps and the chaos session snapshotted on
+    the mesh, then the one-device snapshot restored on it. Returns
+    digests, reports, launches and host times."""
+    import torch
+    from repro_torch.core import heap
+    from repro_torch.kernels import heap_step
+    from repro_torch.launch.serving import fleet_health
+    from repro_torch.parallel import comm
+    device = mesh_device()
+    spent, restore = gather_timer(comm)
+    out = {"rank": torch.distributed.get_rank()}
+    try:
+        eng, plan = mesh_fleet_session(None, device)
+        sync(device)
+        heap_step.fused_heap_step.launches = 0
+        spent[0] = 0.0
+        t0 = time.perf_counter()
+        state, resps = eng.run(plan)
+        sync(device)
+        run_s = time.perf_counter() - t0
+        R, C, _ = eng.shape
+        out["fleet"] = dict(
+            launches=heap_step.fused_heap_step.launches, run_s=run_s,
+            gather_s=spent[0], rounds=plan.rounds, held=mesh_held(eng),
+            report=eng.report(plan, resps, state),
+            health=fleet_health(eng.cfg, state, R, C, eng.shard),
+            resps=resp_digests(resps), state=leaf_digests(state))
+        del eng, state, resps
+        out["shards"] = {}
+        for R, C in MESH_SHARDS:
+            h = heap.ShardedHeap(paper_cfg("fused"), R, C, device=device)
+            got = mesh_shard_session(h, mesh_shard_sizes(
+                seed, R, C, h.num_threads))
+            out["shards"][R] = dict(held=mesh_held(h), resps=got,
+                                    state=leaf_digests(h.state))
+            del h
+        eng = mesh_chaos_engine(None, device)
+        heap_step.fused_heap_step.launches = 0
+        eng.start()
+        eng.run_until(SNAP_ROUND)
+        eng.snapshot(snap_mesh)
+        _, rep = eng.finish()
+        out["chaos"] = dict(report=rep, launches=heap_step.fused_heap_step
+                            .launches, held=mesh_held(eng),
+                            resps=resp_digests(eng._stacked()),
+                            state=leaf_digests(eng.state))
+        del eng
+        eng = mesh_chaos_engine(None, device).restore(snap_fold)
+        heap_step.fused_heap_step.launches = 0
+        _, rep = eng.finish()
+        out["restored"] = dict(report=rep, launches=heap_step.fused_heap_step
+                               .launches, held=mesh_held(eng),
+                               resps=resp_digests(eng._stacked()),
+                               state=leaf_digests(eng.state))
+    finally:
+        restore()
+    return out
+
+
+def check_mesh_fleet(got, want, what):
+    """Every process's report (and, where given, fleet health) == the
+    one-device session's, its responses (gathered) bit for bit, and the
+    state slice it holds bit for bit."""
+    for g in got:
+        if "health" in want and g.get("health") != want["health"]:
+            raise AssertionError(f"{what}: process {g['rank']}'s fleet "
+                                 f"health {g.get('health')} != "
+                                 f"{want['health']}")
+        if g["report"] != want["report"]:
+            bad = [k for k in want["report"]
+                   if g["report"].get(k) != want["report"][k]]
+            raise AssertionError(f"{what}: process {g['rank']}'s report "
+                                 f"differs on {bad}")
+        digests_equal(g["resps"], want["resps"],
+                      f"{what}: process {g['rank']}'s responses")
+        lo, hi = g["held"]
+        if hi > lo:
+            digests_equal(g["state"], want["state_rows"][(lo, hi)],
+                          f"{what}: process {g['rank']}'s ranks [{lo}, "
+                          f"{hi})")
+
+
+def one_device_fleet(seed, device, snap_fold, holds):
+    """The one-device (``mesh=False``) runs (a) and (b) are held to:
+    digests of responses and of the state rows each process holds
+    (`holds`: the (lo, hi) the rank mesh gives), the reports; the chaos
+    session is snapshotted at SNAP_ROUND into `snap_fold` on the way."""
+    from repro_torch.core import heap
+    from repro_torch.launch.serving import fleet_health
+    out = {}
+    eng, plan = mesh_fleet_session(False, device)
+    t0 = time.perf_counter()
+    state, resps = eng.run(plan)
+    sync(device)
+    out["fleet_s"] = time.perf_counter() - t0
+    R, C, _ = eng.shape
+    out["fleet"] = dict(report=eng.report(plan, resps, state),
+                        health=fleet_health(eng.cfg, state, R, C),
+                        resps=resp_digests(resps), state_rows={
+                            h: leaf_digests(state, slice(*h))
+                            for h in holds[0]})
+    del eng, state, resps
+    out["shards"] = {}
+    for (R, C), hs in zip(MESH_SHARDS, holds[1:]):
+        h = heap.ShardedHeap(paper_cfg("fused"), R, C, mesh=False,
+                             device=device)
+        out["shards"][R] = dict(
+            resps=mesh_shard_session(h, mesh_shard_sizes(
+                seed, R, C, h.num_threads)),
+            state_rows={x: leaf_digests(h.state, slice(*x)) for x in hs})
+        del h
+    eng = mesh_chaos_engine(False, device)
+    eng.start()
+    eng.run_until(SNAP_ROUND)
+    eng.snapshot(snap_fold)
+    _, rep = eng.finish()
+    out["chaos"] = dict(report=rep, resps=resp_digests(eng._stacked()),
+                        state_rows={h: leaf_digests(eng.state, slice(*h))
+                                    for h in holds[0]})
+    return out
+
+
+def seqpar_worker(seed, feed):
+    """Phase 16 (c) on one process of the ("data"=1, "model"=2) mesh:
+    granite-3-8b at full width in bf16 through `launch.serve.serve(...,
+    mesh=)`, the same decode fed `feed` (the one-device run's tokens,
+    [B, steps]), then the fp32 slice. Returns tokens, logits and host
+    times."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import serve as srv
+    from repro_torch.models import registry
+    from repro_torch.parallel import comm
+    device = mesh_device()
+    mesh = mesh_mod.make_host_mesh(model=SEQPAR_PROCS, live=True)
+    cfg = dataclasses.replace(configs.get(SERVE_ARCH), attn_4d=False)
+    params = registry.init(cfg, seed=seed, device=device)
+    spent, restore = gather_timer(comm, "all_reduce")
+    try:
+        pa.paged_attention.launches = 0
+        res = srv.serve(cfg, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+                        decode_steps=SEQPAR_STEPS, impl="kernel", seed=seed,
+                        device=device, params=params, mesh=mesh)
+        sync(device)
+    finally:
+        restore()
+    out = dict(rank=torch.distributed.get_rank(), tokens=res.tokens.cpu(),
+               timings=res.timings,
+               pa_launches=pa.paged_attention.launches,
+               collective_s=spent[0], pages=res.cache["k_pages"].shape[2],
+               finite=res.logits_finite,
+               peak=torch.cuda.max_memory_allocated(device)
+               if device.type == "cuda" else 0)
+    del res
+    prompts = registry.make_prompts(cfg, SERVE_BATCH, SERVE_PROMPT,
+                                    seed=seed, device=device)
+    forced = seqpar_steps(cfg, params, prompts, SEQPAR_STEPS, device, mesh,
+                          feed=feed)
+    out["forced"] = torch.stack([x.argmax(-1) for x in forced], 1).cpu()
+    del params, forced
+    L, B, S, steps = SEQPAR_CHECK
+    fcfg = dataclasses.replace(configs.get(SERVE_ARCH), n_layers=L,
+                               dtype="float32")
+    out["fp32"] = seqpar_fp32_logits(fcfg, seed, device, mesh)
+    return out
+
+
+def seqpar_steps(cfg, params, tokens, steps, device, mesh, feed=None):
+    """Prefill `tokens` [B, S] and `steps` decode steps of `cfg` on
+    `device`, on `mesh` or (None) on one device, each step fed column i of
+    `feed` ([B, steps]) or its greedy token; every step's logits (on the
+    device). The page table rotates each sequence's pages, so that a
+    token's page may lie on either process of the mesh."""
+    import torch
+    from repro_torch.models import transformer
+    B, S = tokens.shape
+    kw = {} if mesh is None else {"mesh": mesh}
+    cache = transformer.init_cache(cfg, B, S + steps + cfg.page_size,
+                                   device=device, **kw)
+    P = cache["page_table"].shape[1]
+    cache["page_table"] = ((torch.arange(P, device=device)[None, :]
+                            + torch.arange(B, device=device)[:, None] + 1)
+                           % P).to(torch.int32)
+    cache, logits = transformer.prefill(cfg, params, {"tokens": tokens},
+                                        cache, **kw)
+    out = [logits]
+    for i in range(steps):
+        tok = (torch.argmax(logits, -1) if feed is None
+               else feed[:, i].to(device))
+        cache, logits = transformer.decode(cfg, params, cache,
+                                           {"tokens": tok[:, None]}, **kw)
+        out.append(logits)
+    return out
+
+
+def seqpar_fp32_logits(cfg, seed, device, mesh):
+    """(c) fp32: prefill + greedy decode steps of `cfg` (a slice of the
+    full-width model) from `seed`'s weights and prompts, on `mesh` or on
+    one device; every step's logits on the host."""
+    from repro_torch.models import registry
+    _, B, S, steps = SEQPAR_CHECK
+    params = registry.init(cfg, seed=seed, device=device)
+    tokens = registry.make_prompts(cfg, B, S, seed=seed, device=device)
+    return [x.cpu() for x in seqpar_steps(cfg, params, tokens, steps, device,
+                                          mesh)]
+
+
+def top2_gaps(logits, vocab):
+    """[steps + 1, B]: each step's gap between a request's two largest
+    logits over its largest |logit|, on the real vocabulary (`logits`: a
+    list of [B, padded vocab], one a step); on the host."""
+    import torch
+    out = []
+    for x in logits:
+        real = x[:, :vocab].float()
+        top = torch.topk(real, 2, dim=-1).values
+        out.append((top[:, 0] - top[:, 1]) / real.abs().amax(-1))
+    return torch.stack(out).cpu()
+
+
+def near_tie_errors(got, want, gaps, what, free=False):
+    """Greedy tokens `got` against `want` ([B, steps + 1]): a token may
+    differ only where the one-device top-2 gap (`gaps`, [steps + 1, B])
+    is below SEQPAR_BF16_GAP. With `free` (a free-running decode) a
+    request is compared up to its first difference, after which its
+    history is another one. Returns (errors, differing (request, step))."""
+    errs, diff = [], []
+    for b in range(want.shape[0]):
+        for k in range(want.shape[1]):
+            if int(got[b, k]) == int(want[b, k]):
+                continue
+            diff.append((b, k))
+            if float(gaps[k, b]) >= SEQPAR_BF16_GAP:
+                errs.append(f"{what}: request {b} step {k} token "
+                            f"{int(got[b, k])} != {int(want[b, k])} at a top-2 "
+                            f"gap of {float(gaps[k, b]):.3g}")
+            if free:
+                break
+    return errs, diff
+
+
+def phase_mesh(seed, device, smi):
+    """Phase 16: (a) the paper's fleet on a rank mesh of MESH_PROCS
+    processes on kind fused == the one-device session bit for bit, and
+    ShardedHeaps of 8 and 2 ranks; (b) the chaos session snapshotted on
+    the mesh and finished on one device, and the other way round, each
+    == the uninterrupted run; (c) granite-3-8b at full width decoded on
+    a ("data"=1, "model"=2) mesh == on one device, and its fp32 slice
+    within SEQPAR_FP32_TOL. Returns the result dict."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import serve as srv
+    from repro_torch.models import registry
+    from repro_torch.parallel.meshctx import rank_mesh_size
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= MESH_PROCS else "gloo"
+    backend_c = "nccl" if cards >= SEQPAR_PROCS else "gloo"
+    where = (f"{backend} on one card: collectives staged through the host, "
+             f"not NVLink" if backend == "gloo" and cards == 1 else backend)
+    print(f"phase 16: {cards} card(s); (a)-(b) {MESH_PROCS} processes, "
+          f"backend {backend}; (c) {SEQPAR_PROCS} processes, backend "
+          f"{backend_c} [{smi}]")
+    out = dict(cards=cards, backend=backend, backend_decode=backend_c,
+               procs=MESH_PROCS, procs_decode=SEQPAR_PROCS)
+
+    def holds(R):
+        d = rank_mesh_size(R, MESH_PROCS)
+        return [(i * (R // d), (i + 1) * (R // d)) for i in range(d)]
+
+    # ---- (a), (b): the rank mesh ---------------------------------------
+    R = SERVE_FLEET[0][0]
+    snap_mesh = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    snap_fold = tempfile.mkdtemp(prefix="chip_smoke_fold_")
+    try:
+        t0 = time.perf_counter()
+        want = one_device_fleet(seed, device, snap_fold, [holds(R)] + [
+            holds(r) for r, _ in MESH_SHARDS])
+        one_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        got = mesh_mod.spawn(mesh_fleet_worker, MESH_PROCS, seed, snap_mesh,
+                             snap_fold, backend=backend, timeout=900)
+        spawn_s = time.perf_counter() - t0
+        rounds = STEADY_ROUNDS
+        card = device.type == "cuda"  # off the card the plain version runs
+        check_mesh_fleet([dict(g["fleet"], rank=g["rank"]) for g in got],
+                         want["fleet"], "(a) fleet")
+        launches = [g["fleet"]["launches"] for g in got]
+        if launches != [rounds if card and g["fleet"]["held"][1] >
+                        g["fleet"]["held"][0] else 0 for g in got]:
+            raise AssertionError(f"(a) fleet: heap-step launches by process "
+                                 f"{launches}, expected {rounds} each")
+        for (r, c), hs in zip(MESH_SHARDS, [holds(r) for r, _ in
+                                            MESH_SHARDS]):
+            w = want["shards"][r]
+            for g in got:
+                x = g["shards"][r]
+                if x["resps"] != w["resps"]:
+                    raise AssertionError(f"(a) ShardedHeap R={r}: process "
+                                         f"{g['rank']}'s responses differ")
+                lo, hi = x["held"]
+                want_held = hs[g["rank"]] if g["rank"] < len(hs) else (0, 0)
+                if (lo, hi) != want_held:
+                    raise AssertionError(f"(a) R={r}: process {g['rank']} "
+                                         f"holds [{lo}, {hi})")
+                if hi > lo:
+                    digests_equal(x["state"], w["state_rows"][(lo, hi)],
+                                  f"(a) R={r} process {g['rank']}")
+        ms = [1e3 * g["fleet"]["run_s"] / rounds for g in got]
+        share = [g["fleet"]["gather_s"] / g["fleet"]["run_s"] for g in got]
+        out["fleet"] = dict(launches=launches, ms_per_round=ms,
+                            gather_share=share,
+                            one_device_ms_per_round=1e3 * want["fleet_s"]
+                            / rounds)
+        print(f"(a) the paper's fleet (R={R} x C={SERVE_FLEET[0][1]} x "
+              f"T={SERVE_FLEET[0][2]}, {rounds} rounds at {SERVE_RATE} "
+              f"arrivals, least_loaded, fused) on a rank mesh of "
+              f"{MESH_PROCS} processes == mesh=False in this process: every "
+              f"process's report and fleet health, every response field "
+              f"(latency_cyc and backend_cyc bitwise) and the state leaves "
+              f"of the ranks it holds, residual {want['fleet']['report']['conservation_residual']}"
+              f"; heap-step launches by process {launches}; ms a round by "
+              f"process " + ", ".join(f"{x:.3f}" for x in ms) + " (one "
+              f"device: " f"{out['fleet']['one_device_ms_per_round']:.3f}); "
+              f"share in the response gather " + ", ".join(
+                  f"{100 * x:.1f} %" for x in share)
+              + f" [{where}; {smi}]")
+        print("(a) ShardedHeap on the mesh == mesh=False, responses and "
+              "state slices: " + "; ".join(
+                  f"R={r} x C={c}, ranks held " + str(
+                      [g["shards"][r]["held"] for g in got])
+                  for r, c in MESH_SHARDS))
+        # ---- (b) snapshots across the mesh -----------------------------
+        chaos_r = want["chaos"]["report"]["rounds"]
+        for key, n in (("chaos", chaos_r), ("restored", chaos_r - SNAP_ROUND)):
+            check_mesh_fleet([dict(g[key], rank=g["rank"]) for g in got],
+                             want["chaos"], f"(b) {key}")
+            bad = [g["rank"] for g in got
+                   if g[key]["launches"] != (n if card else 0)]
+            if bad:
+                raise AssertionError(f"(b) {key}: processes {bad} did not "
+                                     f"launch the heap step {n} times")
+        eng = mesh_chaos_engine(False, device).restore(snap_mesh)
+        _, rep = eng.finish()
+        if rep != want["chaos"]["report"]:
+            raise AssertionError("(b) the mesh's snapshot finished on one "
+                                 "device: report differs")
+        digests_equal(resp_digests(eng._stacked()), want["chaos"]["resps"],
+                      "(b) the mesh's snapshot finished on one device")
+        for h, d in want["chaos"]["state_rows"].items():
+            digests_equal(leaf_digests(eng.state, slice(*h)), d,
+                          f"(b) mesh snapshot, ranks {h}")
+        nbytes = sum(f.stat().st_size for f in Path(snap_mesh).rglob("*")
+                     if f.is_file())
+        rep = want["chaos"]["report"]
+        print(f"(b) the chaos session ({chaos_r} rounds, kills "
+              f"{[ev['core'] for ev in rep['kills']]}, "
+              f"{len(rep['migrations'])} migrations) snapshotted at round "
+              f"{SNAP_ROUND} on the mesh ({nbytes} B, written by process 0) "
+              f"and finished on one device, and snapshotted on one device "
+              f"and finished on the mesh: each == the uninterrupted run "
+              f"(report, responses, state); heap-step launches by process "
+              f"{[g['chaos']['launches'] for g in got]} and "
+              f"{[g['restored']['launches'] for g in got]}")
+        out.update(one_device_s=one_s, spawn_s=spawn_s, snapshot_bytes=nbytes)
+        del eng, got, want
+    finally:
+        shutil.rmtree(snap_mesh, ignore_errors=True)
+        shutil.rmtree(snap_fold, ignore_errors=True)
+
+    # ---- (c) granite-3-8b decoded on a ("data", "model") mesh ---------------
+    cfg = dataclasses.replace(configs.get(SERVE_ARCH), attn_4d=False)
+    t0 = time.perf_counter()
+    params = registry.init(cfg, seed=seed, device=device)
+    pa.paged_attention.launches = 0
+    one = srv.serve(cfg, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+                    decode_steps=SEQPAR_STEPS, impl="kernel", seed=seed,
+                    device=device, params=params)
+    sync(device)
+    one_pa = pa.paged_attention.launches
+    one_ms = 1e3 * one.timings["decode_s"] / SEQPAR_STEPS
+    serve_tokens = one.tokens.cpu()
+    del one
+    # the reference the mesh is held to: the same greedy decode on one
+    # device through the kernel, each step's logits kept for its gaps
+    prompts = registry.make_prompts(cfg, SERVE_BATCH, SERVE_PROMPT,
+                                    seed=seed, device=device)
+    ref = seqpar_steps(dataclasses.replace(cfg, attend_impl="kernel"),
+                       params, prompts, SEQPAR_STEPS, device, None)
+    one_tokens = torch.stack([x.argmax(-1) for x in ref], 1).cpu()
+    one_gaps = top2_gaps(ref, cfg.vocab)
+    del params, prompts, ref
+    L, B, S, steps = SEQPAR_CHECK
+    fcfg = dataclasses.replace(configs.get(SERVE_ARCH), n_layers=L,
+                               dtype="float32")
+    one_fp32 = seqpar_fp32_logits(fcfg, seed, device, None)
+    torch.cuda.empty_cache()
+    one_c_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = mesh_mod.spawn(seqpar_worker, SEQPAR_PROCS, seed,
+                         one_tokens[:, :SEQPAR_STEPS], backend=backend_c,
+                         timeout=900)
+    spawn_c_s = time.perf_counter() - t0
+    P = -(-(SERVE_PROMPT + SEQPAR_STEPS + cfg.page_size) // cfg.page_size)
+    errs, _ = near_tie_errors(serve_tokens, one_tokens, one_gaps,
+                              "(c) one-device serve", free=True)
+    forced_diff, free_diff = [], []
+    for g in got:
+        e, d = near_tie_errors(g["forced"], one_tokens, one_gaps,
+                               f"(c) process {g['rank']} fed")
+        errs += e
+        forced_diff.append(d)
+        e, d = near_tie_errors(g["tokens"], one_tokens, one_gaps,
+                               f"(c) process {g['rank']} free", free=True)
+        errs += e
+        free_diff.append(d)
+        if g["pa_launches"] or not g["finite"] or \
+                g["pages"] != P // SEQPAR_PROCS:
+            errs.append(f"(c) process {g['rank']}: {g['pa_launches']} "
+                        f"paged-attention launches (want 0), finite "
+                        f"{g['finite']}, {g['pages']} pages of {P}")
+    if any(not torch.equal(g["tokens"], got[0]["tokens"]) for g in got):
+        errs.append("(c) the processes' tokens differ")
+    if errs:
+        raise AssertionError("; ".join(errs))
+    near = [(k, b, float(one_gaps[k, b])) for k in range(one_gaps.shape[0])
+            for b in range(one_gaps.shape[1])
+            if float(one_gaps[k, b]) < SEQPAR_BF16_GAP]
+    worst, V, same = 0.0, cfg.vocab, True  # padded columns hold -1e30
+    for g in got:
+        for a, w in zip(g["fp32"], one_fp32):
+            a, w = a[:, :V], w[:, :V]
+            worst = max(worst, float((a - w).abs().max() / w.abs().max()))
+            same &= torch.equal(a.argmax(-1), w.argmax(-1))
+    if not worst <= SEQPAR_FP32_TOL:
+        raise AssertionError(f"(c) fp32: max |mesh - one device| / max "
+                             f"|logit| = {worst:.3g} > {SEQPAR_FP32_TOL}")
+    if not same:
+        raise AssertionError("(c) fp32: the mesh's greedy tokens differ")
+    ms = [1e3 * g["timings"]["decode_s"] / SEQPAR_STEPS for g in got]
+    share = [g["collective_s"] / g["timings"]["decode_s"] for g in got]
+    n_tok = one_tokens.numel()
+    out["decode"] = dict(ms_per_step=ms, one_device_ms_per_step=one_ms,
+                         collective_share=share, near_ties=near,
+                         forced_diff=forced_diff[0], free_diff=free_diff[0],
+                         fp32_err=worst, one_device_pa_launches=one_pa,
+                         peak_bytes=[g["peak"] for g in got],
+                         one_device_s=one_c_s, spawn_s=spawn_c_s)
+    print(f"(c) {SERVE_ARCH} at full width ({cfg.n_layers} layers, "
+          f"{cfg.dtype}, flat attention weights from --seed on each "
+          f"process), "
+          f"{SERVE_BATCH} x {SERVE_PROMPT} prompt tokens, {SEQPAR_STEPS} "
+          f"decode steps through launch.serve.serve(mesh=) on a (data=1, "
+          f"model={SEQPAR_PROCS}) mesh, each process {P // SEQPAR_PROCS} of "
+          f"{P} pages a sequence, 0 paged-attention launches; against the "
+          f"one-device decode (paged-attention kernel, {one_pa} launches): "
+          f"fed the same tokens, {n_tok - len(forced_diff[0])} of {n_tok} "
+          f"greedy tokens equal, the others {forced_diff[0]} (request, "
+          f"step) at near-ties; free-running, first differences "
+          f"{free_diff[0] or 'none'}; (step, request, top-2 gap) below "
+          f"{SEQPAR_BF16_GAP} of max |logit|: "
+          + (", ".join(f"({k}, {b}, {x:.3g})" for k, b, x in near) or "none")
+          + "; ms a step by process " + ", ".join(f"{x:.2f}" for x in ms)
+          + f" (one device {one_ms:.2f}); share in the all-reduces "
+          + ", ".join(f"{100 * x:.1f} %" for x in share)
+          + f"; fp32 {L} layers (the config's attn_4d weights), B={B}, {S} "
+          f"tokens, {steps} steps: max "
+          f"|mesh - one device| / max |logit| {worst:.3g} (limit "
+          f"{SEQPAR_FP32_TOL}), tokens equal [{where}; {smi}]")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 16 took {out['seconds']:.1f} s: (a)-(b) one device "
+          f"{out['one_device_s']:.1f} s, spawned {out['spawn_s']:.1f} s; (c) "
+          f"one device {one_c_s:.1f} s, spawned {spawn_c_s:.1f} s [{smi}]")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4957,6 +5590,7 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     device = torch.device("cuda", 0)
+    t_main = time.perf_counter()
 
     # ---- 1: versions and the card -----------------------------------------
     smi = subprocess.run(
@@ -5037,6 +5671,10 @@ def main(argv=None) -> int:
     # ---- 15: the analysis tooling ------------------------------------------
     analysis_result = phase_analysis(args.seed, device, smi,
                                      train_result["full"])
+
+    # ---- 16: the heap fleet and seqpar decode across processes -------------
+    mesh_result = phase_mesh(args.seed, device, smi)
+    print(f"chip_smoke took {time.perf_counter() - t_main:.1f} s [{smi}]")
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(result, scan=scan_result, regions=region_result,
@@ -5048,7 +5686,7 @@ def main(argv=None) -> int:
                            train=train_result, families=family_result,
                            recurrent=recurrent_result,
                            family_train=family_train_result,
-                           analysis=analysis_result,
+                           analysis=analysis_result, mesh=mesh_result,
                            gpu=smi,
                            kernels=kernels), f, indent=1)
     print(json.dumps({"kernels": kernels}))

@@ -24,7 +24,10 @@ reference's own restore fails on it: ``astype`` has no cast from
 ``|V2``). NumPy has no bfloat16 without ml_dtypes, which the port does not
 use, so the bits travel as int16. Each restored leaf goes to the device of
 its template leaf (a tensor's device; the host, as a numpy array, for a
-numpy template), or to ``device`` where one is given: the one-device
+numpy template), or to ``device`` where one is given. ``shardings``
+(a tree matching the template whose leaves are ``slice`` objects, or
+None) keeps only those rows of a saved leaf's first axis: a process of a
+rank mesh restores its own slice of a whole-fleet checkpoint, the
 counterpart of the reference's re-placement under new shardings.
 """
 from __future__ import annotations
@@ -196,14 +199,21 @@ def latest_step(ckpt_dir: str):
     return max(steps) if steps else None
 
 
-def restore(tree_like, step: int, ckpt_dir: str, device=None):
+def restore(tree_like, step: int, ckpt_dir: str, device=None,
+            shardings=None):
     """Restore into the structure of `tree_like`, whose leaves (tensors or
     numpy arrays) give each leaf's shape, dtype and device. With
-    ``device`` every leaf comes back as a tensor on it."""
+    ``device`` every leaf comes back as a tensor on it. With
+    ``shardings`` (a matching tree of ``slice`` leaves; a missing or None
+    leaf is whole) a leaf is the rows of the saved array its slice
+    selects, and the template's shape is that of the slice."""
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
+    rows = _flatten(shardings) if shardings is not None else {}
     with np.load(os.path.join(path, "leaves.npz")) as data:
         def leaf(key, like):
             arr = data[key]
+            if rows.get(key) is not None:
+                arr = np.ascontiguousarray(arr[rows[key]])
             if tuple(arr.shape) != tuple(like.shape):
                 raise ValueError(f"shape mismatch restoring {key!r}: saved "
                                  f"{tuple(arr.shape)}, wanted "

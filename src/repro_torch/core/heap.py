@@ -22,7 +22,10 @@ Three tiers serve the protocol: `step` on ``[C, T]`` requests,
 `MultiCoreHeap` (C cores behind one entry point) and `ShardedHeap` (R
 ranks of C cores, ``[R, C, T]`` requests). On one device the rank axis is
 a batch axis folded onto the core axis, which is exact because cores are
-independent.
+independent. On a 1-D rank `DeviceMesh` of processes (`RankShard`) each
+process holds and steps its own slice of the ranks and the responses are
+gathered over the mesh: the paper's PIM-Metadata / PIM-Executed placement
+at fleet scale, where no metadata crosses a core or a rank.
 """
 from __future__ import annotations
 
@@ -30,8 +33,10 @@ import functools
 from typing import Callable, NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from .. import device as _device
+from ..parallel import comm
 
 OP_NOOP = 0
 OP_MALLOC = 1
@@ -353,39 +358,181 @@ def sharded_step(cfg, states, requests: AllocRequest):
     return _unfold(states, R, C), _unfold(resp, R, C)
 
 
-def sharded_inner(cfg, mesh=None):
-    """The fleet round's step fn([R, C]-state, [R, C, T]-request) and its
-    mesh: ``(sharded_step bound to cfg, None)``. ``mesh`` None or False
-    both mean this one-device path; a mesh of devices raises, since the
-    multi-GPU tier is not ported yet."""
-    if mesh is not None and mesh is not False:
-        raise NotImplementedError(
-            "ShardedHeap over a device mesh: multi-GPU not ported yet "
-            "(pass mesh=None or mesh=False for the one-device rank axis)")
-    return functools.partial(sharded_step, cfg), None
+def sharded_inner(cfg, num_ranks: int, mesh=None, axis_name: str = "ranks"):
+    """The fleet round's step fn(state, [R, C, T]-request) and its mesh.
+
+    ``mesh=None`` builds `repro_torch.parallel.meshctx.make_rank_mesh`
+    over the process group (``False`` without one, or in a world of one
+    process); ``mesh=False`` is the one-device fold, ``(sharded_step bound
+    to cfg, None)``; a 1-D `DeviceMesh` of processes is used as given
+    (its one axis is the rank axis, whatever `axis_name` says): fn then
+    takes this process's ``[R/d, C, ...]`` state slice and the global
+    request and returns the slice and the global response
+    (`RankShard.step`). Anything else raises, and so does a mesh whose
+    size does not divide `num_ranks`."""
+    inner = functools.partial(sharded_step, cfg)
+    if mesh is None:
+        from ..parallel.meshctx import make_rank_mesh
+        mesh = make_rank_mesh(num_ranks, axis_name)
+    if mesh is False:
+        return inner, None
+    return functools.partial(RankShard(mesh, num_ranks).step, inner), mesh
+
+
+_RESP_DTYPES = (torch.int32, torch.bool, torch.int32, torch.bool,
+                torch.float32, torch.float32, torch.int32, torch.int32,
+                torch.int32)
+
+
+def _pack(resp: AllocResponse) -> torch.Tensor:
+    """The response's nine fields as one int32 tensor ``[9, ...]`` (bools
+    as 0 / 1, float32 by their bits), so a round gathers in one call."""
+    return torch.stack([x.view(torch.int32) if x.dtype == torch.float32
+                        else x.to(torch.int32) for x in resp])
+
+
+def _unpack(x: torch.Tensor) -> AllocResponse:
+    return AllocResponse(*(
+        v.view(torch.float32) if dt == torch.float32
+        else v != 0 if dt == torch.bool else v
+        for v, dt in zip(x.unbind(0), _RESP_DTYPES)))
+
+
+class RankShard:
+    """A fleet's R ranks on a 1-D rank `DeviceMesh` of d processes.
+
+    Mesh position i (global rank ``mesh.mesh[i]``) holds ranks
+    ``[i * R/d, (i + 1) * R/d)``: its state is that ``[R/d, C, ...]``
+    slice. A process of the world outside the mesh holds no ranks (a
+    ``[0, C, ...]`` state, never stepped) and still receives every
+    gathered result. The gathers run over the whole process group
+    (`repro_torch.parallel.comm`), each process sending ``R/d`` rows
+    (zeros from a process without ranks) and keeping the mesh members'
+    rows in mesh order."""
+
+    def __init__(self, mesh, num_ranks: int):
+        from torch.distributed.device_mesh import DeviceMesh
+        if not isinstance(mesh, DeviceMesh) or mesh.ndim != 1:
+            raise TypeError(
+                f"mesh must be None, False or a 1-D DeviceMesh of "
+                f"processes (the multi-GPU rank axis), got {mesh!r}")
+        d = mesh.size()
+        if num_ranks % d:
+            raise ValueError(
+                f"num_ranks={num_ranks} not divisible by mesh axis "
+                f"{mesh.mesh_dim_names[0]}={d}")
+        self.mesh = mesh
+        self.num_ranks = num_ranks
+        self.per = num_ranks // d
+        self.members = [int(r) for r in mesh.mesh.reshape(-1).tolist()]
+        coord = mesh.get_coordinate()
+        self.lo = 0 if coord is None else coord[0] * self.per
+        self.count = 0 if coord is None else self.per
+
+    @property
+    def hi(self) -> int:
+        return self.lo + self.count
+
+    def local(self, tree):
+        """Every leaf's rows ``[lo, hi)``: this process's ranks (a view)."""
+        if isinstance(tree, torch.Tensor):
+            return tree[self.lo:self.hi]
+        return type(tree)(*(self.local(x) for x in tree))
+
+    def init(self, cfg, num_cores: int, prepopulate: bool = True,
+             device="cuda"):
+        """This process's slice of a fresh fleet (`sharded_init`)."""
+        return sharded_init(cfg, self.count, num_cores,
+                            prepopulate=prepopulate, device=device)
+
+    def _rows(self, x, axis: int = 0):
+        """`x` padded with zeros to ``per`` rows along `axis` where this
+        process holds no ranks, as the gathers send it."""
+        if self.count:
+            return x
+        shape = list(x.shape)
+        shape[axis] = self.per
+        return torch.zeros(shape, dtype=x.dtype, device=x.device)
+
+    def gather(self, tree, axis: int = 0):
+        """Every leaf of a rank-sharded tree whole (``[R, ...]`` along
+        `axis`), on every process."""
+        if isinstance(tree, torch.Tensor):
+            x = self._rows(tree, axis)
+            wire = x.to(torch.uint8) if x.dtype == torch.bool else x
+            parts = comm.all_gather(wire)
+            out = torch.cat([parts[m] for m in self.members], dim=axis)
+            return out.bool() if x.dtype == torch.bool else out
+        return type(tree)(*(self.gather(x, axis) for x in tree))
+
+    def gather_to(self, tree, dst: int = 0):
+        """A rank-sharded tree whole (every leaf ``[R, ...]``) on global
+        rank `dst`; None on the other processes."""
+        def leaf(x):
+            x = self._rows(x)
+            wire = x.to(torch.uint8) if x.dtype == torch.bool else x
+            parts = comm.gather(wire, dst=dst)
+            if parts is None:
+                return None
+            out = torch.cat([parts[m] for m in self.members])
+            return out.bool() if x.dtype == torch.bool else out
+
+        def walk(t):
+            if isinstance(t, torch.Tensor):
+                return leaf(t)
+            return type(t)(*(walk(x) for x in t))
+
+        out = walk(tree)
+        return out if dist.get_rank() == dst else None
+
+    def step(self, inner, states, requests: AllocRequest):
+        """One round: this process steps its ranks of the global ``[R, C,
+        T]`` request with `inner` (`sharded_step`: one heap-step launch on
+        ``fused``) and every process receives the global response, in one
+        gather. Consumes `states` as `inner` does."""
+        if requests.op.shape[0] != self.num_ranks:
+            raise ValueError(f"request of {requests.op.shape[0]} ranks, "
+                             f"the fleet has {self.num_ranks}")
+        if self.count:
+            states, resp = inner(states, AllocRequest(*self.local(requests)))
+            packed = _pack(resp)
+        else:
+            packed = torch.zeros(
+                (len(_RESP_DTYPES), self.per) + tuple(requests.op.shape[1:]),
+                dtype=torch.int32, device=requests.op.device)
+        return states, _unpack(self.gather(packed, axis=1))
 
 
 class ShardedHeap:
     """R ranks x C cores of independent heaps behind one ``[R, C, T]``
-    entry point, on one device: the rank axis is a batch axis folded onto
-    the core axis, so results equal `MultiCoreHeap`'s per (rank, core).
+    entry point.
 
-    ``mesh`` None or False selects this path (anything else raises:
-    multi-GPU is not ported yet). With ``donate`` (the default) each round
+    ``mesh=False`` folds the rank axis onto the core axis on one device,
+    so results equal `MultiCoreHeap`'s per (rank, core). ``mesh=None``
+    (the default) builds the rank mesh over the process group
+    (`make_rank_mesh`: the fold without one); a 1-D `DeviceMesh` of
+    processes is used as given: each process holds and steps its own
+    ``[R/d, C, ...]`` slice (``self.state``), and `step` takes the global
+    request, which every process builds alike, and returns the global
+    response (`RankShard`). With ``donate`` (the default) each round
     updates the state in place; without it the round works on a copy and
     the old state tensors are left as they were. The builders' ``active``
     mask is ``[R]`` or ``[R, C]`` (or a scalar): it selects ranks or
     cores, never thread slots."""
 
     def __init__(self, cfg, num_ranks: int, num_cores: int, mesh=None,
-                 prepopulate: bool = True, donate: bool = True,
-                 device="cuda"):
+                 axis_name: str = "ranks", prepopulate: bool = True,
+                 donate: bool = True, device="cuda"):
         self.cfg = cfg
         self.num_ranks = num_ranks
         self.num_cores = num_cores
-        self._step, self.mesh = sharded_inner(cfg, mesh=mesh)
         self.device = _device.resolve(device)
-        self.state = sharded_init(cfg, num_ranks, num_cores,
+        self._step, self.mesh = sharded_inner(cfg, num_ranks, mesh=mesh,
+                                              axis_name=axis_name)
+        self.shard = (None if self.mesh is None
+                      else RankShard(self.mesh, num_ranks))
+        local = num_ranks if self.shard is None else self.shard.count
+        self.state = sharded_init(cfg, local, num_cores,
                                   prepopulate=prepopulate,
                                   device=self.device)
         self.donate = donate

@@ -6,7 +6,7 @@ counter=step)``, so every batch is byte-identical to the reference's and a
 restore at step k resumes the exact byte stream (the fault-tolerance
 invariant). The reference's `shard_batch(mesh, batch)` becomes
 `to_device(batch, device)`: one device, no mesh (its `batch_pspec` waits
-for ROADMAP A7).
+for ROADMAP A7b).
 """
 from __future__ import annotations
 

@@ -20,9 +20,18 @@ reference's writers are functional, the port's **write into the pages
 they are given, in place** (`write_prefill`, `write_token`). At
 granite-3-8b's full width one layer's K and V pools hold ~25 MB; copying
 them per layer per decode step would move gigabytes per step for a write
-of 4 KiB. The sequence-parallel `write_attend_seqpar` (a mesh-only
-`shard_map` body) waits for multi-GPU work; on one device the reference
-falls back to write + `attend` as well.
+of 4 KiB.
+
+Sequence parallelism (`write_attend_seqpar`, the reference's
+``shard_map`` flash-decoding): on a `DeviceMesh` of processes with a
+``"model"`` axis, each process holds the pools' slice of the **physical**
+page axis for its model index (``[B, P / model, ...]``; page ids stay
+global in the page table) and its batch rows (split over ``"data"`` where
+it divides the batch, `batch_rows`). A process writes the new token only
+into a page it owns, attends over its own pages with an fp32 online-
+softmax partial, and the partials combine with one MAX and one SUM
+all-reduce over ``"model"`` (`repro_torch.parallel.comm`). Without such a
+mesh it is `write_token` then `attend`, on one device.
 """
 from __future__ import annotations
 
@@ -30,11 +39,13 @@ import math
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import device as _device
 from ..core import api
 from ..core.heap import AllocResponse
 from ..kernels.paged_attention import paged_attention
+from ..parallel import comm
 
 PAGE_UNIT = 16  # allocator bytes per page (smallest size class)
 
@@ -56,15 +67,59 @@ def cache_spec(*, n_layers: int, batch: int, max_seq: int, page_size: int,
     }
 
 
+def model_axis(mesh):
+    """(group, index, size) of this process on `mesh`'s ``"model"`` axis;
+    None without a mesh or without that axis."""
+    if mesh is None or "model" not in (mesh.mesh_dim_names or ()):
+        return None
+    return (mesh.get_group("model"), mesh.get_local_rank("model"),
+            mesh.size(mesh.mesh_dim_names.index("model")))
+
+
+def batch_rows(mesh, batch: int) -> slice:
+    """This process's rows of a `batch`: split over the mesh's ``"data"``
+    axis where its size divides the batch (the reference's ``dpb``), all
+    of them otherwise or without a mesh."""
+    if mesh is None or "data" not in (mesh.mesh_dim_names or ()):
+        return slice(0, batch)
+    n = mesh.size(mesh.mesh_dim_names.index("data"))
+    if batch % n:
+        return slice(0, batch)
+    i = mesh.get_local_rank("data")
+    return slice(i * batch // n, (i + 1) * batch // n)
+
+
+def local_pages(mesh, n_pages: int) -> tuple[int, int]:
+    """(first physical page, page count) of this process's slice of a
+    pool of `n_pages` on the mesh's ``"model"`` axis; (0, n_pages)
+    without one. Raises unless the axis divides the pages."""
+    ax = model_axis(mesh)
+    if ax is None:
+        return 0, n_pages
+    _, i, m = ax
+    if n_pages % m:
+        raise ValueError(f"{n_pages} pages a sequence do not split over "
+                         f"model={m}")
+    return i * (n_pages // m), n_pages // m
+
+
 def init_cache(*, n_layers: int, batch: int, max_seq: int, page_size: int,
-               kv_heads: int, head_dim: int, dtype, device="cuda") -> dict:
+               kv_heads: int, head_dim: int, dtype, device="cuda",
+               mesh=None) -> dict:
     """Zero cache with the identity page table (contiguous buddy extent),
-    on `device` (the card unless the caller asks for the CPU)."""
+    on `device` (the card unless the caller asks for the CPU). `batch` is
+    the rows this process holds; with a `mesh` that has a ``"model"`` axis
+    the pools hold only this process's physical pages (`local_pages`),
+    the page table all P of them."""
     dev = _device.resolve(device)
     spec = cache_spec(n_layers=n_layers, batch=batch, max_seq=max_seq,
                       page_size=page_size, kv_heads=kv_heads,
                       head_dim=head_dim, dtype=dtype)
     P = spec["page_table"][0][1]
+    _, n_local = local_pages(mesh, P)
+    for k in ("k_pages", "v_pages"):
+        shape, dt = spec[k]
+        spec[k] = (shape[:2] + (n_local,) + shape[3:], dt)
     cache = {k: torch.zeros(shape, dtype=dt, device=dev)
              for k, (shape, dt) in spec.items()}
     cache["page_table"] = torch.arange(
@@ -72,11 +127,14 @@ def init_cache(*, n_layers: int, batch: int, max_seq: int, page_size: int,
     return cache
 
 
-def write_prefill(pages, kv, page_table):
+def write_prefill(pages, kv, page_table, mesh=None):
     """Write a prompt's K or V into its pages, **in place**.
 
     pages [B, P, page, KVH, hd]; kv [B, S, KVH, hd] with S % page == 0;
-    page_table int32 [B, P] (ids clamped to [0, P)). Returns `pages`."""
+    page_table int32 [B, P] (ids clamped to [0, P)). With a `mesh` that
+    has a ``"model"`` axis, `pages` is this process's slice of the
+    physical pages (`local_pages`) and only the prompt pages that fall in
+    it are written. Returns `pages`."""
     B, P, page_size, KVH, hd = pages.shape
     S = kv.shape[1]
     if S % page_size:
@@ -84,9 +142,15 @@ def write_prefill(pages, kv, page_table):
                          f"size {page_size}")
     sp = S // page_size
     kv4 = kv.reshape(B, sp, page_size, KVH, hd).to(pages.dtype)
-    idx = page_table[:, :sp].long().clamp(0, P - 1)
     bidx = torch.arange(B, device=pages.device)[:, None]
-    pages[bidx, idx] = kv4
+    if model_axis(mesh) is None:
+        idx = page_table[:, :sp].long().clamp(0, P - 1)
+        pages[bidx, idx] = kv4
+        return pages
+    base, n_local = local_pages(mesh, page_table.shape[1])
+    idx = page_table[:, :sp].long().clamp(0, page_table.shape[1] - 1)
+    mine = (idx >= base) & (idx < base + n_local)
+    pages[bidx.expand(B, sp)[mine], (idx - base)[mine]] = kv4[mine]
     return pages
 
 
@@ -125,6 +189,75 @@ def _attend_ref(q, k_pages, v_pages, page_table, seq_lens):
     p = torch.where(mask, torch.softmax(s, dim=-1), 0.0)
     o = torch.einsum("bkgs,bskd->bkgd", p.to(k.dtype).float(), v.float())
     return o.reshape(B, H, D).to(q.dtype)
+
+
+def write_attend_seqpar(q, k_new, v_new, k_pages, v_pages, page_table, pos,
+                        mesh=None, impl: str = "ref"):
+    """Write one new token's K and V and attend over the paged cache.
+
+    q [B, H, hd]; k_new / v_new [B, KVH, hd]; pools [B, P, page, KVH, hd];
+    page_table int32 [B, P]; pos int32 [B], the new token's position.
+    Returns (o [B, H, hd], k_pages, v_pages), the pools written in place.
+
+    With a `mesh` that has a ``"model"`` axis every tensor is this
+    process's: its batch rows, and its slice of the physical pages
+    (``[B, P / model, ...]``; the page table keeps all P global ids). As
+    the reference's ``shard_map`` body (`repro.kvcache.paged`): the
+    token is written only by the process that owns its page; the inverse
+    page table, sliced to the local pages, gives each local slot its
+    logical position; the fp32 partial over the local pages combines
+    with a MAX all-reduce of the row maxima and one SUM all-reduce of the
+    denominators and outputs over ``"model"``. Plain tensor code, as the
+    reference's einsums are, and no kernel. Without such a mesh it is
+    `write_token` + `attend(impl=impl)`."""
+    ax = model_axis(mesh)
+    if ax is None:
+        write_token(k_pages, k_new, page_table, pos)
+        write_token(v_pages, v_new, page_table, pos)
+        return (attend(q, k_pages, v_pages, page_table, pos + 1, impl=impl),
+                k_pages, v_pages)
+    group = ax[0]
+    B, H, hd = q.shape
+    _, Pl, page_size, KVH, _ = k_pages.shape
+    Pn = page_table.shape[1]
+    base, n_local = local_pages(mesh, Pn)
+    if n_local != Pl:
+        raise ValueError(f"the pools hold {Pl} pages, this process's "
+                         f"slice of {Pn} is {n_local}")
+    G = H // KVH
+    dev = q.device
+    pos = pos.long()
+    bidx = torch.arange(B, device=dev)
+    # ---- the new token, on the process that owns its page ----------------
+    pidx = page_table.long().gather(1, (pos // page_size)[:, None])[:, 0]
+    mine = ((pidx >= base) & (pidx < base + Pl))[:, None, None]
+    li = (pidx - base).clamp(0, Pl - 1)
+    slot = pos % page_size
+    for pages, new in ((k_pages, k_new), (v_pages, v_new)):
+        cur = pages[bidx, li, slot]
+        pages[bidx, li, slot] = torch.where(mine, new.to(pages.dtype), cur)
+    # ---- logical positions of the local physical pages -------------------
+    inv = torch.full((B, Pn), -1, dtype=torch.long, device=dev)
+    inv.scatter_(1, page_table.long().clamp(0, Pn - 1),
+                 torch.arange(Pn, device=dev).expand(B, Pn))
+    inv_local = inv[:, base:base + Pl]
+    grid = (inv_local[:, :, None] * page_size
+            + torch.arange(page_size, device=dev)[None, None, :])
+    valid = (inv_local[:, :, None] >= 0) & (grid <= pos[:, None, None])
+    valid = valid.reshape(B, 1, 1, Pl * page_size)
+    # ---- the local partial, combined over "model" -------------------------
+    k2 = k_pages.reshape(B, Pl * page_size, KVH, hd)
+    v2 = v_pages.reshape(B, Pl * page_size, KVH, hd)
+    qh = q.reshape(B, KVH, G, hd).to(k2.dtype)
+    s = torch.einsum("bkgd,btkd->bkgt", qh.float(), k2.float()) / (hd ** 0.5)
+    s = torch.where(valid, s, -1e30)
+    m = comm.all_reduce(s.amax(dim=-1), dist.ReduceOp.MAX, group=group)
+    p = torch.where(valid, torch.exp(s - m[..., None]), 0.0)
+    o_p = torch.einsum("bkgt,btkd->bkgd", p.to(k2.dtype).float(), v2.float())
+    lo = comm.all_reduce(torch.cat([p.sum(dim=-1)[..., None], o_p], dim=-1),
+                         group=group)
+    o = lo[..., 1:] / torch.clamp(lo[..., :1], min=1e-30)
+    return o.reshape(B, H, hd).to(q.dtype), k_pages, v_pages
 
 
 def global_page_table(page_table, P: int):

@@ -2,8 +2,9 @@
 account for its work, its memory and its sharded state.
 
 The port of `repro.launch.dryrun`. The reference lowers and compiles each
-cell for the 256- and 512-chip production meshes; the port has no
-multi-GPU tier yet (ROADMAP A7), so a cell here is
+cell for the 256- and 512-chip production meshes; the port's SPMD
+programs are processes on a live `DeviceMesh` (`repro_torch.launch.mesh`)
+and its training half is not ported yet (ROADMAP A7b), so a cell here is
 
   * the per-device state bytes on the production mesh, from the sharding
     rules as pure placement functions (`repro_torch.parallel.sharding`);
@@ -17,8 +18,8 @@ multi-GPU tier yet (ROADMAP A7), so a cell here is
     roofline terms for the NVIDIA H100 SXM.
 
 The per-device SPMD program, its collective schedule and the collective
-term of the roofline wait for the multi-GPU tier and are reported as
-absent with that reason.
+term of the roofline wait for ROADMAP A7b and are reported as absent
+with that reason.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite_3_8b \\
         --shape train_4k [--multi-pod] [--out results/dryrun] [--device cpu]
@@ -55,8 +56,8 @@ RESULTS_DIR = "results/dryrun"
 PEAK_FLOPS = 989.4e12        # bf16 dense tensor-core FLOP/s
 HBM_BW = 3.35e12             # HBM3 bytes/s
 CARD_BYTES = 80 * 10 ** 9    # device memory
-NO_MESH = ("waits for the multi-GPU tier (ROADMAP A7): the port has no "
-           "per-device SPMD program or collective schedule yet")
+NO_MESH = ("waits for ROADMAP A7b: the port has no per-device SPMD "
+           "program or collective schedule of a step yet")
 
 
 def input_specs(arch: str, shape_name: str):

@@ -38,8 +38,13 @@ determinism:
     the reference's layout and leaf names. `ElasticFleetServe.restore`
     rebuilds an engine that finishes the session bit for bit like the
     uninterrupted run, also onto another device (card <-> CPU: each leaf
-    is placed on the restoring engine's device) and from a snapshot the
-    reference wrote on a kind both packages share.
+    is placed on the restoring engine's device), from a snapshot the
+    reference wrote on a kind both packages share, and across a rank mesh
+    of processes: a snapshot taken on the mesh is the reference's one set
+    of whole-fleet files (gathered to process 0, which writes them), and
+    a restore gives each process of a mesh its own rank slice, so a
+    session snapshotted on the mesh finishes on one device, and the other
+    way round, bit for bit like the uninterrupted run.
 
 Execution model: the session runs as `ScanEngine.run_segment` segments
 split exactly at decision rounds (kills + drain points). The round body is
@@ -52,6 +57,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import types
 
 import numpy as np
 import torch
@@ -60,6 +66,7 @@ from ..checkpoint import ckpt
 from ..core import heap as heap_api
 from ..core import telemetry
 from ..core.heap import AllocResponse
+from ..parallel import comm
 from . import fleet
 from .serve_fleet import FleetServe, SessionPlanner, TrafficConfig
 from .serving import SessionPlan
@@ -226,8 +233,7 @@ class ElasticFleetServe(FleetServe):
     def start(self):
         """Begin a session at round 0 with a fresh fleet."""
         self._planner = self.planner()
-        self.state = heap_api.sharded_init(self.cfg, self.num_ranks,
-                                           self.num_cores, device=self.device)
+        self.state = self.init_state()
         self.slots = self.new_slots(self.traffic.rounds)
         self.r = 0
         self._resps = []
@@ -247,14 +253,20 @@ class ElasticFleetServe(FleetServe):
         """Core (rk, ck) dies at round r: its heap state slice is
         re-initialized in the live state, in place (the fleet keeps its
         grid shape — a dead core just never gets work again) and the
-        planner re-places its blocks."""
-        _write_slice(self.state, heap_api.sharded_init(
-            self.cfg, 1, 1, device=self.device), rk, ck)
+        planner re-places its blocks. On a mesh only the process that holds
+        rank rk touches its state."""
+        lo, hi = ((0, self.num_ranks) if self.shard is None
+                  else (self.shard.lo, self.shard.hi))
+        if lo <= rk < hi:
+            _write_slice(self.state, heap_api.sharded_init(
+                self.cfg, 1, 1, device=self.device), rk - lo, ck)
         self._planner.kill_core(rk, ck, r)
 
     def _check_migration(self, r: int):
-        # the one read of device state a decision round makes
-        pres = telemetry.fleet_pressure(self.state)
+        # the one read of device state a decision round makes (on a mesh,
+        # the [R, C] telemetry counters gathered: never the heaps)
+        pres = telemetry.fleet_pressure(
+            types.SimpleNamespace(telem=self.whole(self.state.telem)))
         div = telemetry.hwm_divergence(pres["rank_hwm"],
                                        ratio=self.migration.ratio,
                                        min_bytes=self.migration.min_bytes)
@@ -356,12 +368,20 @@ class ElasticFleetServe(FleetServe):
         far) goes through `repro_torch.checkpoint.ckpt.save`, which copies
         it to the host before the next segment can update the state in
         place; host half (the planner) into a ``host.json`` sidecar inside
-        the step directory.
+        the step directory. On a mesh every process calls it: the heap is
+        gathered to process 0, which alone writes the files, and every
+        process returns once they are committed.
         """
         step = self.r if step is None else step
         p = self._planner
+        heap = self.state
+        if self.shard is not None:
+            heap = self.shard.gather_to(self.state, dst=0)
+            if heap is None:
+                comm.barrier()
+                return os.path.join(ckpt_dir, f"step_{step:08d}")
         tree = {
-            "heap": self.state,
+            "heap": heap,
             "slots": self.slots,
             "plan": {"op": p.op, "size": p.size, "ref": p.ref, "raw": p.raw},
             "resps": self._stacked()._asdict(),
@@ -379,6 +399,8 @@ class ElasticFleetServe(FleetServe):
         }
         with open(os.path.join(path, "host.json"), "w") as f:
             json.dump(host, f)
+        if self.shard is not None:
+            comm.barrier()
         return path
 
     def restore(self, ckpt_dir: str, step: int = None):
@@ -387,7 +409,8 @@ class ElasticFleetServe(FleetServe):
         The engine must be constructed with the same identity (cfg kind,
         shape, placement, traffic); its device may differ: every device
         leaf is placed on this engine's device, and the resumed session
-        is the same bit for bit either way.
+        is the same bit for bit either way. On a mesh each process keeps
+        its own ranks of the checkpoint's whole fleet.
         """
         if step is None:
             step = ckpt.latest_step(ckpt_dir)
@@ -413,12 +436,17 @@ class ElasticFleetServe(FleetServe):
 
         grid = np.zeros((rounds, R, C, T), np.int32)
         tree_like = {
-            "heap": heap_api.sharded_init(self.cfg, R, C, device=self.device),
+            "heap": self.init_state(),
             "slots": self.new_slots(rounds),
             "plan": {k: grid for k in ("op", "size", "ref", "raw")},
             "resps": {f: resp_like(f) for f in AllocResponse._fields},
         }
-        tree = ckpt.restore(tree_like, step, ckpt_dir)
+        shardings = None
+        if self.shard is not None:
+            # the heap's leaves keep this process's ranks; the rest whole
+            ranks = slice(self.shard.lo, self.shard.hi)
+            shardings = {"heap": _like(tree_like["heap"], ranks)}
+        tree = ckpt.restore(tree_like, step, ckpt_dir, shardings=shardings)
 
         self.r = int(host["round"])
         self.state = tree["heap"]
@@ -448,6 +476,13 @@ def serve_elastic(cfg, num_ranks: int, num_cores: int,
                             migration=migration, device=device)
     _, report = eng.serve()
     return report
+
+
+def _like(tree, value):
+    """`tree` with every tensor leaf replaced by `value`."""
+    if isinstance(tree, torch.Tensor):
+        return value
+    return type(tree)(*(_like(x, value) for x in tree))
 
 
 def _write_slice(full, fresh, rk: int, ck: int):

@@ -35,13 +35,29 @@ prefix longer than a page makes its prefill write past the cache
 reserves 2). The port counts the prefix: ``n_patches + prompt +
 decode_steps + page`` (ROADMAP C).
 
+Across processes (``mesh=``, a ``("data", "model")`` `DeviceMesh`):
+every process holds the weights whole and allocates every request's
+pages from its own pool (the same ids on every process); the batch
+splits over ``"data"`` where it divides evenly, the physical pages over
+``"model"``, and the decode takes `paged.write_attend_seqpar`; the
+fleet's ranks (``fleet_ranks``) split over the processes as the rank
+mesh of `make_fleet_pool`. The tokens and logits come back whole on
+every process.
+
 `serve` is the entry point a program calls; `main` parses the reference's
-flags plus ``--device``, ``--seed`` and ``--no-reduced`` for full width.
+flags plus ``--device``, ``--seed``, ``--no-reduced`` for full width and
+``--dist-backend``: under ``torchrun`` it joins the process group with
+that backend (``nccl`` needs a card per process; ``gloo`` lets the
+processes share one) and serves on a ``1 x world`` mesh.
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
+        --dist-backend gloo --no-reduced --batch 8 --prompt-len 512
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 
 import numpy as np
@@ -54,6 +70,8 @@ from ..core import system as sysm
 from ..kvcache import paged
 from ..models import registry
 from ..models.config import ArchConfig
+from ..parallel import comm
+from . import mesh as _mesh
 from .fleet import FleetRouter
 
 
@@ -100,16 +118,19 @@ class ServeResult:
 
 
 def make_fleet_pool(num_ranks: int, n_pages: int, num_threads: int = 16,
-                    kind: str = "sw", device="cuda") -> FleetRouter:
+                    kind: str = "sw", device="cuda", mesh=None) -> FleetRouter:
     """A FleetRouter over R single-core page-heap ranks (the serving
     fleet), on `device` (the card unless the caller asks for the CPU).
 
     Each rank owns an independent page heap of `n_pages`; page ids are
-    rank-local, mirroring one PagePool per device shard."""
+    rank-local, mirroring one PagePool per device shard. ``mesh`` is the
+    `ShardedHeap`'s: the rank mesh over the process group by default, as
+    in the reference (one device without a group)."""
     cfg = sysm.SystemConfig(kind=kind, heap_bytes=n_pages * paged.PAGE_UNIT,
                             num_threads=num_threads)
     return FleetRouter(heap_api.ShardedHeap(cfg, num_ranks=num_ranks,
-                                            num_cores=1, device=device))
+                                            num_cores=1, mesh=mesh,
+                                            device=device))
 
 
 def fleet_page_request(router: FleetRouter, need) -> heap_api.AllocRequest:
@@ -133,10 +154,19 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def _whole_batch(mesh, x: torch.Tensor, batch: int) -> torch.Tensor:
+    """This process's rows of a batch tensor, whole: gathered over the
+    mesh's ``"data"`` axis where `paged.batch_rows` split it."""
+    rows = paged.batch_rows(mesh, batch)
+    if rows.stop - rows.start == batch:
+        return x
+    return torch.cat(comm.all_gather(x, group=mesh.get_group("data")))
+
+
 def serve(cfg: ArchConfig, *, batch: int, prompt_len: int,
           decode_steps: int, impl: str = "kernel", seed: int = 0,
           device="cuda", params=None, tokens=None, frontends=None,
-          fleet_ranks: int = 0) -> ServeResult:
+          fleet_ranks: int = 0, mesh=None) -> ServeResult:
     """Serve `batch` requests of `prompt_len` tokens for `decode_steps`
     greedy decode steps, on `device` (the card unless the caller asks for
     the CPU; raises without a GPU).
@@ -150,7 +180,12 @@ def serve(cfg: ArchConfig, *, batch: int, prompt_len: int,
     prompt_len], the text) and `frontends` (`registry.make_frontends`'
     dict) default to ones made from `seed`. The prompt is padded with
     zeros so that the prefill (the vlm's patch prefix included) covers a
-    whole number of pages, as the reference pads it."""
+    whole number of pages, as the reference pads it.
+
+    With `mesh` (a ``("data", "model")`` `DeviceMesh` of processes, every
+    one of which calls `serve` alike) each process decodes its batch rows
+    over its slice of the pages (module docstring); the result's tokens
+    and logits are whole, its cache this process's."""
     dev = _device.resolve(device)
     if cfg.family == "ssm":
         raise ValueError("ssm decode has no paged KV cache to serve")
@@ -168,7 +203,9 @@ def serve(cfg: ArchConfig, *, batch: int, prompt_len: int,
     pool = paged.PagePool(n_pages=n_pages, device=dev)
     T = pool.cfg.num_threads
     router = (make_fleet_pool(fleet_ranks, n_pages, num_threads=T,
-                              device=dev) if fleet_ranks else None)
+                              device=dev,
+                              mesh=None if mesh is not None else False)
+              if fleet_ranks else None)
     if router is None and B > T:
         raise ValueError(f"batch {B} exceeds the single pool's {T} hardware "
                          f"threads; pass fleet_ranks to scale page "
@@ -190,12 +227,16 @@ def serve(cfg: ArchConfig, *, batch: int, prompt_len: int,
 
     if params is None:
         params = registry.init(cfg, seed=seed, device=dev)
-    cache = mod.init_cache(cfg, B, max_seq, device=dev)
+    # the hybrid's cache has no pages to split: its rows are all it splits
+    on_mesh = {} if mesh is None or cfg.family == "hybrid" else {"mesh": mesh}
+    mine = paged.batch_rows(mesh, B)
+    cache = mod.init_cache(cfg, mine.stop - mine.start, max_seq, device=dev,
+                           **on_mesh)
     page_ids = torch.stack(rows)
     if "page_table" in cache:
         # per-sequence page tables are slot indices into the sequence's
         # own pool; the pool's ids map through modulo the extent
-        cache["page_table"] = (page_ids % P).to(torch.int32)
+        cache["page_table"] = (page_ids[mine] % P).to(torch.int32)
 
     if tokens is None:
         tokens = registry.make_prompts(cfg, B, S, seed=seed, device=dev)
@@ -213,8 +254,8 @@ def serve(cfg: ArchConfig, *, batch: int, prompt_len: int,
 
     _sync(dev)
     t0 = time.perf_counter()
-    cache, logits = mod.prefill(cfg, params, {"tokens": tokens, **frontends},
-                                cache)
+    feed = {k: v[mine] for k, v in {"tokens": tokens, **frontends}.items()}
+    cache, logits = mod.prefill(cfg, params, feed, cache, **on_mesh)
     _sync(dev)
     prefill_s = time.perf_counter() - t0
 
@@ -228,7 +269,7 @@ def serve(cfg: ArchConfig, *, batch: int, prompt_len: int,
         # boundary (the paper's fast path, Fig 9 case 1); reading the
         # lengths back waits for the previous step, as in the reference
         ts = time.perf_counter()
-        pos = cache["seq_lens"].cpu().numpy()
+        pos = _whole_batch(mesh, cache["seq_lens"], B).cpu().numpy()
         sync_s += time.perf_counter() - ts
         need = (pos % page) == 0
         if need.any():
@@ -242,7 +283,8 @@ def serve(cfg: ArchConfig, *, batch: int, prompt_len: int,
             pool_rounds += 1
             page_allocs += int(need.sum())
             alloc_cyc += float(resp.latency_cyc.max())
-        cache, logits = mod.decode(cfg, params, cache, {"tokens": toks})
+        cache, logits = mod.decode(cfg, params, cache, {"tokens": toks},
+                                   **on_mesh)
         toks = torch.argmax(logits, dim=-1)[:, None]
         out.append(toks)
         finite &= torch.isfinite(logits).all()
@@ -250,7 +292,8 @@ def serve(cfg: ArchConfig, *, batch: int, prompt_len: int,
     decode_s = time.perf_counter() - t0
 
     return ServeResult(
-        tokens=torch.cat(out, dim=1), prompt=tokens, logits=logits,
+        tokens=_whole_batch(mesh, torch.cat(out, dim=1), B), prompt=tokens,
+        logits=_whole_batch(mesh, logits, B),
         logits_finite=bool(finite), page_ids=page_ids, stats=pool.stats,
         prefill_stats=prefill_stats, pool_kind=pool.client.kind,
         pool_rounds=pool_rounds, page_allocs=page_allocs,
@@ -277,15 +320,31 @@ def main(argv=None) -> ServeResult:
                          "fleet of this many ranks (0 = single PagePool)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dist-backend", default="nccl", choices=_mesh.BACKENDS,
+                    help="under torchrun: the process group's backend "
+                         "(nccl needs a card per process; gloo lets them "
+                         "share one)")
     args = ap.parse_args(argv)
 
     cfg = configs.get(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    res = serve(cfg, batch=args.batch, prompt_len=args.prompt_len,
-                decode_steps=args.decode_steps, impl=args.impl,
-                seed=args.seed, device=args.device,
-                fleet_ranks=args.fleet_ranks)
+    mesh, joined = None, False
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        joined = not torch.distributed.is_initialized()
+        _mesh.init_world(args.dist_backend)
+        mesh = _mesh.make_host_mesh(model=torch.distributed.get_world_size(),
+                                    live=True)
+    try:
+        res = serve(cfg, batch=args.batch, prompt_len=args.prompt_len,
+                    decode_steps=args.decode_steps, impl=args.impl,
+                    seed=args.seed, device=args.device,
+                    fleet_ranks=args.fleet_ranks, mesh=mesh)
+    finally:
+        if joined:
+            torch.distributed.destroy_process_group()
+    if mesh is not None and int(os.environ.get("RANK", "0")):
+        return res  # every process holds the same result: one prints it
     B, S = res.prompt.shape
     dev = res.logits.device
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
@@ -297,7 +356,10 @@ def main(argv=None) -> ServeResult:
     total = args.decode_steps * B
     dt = res.timings["decode_s"]
     print(f"decode: {total} tokens in {dt:.2f}s ({total / dt:.1f} tok/s, "
-          f"{where}, {args.impl})")
+          f"{where}, {args.impl})" + (
+              "" if mesh is None else
+              f" on a {'x'.join(map(str, mesh.shape))} (data, model) mesh "
+              f"of processes, {args.dist_backend}"))
     print(f"frontend page allocations during decode: {res.page_allocs} "
           f"({res.alloc_us:.2f} us modeled DPU time)")
     print("final allocator stats:", res.stats)

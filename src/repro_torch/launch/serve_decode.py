@@ -149,8 +149,10 @@ class DecodeServe(ScanEngine):
     """Closed-loop paged-KV decode engine over one [R, C, T] fleet, on
     `device` (the card unless the caller asks for the CPU).
 
-    ``mesh`` follows `ScanEngine`: ``False`` and ``None`` run the rank
-    axis on one device; a device mesh raises."""
+    ``mesh`` follows `ScanEngine`: ``False`` (the default) runs the rank
+    axis on one device; ``None`` or a rank `DeviceMesh` of processes
+    splits the ranks over the processes, every one of which plans the
+    same session and reports the same numbers."""
 
     def __init__(self, cfg, num_ranks: int, num_cores: int,
                  traffic: DecodeTraffic = None,
@@ -376,7 +378,7 @@ class DecodeServe(ScanEngine):
             acct.add_round(req, AllocResponse(
                 *[host[f][r] for f in AllocResponse._fields]))
 
-        health = fleet_health(self.cfg, state, R, C)
+        health = fleet_health(self.cfg, state, R, C, self.shard)
 
         active = opf != OP_NOOP
         is_alloc = opf == OP_MALLOC

@@ -663,8 +663,10 @@ class FleetServe(ScanEngine):
     """Closed-loop serving engine over one [R, C, T] fleet, on `device`
     (the card unless the caller asks for the CPU).
 
-    ``mesh`` follows `ScanEngine`: ``False`` (the default) and ``None``
-    run the rank axis on one device; a device mesh raises. Planning is
+    ``mesh`` follows `ScanEngine`: ``False`` (the default) runs the rank
+    axis on one device; ``None`` or a rank `DeviceMesh` of processes
+    splits the ranks over the processes, every one of which plans the
+    same session and reports the same numbers. Planning is
     this engine's own; the round driver, trace export and report plumbing
     live in `repro_torch.launch.serving` (shared with the decode engine).
     """
@@ -730,7 +732,7 @@ class FleetServe(ScanEngine):
             acct.add_round(req, AllocResponse(
                 *[host[f][r] for f in AllocResponse._fields]))
 
-        health = fleet_health(self.cfg, state, R, C)
+        health = fleet_health(self.cfg, state, R, C, self.shard)
 
         active = opf != OP_NOOP
         is_alloc = np.isin(opf, (OP_MALLOC, OP_CALLOC, OP_REALLOC))

@@ -14,13 +14,18 @@ workload on the host and executes and reports it through this module:
     grid), runs one `heap.sharded_step` over the [R, C] fleet and writes
     the pointers that survive back into the slot file; the responses are
     stacked on the device. Sessions are closed-loop: frees free the real
-    pointers of this run. `ScanEngine.trace` exports any (rank, core)'s
+    pointers of this run. On a rank mesh of processes (``mesh=``) each
+    process holds and steps its own ranks, every round's response is
+    gathered over the mesh, and the slot file stays whole and the same
+    on every process, as the reference keeps it outside its
+    ``shard_map``. `ScanEngine.trace` exports any (rank, core)'s
     slice of a session as a standard ``pim-malloc-trace/v1`` tape.
   * report helpers: latency percentiles over round barriers (:func:`pct`,
     :func:`round_barrier_cum`), the pointers as the loop resolved them
     (:func:`resolve_pointers`), and the per-core heap-health sweep
     (:func:`fleet_health`: |residual| summed, so signed residuals of two
-    broken cores never cancel into a clean-looking fleet).
+    broken cores never cancel into a clean-looking fleet; on a mesh only
+    the per-core numbers are gathered, never the state).
 """
 from __future__ import annotations
 
@@ -125,23 +130,39 @@ def resolve_pointers(plan, host_ptr: np.ndarray) -> np.ndarray:
         plan.ptr_raw).astype(np.int32)
 
 
-def fleet_health(cfg, state, R: int, C: int) -> dict:
+# the per-core health numbers a fleet report reduces, with their dtypes
+_HEALTH = {"live_bytes": np.int64, "hwm_bytes": np.int64,
+           "conservation_residual": np.int64, "external_frag": np.float64}
+
+
+def fleet_health(cfg, state, R: int, C: int, shard=None) -> dict:
     """Per-core telemetry sweep over the final [R, C] fleet state, in one
     batched pass over all cores (`telemetry.core_health`).
 
     ``conservation_residual`` sums |per-core residuals| (signed residuals
     of two broken cores must not cancel into a clean-looking fleet);
     ``hwm_bytes_per_rank`` is each rank's busiest core (heaps are per-core,
-    so a rank's high-water footprint is bounded by its hottest heap)."""
-    h = telemetry.core_health(cfg, heap_api.fold(state, R * C))
-    hwm_rank = h["hwm_bytes"].reshape(R, C).max(axis=1)
+    so a rank's high-water footprint is bounded by its hottest heap). With
+    a `heap.RankShard` `state` is this process's slice: each process
+    sweeps its own cores and only those numbers are gathered."""
+    n = R if shard is None else shard.count
+    cols = {k: np.zeros((0, C), dt) for k, dt in _HEALTH.items()}
+    if n:
+        h = telemetry.core_health(cfg, heap_api.fold(state, n * C))
+        cols = {k: np.asarray(h[k], dt).reshape(n, C)
+                for k, dt in _HEALTH.items()}
+    if shard is not None:
+        cols = {k: shard.gather(torch.from_numpy(v)).numpy()
+                for k, v in cols.items()}
+    hwm_rank = cols["hwm_bytes"].max(axis=1)
     return {
-        "live_bytes": int(h["live_bytes"].sum()),
+        "live_bytes": int(cols["live_bytes"].sum()),
         "conservation_residual": int(np.abs(
-            h["conservation_residual"]).sum()),
+            cols["conservation_residual"]).sum()),
         "hwm_bytes_per_rank": [int(x) for x in hwm_rank],
         "hwm_bytes_max": int(hwm_rank.max()),
-        "external_frag_mean": float(np.mean(h["external_frag"])),
+        "external_frag_mean": float(np.mean(
+            cols["external_frag"].reshape(-1))),
     }
 
 
@@ -149,17 +170,24 @@ class ScanEngine:
     """The round driver every serving engine shares, on `device` (the card
     unless the caller asks for the CPU).
 
-    ``mesh`` follows `repro_torch.core.heap.ShardedHeap`: ``False`` and
-    ``None`` both run the rank axis on one device; a device mesh raises
-    (the multi-GPU tier is not ported)."""
+    ``mesh`` follows `repro_torch.core.heap.sharded_inner`: ``False``
+    (the default) runs the rank axis on one device, ``None`` builds the
+    rank mesh over the process group (one device without one), and a 1-D
+    `DeviceMesh` of processes is used as given. On a mesh the engine's
+    fleet state is this process's rank slice (`init_state`), the plans,
+    the slot file and the responses are whole and equal on every
+    process, and every process must drive the same session."""
 
     def __init__(self, cfg, num_ranks: int, num_cores: int, mesh=False,
                  device="cuda"):
         self.cfg = cfg
         self.num_ranks = num_ranks
         self.num_cores = num_cores
-        self._inner, self.mesh = heap_api.sharded_inner(cfg, mesh=mesh)
         self.device = _device.resolve(device)
+        self._inner, self.mesh = heap_api.sharded_inner(cfg, num_ranks,
+                                                        mesh=mesh)
+        self.shard = (None if self.mesh is None
+                      else heap_api.RankShard(self.mesh, num_ranks))
 
     @property
     def shape(self) -> tuple:
@@ -169,6 +197,20 @@ class ScanEngine:
     def capacity(self) -> int:
         R, C, T = self.shape
         return R * C * T
+
+    def init_state(self):
+        """A fresh fleet: the whole ``[R, C, ...]`` state on one device,
+        this process's ranks on a mesh."""
+        if self.shard is not None:
+            return self.shard.init(self.cfg, self.num_cores,
+                                   device=self.device)
+        return heap_api.sharded_init(self.cfg, self.num_ranks,
+                                     self.num_cores, device=self.device)
+
+    def whole(self, tree):
+        """A rank-sharded tree (leaves ``[R/d, C, ...]``) whole, gathered
+        over the mesh; as it is on one device."""
+        return tree if self.shard is None else self.shard.gather(tree)
 
     def _grid(self, x) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(x), dtype=torch.int32,
@@ -213,12 +255,11 @@ class ScanEngine:
 
     def run(self, plan):
         """Execute a planned session on a fresh fleet; returns the final
-        [R, C] fleet state and the stacked [rounds, R, C, T] responses (on
-        the device)."""
-        state = heap_api.sharded_init(self.cfg, self.num_ranks,
-                                      self.num_cores, device=self.device)
+        [R, C] fleet state (this process's ranks on a mesh) and the stacked
+        [rounds, R, C, T] responses (on the device)."""
         state, _, resps = self.run_segment(
-            state, self.new_slots(plan.rounds), 0,
+            self.init_state(),
+            self.new_slots(plan.rounds), 0,
             (plan.op, plan.size, plan.ptr_ref, plan.ptr_raw))
         return state, resps
 

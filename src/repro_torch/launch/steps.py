@@ -8,7 +8,7 @@ from `torch.autograd.grad` (nothing is left in ``.grad``). With
 and divided by ``n_micro``, as the reference accumulates; ``.backward()``
 would accumulate in the parameters' dtype (bf16 at full width). The
 reference's ``grad_pspec`` (the accumulator's sharding) waits for the
-mesh-only pieces (ROADMAP A7).
+training half of the mesh-only pieces (ROADMAP A7b).
 """
 from __future__ import annotations
 

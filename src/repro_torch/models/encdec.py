@@ -183,8 +183,12 @@ def cache_spec(cfg: ArchConfig, batch: int, max_seq: int) -> dict:
     return spec
 
 
-def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device="cuda"):
-    cache = transformer.init_cache(cfg, batch, max_seq, device=device)
+def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device="cuda",
+               mesh=None):
+    """The dense paged cache (on a ``"model"`` mesh, this process's
+    physical pages) and the encoder's K/V of `batch` rows, whole."""
+    cache = transformer.init_cache(cfg, batch, max_seq, device=device,
+                                   mesh=mesh)
     shape, dt = cache_spec(cfg, batch, max_seq)["enc_k"]
     dev = cache["k_pages"].device
     cache["enc_k"] = torch.zeros(shape, dtype=dt, device=dev)
@@ -192,10 +196,11 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device="cuda"):
     return cache
 
 
-def prefill(cfg: ArchConfig, params, batch, cache):
+def prefill(cfg: ArchConfig, params, batch, cache, mesh=None):
     """Encode the frames, store each decoder layer's cross K/V in
     ``enc_k`` / ``enc_v`` and prefill the decoder, writing the cache in
-    place. Returns (cache, logits_last [B, V])."""
+    place (on a ``"model"`` mesh, the pages this process holds). Returns
+    (cache, logits_last [B, V])."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     enc_out = encode(cfg, params, batch["enc_embeds"])
@@ -209,8 +214,8 @@ def prefill(cfg: ArchConfig, params, batch, cache):
     pt = cache["page_table"]
     for l, lp in enumerate(_layers(params["dec"])):
         x, k, v, kx, vx = _dec_layer(cfg, x, cos, sin, enc_out, lp)
-        paged.write_prefill(cache["k_pages"][l], k, pt)
-        paged.write_prefill(cache["v_pages"][l], v, pt)
+        paged.write_prefill(cache["k_pages"][l], k, pt, mesh=mesh)
+        paged.write_prefill(cache["v_pages"][l], v, pt, mesh=mesh)
         cache["enc_k"][l] = kx
         cache["enc_v"][l] = vx
     x = layers.rms_norm(x, params["ln_f"])
@@ -219,12 +224,13 @@ def prefill(cfg: ArchConfig, params, batch, cache):
     return dict(cache, seq_lens=seq_lens), logits
 
 
-def decode(cfg: ArchConfig, params, cache, batch):
+def decode(cfg: ArchConfig, params, cache, batch, mesh=None):
     """One decode step: tokens [B, 1] -> (cache, logits [B, V]); writes
-    the new token's self-attention K/V into the pages in place."""
+    the new token's self-attention K/V into the pages in place (on a
+    ``"model"`` mesh through `paged.write_attend_seqpar`, as the
+    reference's decode takes it)."""
     tokens = batch["tokens"]
     pos = cache["seq_lens"]
-    seq_lens = pos + 1
     pt = cache["page_table"]
     cos, sin = layers.rope_tables(pos[:, None], cfg.head_dim,
                                   cfg.rope_theta)
@@ -233,14 +239,12 @@ def decode(cfg: ArchConfig, params, cache, batch):
     for l, lp in enumerate(_layers(params["dec"])):
         h = layers.rms_norm(x, lp["ln1"])
         q, k, v = _self_qkv(cfg, h, lp, cos, sin)
-        kp, vp = cache["k_pages"][l], cache["v_pages"][l]
-        paged.write_token(kp, k[:, 0], pt, pos)
-        paged.write_token(vp, v[:, 0], pt, pos)
-        o = paged.attend(q[:, 0], kp, vp, pt, seq_lens,
-                         impl=cfg.attend_impl)
+        o, _, _ = paged.write_attend_seqpar(
+            q[:, 0], k[:, 0], v[:, 0], cache["k_pages"][l],
+            cache["v_pages"][l], pt, pos, mesh=mesh, impl=cfg.attend_impl)
         x = x + layers.out_proj(o[:, None], lp["wo"]).to(x.dtype)
         x = _cross(cfg, x, lp, cache["enc_k"][l], cache["enc_v"][l])
         x = x + _gelu_mlp(layers.rms_norm(x, lp["ln2"]), lp)
     x = layers.rms_norm(x, params["ln_f"])
     logits = logits_fn(cfg, params, x[:, 0])
-    return dict(cache, seq_lens=seq_lens), logits
+    return dict(cache, seq_lens=pos + 1), logits

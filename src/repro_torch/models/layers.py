@@ -8,7 +8,7 @@ weights under ``attn_4d``). Parameters are dicts of tensors stacked over
 layers (leading L axis). Every function differentiates under autograd: the
 masked scores' ``where`` gives them zero gradient, as the reference's
 does. ``activation_constraint`` pins a sharding under a mesh and is a
-no-op without one, so the one-device port has none (ROADMAP A7).
+no-op without one; the port has none yet (ROADMAP A7b).
 """
 from __future__ import annotations
 

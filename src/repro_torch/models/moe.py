@@ -198,13 +198,15 @@ def loss(cfg: ArchConfig, params, batch):
 
 
 # ----------------------------------------------------------------- serving --
-def prefill(cfg: ArchConfig, params, batch, cache):
+def prefill(cfg: ArchConfig, params, batch, cache, mesh=None):
     """The dense prefill with the routed experts; writes the pages in
     place. Returns (cache, logits_last [B, V])."""
-    return transformer.prefill(cfg, params, batch, cache, ffn=_moe_mlp)
+    return transformer.prefill(cfg, params, batch, cache, ffn=_moe_mlp,
+                               mesh=mesh)
 
 
-def decode(cfg: ArchConfig, params, cache, batch):
+def decode(cfg: ArchConfig, params, cache, batch, mesh=None):
     """One decode step (paged attention, then the routed experts); writes
     the new token's K/V in place. Returns (cache, logits [B, V])."""
-    return transformer.decode(cfg, params, cache, batch, ffn=_moe_mlp)
+    return transformer.decode(cfg, params, cache, batch, ffn=_moe_mlp,
+                              mesh=mesh)

@@ -18,13 +18,20 @@ slices of ``cache["k_pages"]`` / ``cache["v_pages"]``) and return a new
 dict that shares them: the reference is functional, but a functional copy
 of a full-width cache per layer per token would move gigabytes per step.
 
-Sequence parallelism: the reference's decode takes
-`paged.write_attend_seqpar` when ``cfg.kv_seq_parallel`` is set, which on
-one device (no mesh) falls back to write + `attend` *without* passing
-``cfg.attend_impl`` (so its Pallas kernel is never reached there). The port
-runs on one GPU with no mesh: it always writes the token and calls
-`attend(impl=cfg.attend_impl)`. Both attention implementations compute the
-same function.
+Sequence parallelism: `init_cache`, `prefill` and `decode` take a
+`DeviceMesh` of processes (``mesh=``). With a ``"model"`` axis the cache
+holds this process's slice of the physical pages, the prefill computes on
+every process and writes only its own pages, and the decode takes
+`paged.write_attend_seqpar` (the reference's order,
+`repro.models.transformer.decode`), whose partials combine over
+``"model"``. The pages are split whatever ``cfg.kv_seq_parallel`` says,
+so on such a mesh the decode always takes it: the reference's GSPMD
+`attend` over split pools computes the same function. Tensors are this
+process's batch rows (`paged.batch_rows`). Without a mesh, the reference
+with ``cfg.kv_seq_parallel`` falls back to write + `attend` *without*
+passing ``cfg.attend_impl`` (so its Pallas kernel is never reached
+there); the port writes the token and calls
+`attend(impl=cfg.attend_impl)`. Both compute the same function.
 """
 from __future__ import annotations
 
@@ -146,29 +153,35 @@ def cache_spec(cfg: ArchConfig, batch: int, max_seq: int) -> dict:
         head_dim=cfg.head_dim, dtype=layers.torch_dtype(cfg.dtype))
 
 
-def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device="cuda"):
+def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device="cuda",
+               mesh=None):
+    """The paged cache of `batch` rows (this process's); with a mesh that
+    has a ``"model"`` axis, of this process's physical pages."""
     return paged.init_cache(
         n_layers=cfg.n_layers, batch=batch, max_seq=max_seq,
         page_size=cfg.page_size, kv_heads=cfg.n_kv_heads,
         head_dim=cfg.head_dim, dtype=layers.torch_dtype(cfg.dtype),
-        device=device)
+        device=device, mesh=mesh)
 
 
-def prefill(cfg: ArchConfig, params, batch, cache, ffn=dense_mlp):
+def prefill(cfg: ArchConfig, params, batch, cache, ffn=dense_mlp,
+            mesh=None):
     """Full-sequence forward that also writes the paged KV cache (in
     place). Returns (cache, logits_last [B, V])."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     x = params["embed"][tokens].to(layers.torch_dtype(cfg.dtype))
-    return prefill_embeds(cfg, params, x, positions, cache, ffn=ffn)
+    return prefill_embeds(cfg, params, x, positions, cache, ffn=ffn,
+                          mesh=mesh)
 
 
 def prefill_embeds(cfg: ArchConfig, params, x, positions, cache,
-                   ffn=dense_mlp):
+                   ffn=dense_mlp, mesh=None):
     """`prefill` over input embeddings x [B, S, D] at `positions` [B, S]
     (the VLM's patch prefix and text share it); writes the pages of all S
-    positions and sets seq_lens to S."""
+    positions (on a ``"model"`` mesh, those this process holds) and sets
+    seq_lens to S."""
     B, S, _ = x.shape
     H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     cos, sin = layers.rope_tables(positions, hd, cfg.rope_theta)
@@ -183,24 +196,27 @@ def prefill_embeds(cfg: ArchConfig, params, x, positions, cache,
         x = x + layers.out_proj(o, lp["wo"]).to(x.dtype)
         h2 = layers.rms_norm(x, lp["ln2"])
         x = x + ffn(cfg, h2, lp)
-        paged.write_prefill(cache["k_pages"][l], k, cache["page_table"])
-        paged.write_prefill(cache["v_pages"][l], v, cache["page_table"])
+        paged.write_prefill(cache["k_pages"][l], k, cache["page_table"],
+                            mesh=mesh)
+        paged.write_prefill(cache["v_pages"][l], v, cache["page_table"],
+                            mesh=mesh)
     x = layers.rms_norm(x, params["ln_f"])
     logits = logits_fn(cfg, params, x[:, -1])
     seq_lens = torch.full((B,), S, dtype=torch.int32, device=x.device)
     return dict(cache, seq_lens=seq_lens), logits
 
 
-def decode(cfg: ArchConfig, params, cache, batch, ffn=dense_mlp):
+def decode(cfg: ArchConfig, params, cache, batch, ffn=dense_mlp,
+           mesh=None):
     """One decode step: tokens [B, 1] -> (cache, logits [B, V]); writes
-    the new token's K/V into the cache's pages in place.
+    the new token's K/V into the cache's pages in place (on a ``"model"``
+    mesh, into the page's owner: `paged.write_attend_seqpar`).
 
     The RoPE tables are the same for every layer of a step, so they are
     made once per step."""
     tokens = batch["tokens"]
     H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     pos = cache["seq_lens"]  # [B] position of the new token
-    seq_lens = pos + 1
     pt = cache["page_table"]
     cos, sin = layers.rope_tables(pos[:, None], hd, cfg.rope_theta)
     x = params["embed"][tokens[:, 0]].to(
@@ -213,13 +229,12 @@ def decode(cfg: ArchConfig, params, cache, batch, ffn=dense_mlp):
         k = layers.apply_rope(layers.qk_proj(h, lp["wk"], KVH, hd), cos,
                               sin)[:, 0]
         v = layers.qk_proj(h, lp["wv"], KVH, hd)[:, 0]
-        kp, vp = cache["k_pages"][l], cache["v_pages"][l]
-        paged.write_token(kp, k, pt, pos)
-        paged.write_token(vp, v, pt, pos)
-        o = paged.attend(q, kp, vp, pt, seq_lens, impl=cfg.attend_impl)
+        o, _, _ = paged.write_attend_seqpar(
+            q, k, v, cache["k_pages"][l], cache["v_pages"][l], pt, pos,
+            mesh=mesh, impl=cfg.attend_impl)
         x = x + layers.out_proj(o[:, None], lp["wo"]).to(x.dtype)
         h2 = layers.rms_norm(x, lp["ln2"])
         x = x + ffn(cfg, h2, lp)
     x = layers.rms_norm(x, params["ln_f"])
     logits = logits_fn(cfg, params, x[:, 0])
-    return dict(cache, seq_lens=seq_lens), logits
+    return dict(cache, seq_lens=pos + 1), logits

@@ -8,7 +8,8 @@ and prompt prefix, as in the reference (PaliGemma itself attends
 bidirectionally there).
 
 `prefill` runs `transformer.prefill_embeds` over the patch prefix and the
-prompt, whose pages it writes in place; `decode` is the dense one.
+prompt, whose pages it writes in place; `decode` is the dense one. Both
+pass a `DeviceMesh` (``mesh=``) on, as the dense family takes it.
 """
 from __future__ import annotations
 
@@ -54,7 +55,7 @@ def loss(cfg: ArchConfig, params, batch):
     return l, {"loss": l}
 
 
-def prefill(cfg: ArchConfig, params, batch, cache):
+def prefill(cfg: ArchConfig, params, batch, cache, mesh=None):
     """Image + prompt prefill: the patch prefix occupies the first pages.
     Raises unless n_patches + S_text is a whole number of pages."""
     tokens, patch_embeds = batch["tokens"], batch["patch_embeds"]
@@ -63,4 +64,5 @@ def prefill(cfg: ArchConfig, params, batch, cache):
         raise ValueError(f"{P} patches + {S} text tokens is not a multiple "
                          f"of the page size {cfg.page_size}")
     x, positions = _embeds(cfg, params, tokens, patch_embeds)
-    return transformer.prefill_embeds(cfg, params, x, positions, cache)
+    return transformer.prefill_embeds(cfg, params, x, positions, cache,
+                                      mesh=mesh)

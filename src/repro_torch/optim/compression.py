@@ -10,8 +10,8 @@ The port of `repro.optim.compression`:
     the next step's quantization (Seide et al.).
 
 `compressed_psum` is the reference's `shard_map` collective (an int8
-all-reduce over a mesh axis); it waits for the mesh-only pieces (ROADMAP
-A7) and raises here.
+all-reduce over a mesh axis); it waits for the training half of the
+mesh-only pieces (ROADMAP A7b) and raises here.
 """
 from __future__ import annotations
 
@@ -55,7 +55,7 @@ def compressed_psum(x, axis_name: str):
     """The reference's int8-quantized psum along a mesh axis."""
     raise NotImplementedError(
         "compressed_psum is a collective over a device mesh: it waits for "
-        "the port's mesh-only pieces (ROADMAP A7)")
+        "the port's mesh-only pieces (ROADMAP A7b)")
 
 
 class ErrorFeedback(NamedTuple):

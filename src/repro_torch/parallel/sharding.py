@@ -5,8 +5,10 @@ mapping of axis names to sizes (``{"data": 16, "model": 16}``, or with a
 leading ``"pod"``); a placement is a tuple with, for each dimension of a
 leaf, the mesh axes it is split over (an axis name, a tuple of two or
 more) or ``None``: what a ``PartitionSpec`` holds. Nothing here touches
-a device. Turning placements into DTensor placements on a live ``DeviceMesh`` (the
-reference's ``named``) waits for the multi-GPU tier (ROADMAP A7).
+a device. Turning placements into DTensor placements on a live
+``DeviceMesh`` (the reference's ``named``; the mesh itself is
+``repro_torch.launch.mesh.make_host_mesh(live=True)``) waits for the
+training half of the mesh-only pieces (ROADMAP A7b).
 
 Conventions (divisibility-aware — falls back per dimension):
   * batch/sequence data shard over all non-'model' axes ('pod','data').

@@ -11,7 +11,8 @@ the reference's loop, history fields and restore-from-latest rule:
     byte for byte), or start over from the initial state without one.
 
 The reference's elastic re-meshing (restore onto a new mesh) waits for the
-mesh-only pieces (ROADMAP A7); the port restores onto the state's device.
+training half of the mesh-only pieces (ROADMAP A7b); the port restores
+onto the state's device.
 """
 from __future__ import annotations
 

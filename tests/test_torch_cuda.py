@@ -1094,7 +1094,7 @@ def test_scan_engine_refuses_a_mesh_on_card(cuda):
     from repro_torch.launch.serving import ScanEngine
     cfg = system.SystemConfig(kind="fused", heap_bytes=1 << 20,
                               num_threads=T)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ScanEngine(cfg, 2, 2, mesh=object(), device=cuda)
     assert ScanEngine(cfg, 2, 2, mesh=False, device=cuda).mesh is None
 

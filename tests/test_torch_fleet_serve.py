@@ -206,7 +206,7 @@ def test_sessions_reproduce_the_fig_arena_baseline_rows(monkeypatch):
 
 def test_engine_refuses_a_mesh_a_placement_and_bad_traffic():
     cfg = _cfg("fused", HEAP)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tsf.FleetServe(cfg, 2, 2, mesh=object(), device="cpu")
     assert tsf.FleetServe(cfg, 2, 2, mesh=None, device="cpu").mesh is None
     with pytest.raises(ValueError, match="unknown placement"):

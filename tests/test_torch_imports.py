@@ -15,9 +15,13 @@ token stream, train and serve steps, fault-tolerant loop and trainer), and
 the moe, vlm and audio model families and the recurrent ones (ssm,
 hybrid), and the analysis tooling (pimcheck with its recorder, passes and
 fixtures, the op-level accounting, the dry-run, the mesh shapes and the
-sharding rules; the five kernels as `repro_torch` operators); the
-registry lists all seven kinds and covers all six model families;
-`repro_torch.core` re-exports the reference's names."""
+sharding rules; the five kernels as `repro_torch` operators), and the
+tier across processes (the collectives, the rank mesh, the live world
+and mesh with its spawn helper, the sharded heap on a mesh,
+`write_attend_seqpar`; tools/seqpar_divergence.py and seqpar_mutants.py
+and the mesh tests' per-process module); the registry lists all seven kinds and covers all
+six model families; `repro_torch.core` re-exports the reference's
+names."""
 import subprocess
 import sys
 from pathlib import Path
@@ -26,7 +30,7 @@ ROOT = Path(__file__).resolve().parents[1]
 
 PROBE = """
 import importlib, importlib.util, pkgutil, sys
-sys.path[:0] = [{src!r}, {root!r}, {tools!r}]
+sys.path[:0] = [{src!r}, {root!r}, {tools!r}, {root!r} + "/tests"]
 import repro_torch
 for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(m.name)
@@ -39,6 +43,9 @@ import serve_phase
 import warp_latency
 import op_cost
 import dryrun_grid
+import seqpar_divergence
+import seqpar_mutants
+import torch_mesh_workers
 for name in ("quickstart", "graph_update", "serve_paged", "serve_decode",
              "serve_fleet", "train_lm"):
     spec = importlib.util.spec_from_file_location(
@@ -76,7 +83,8 @@ from repro_torch.analysis import (fixtures, passes, pimcheck,
                                   sanitizer_report, trace_utils)
 from repro_torch.kernels import _library
 from repro_torch.launch import dryrun, mesh, op_analysis
-from repro_torch.parallel import sharding
+from repro_torch.parallel import comm, meshctx, sharding
+from repro_torch.kvcache import paged
 assert all(callable(f) for f in (
     pimcheck.main, pimcheck.trace_kind, pimcheck.trace_fixture,
     pimcheck.check_kinds, pimcheck.check_fixtures, pimcheck.lint_tapes,
@@ -85,7 +93,12 @@ assert all(callable(f) for f in (
     trace_utils.forward_taint, trace_utils.derives_from, trace_utils.sig,
     sanitizer_report, op_analysis.analyze, op_analysis.collective_schedule,
     dryrun.main, dryrun.dryrun_cell, dryrun.input_specs, dryrun.save_result,
-    mesh.make_production_mesh, mesh.make_host_mesh, sharding.dp_axes,
+    mesh.make_production_mesh, mesh.make_host_mesh, mesh.init_world,
+    mesh.spawn, meshctx.make_rank_mesh, meshctx.rank_mesh_size,
+    comm.all_gather, comm.gather, comm.all_reduce, comm.barrier,
+    heap.RankShard, heap.sharded_inner, paged.write_attend_seqpar,
+    paged.batch_rows, paged.local_pages, seqpar_divergence.main,
+    seqpar_mutants.main, torch_mesh_workers.run_all, sharding.dp_axes,
     sharding.param_specs, sharding.batch_specs, sharding.cache_specs,
     sharding._sharded_bytes))
 assert pimcheck.TIERS == ("single", "vmap", "sharded")

@@ -158,9 +158,9 @@ def test_decode_trace_export_replays_bit_for_bit(kind):
 
 def test_engine_refuses_a_mesh_and_an_unknown_placement():
     for mesh in (object(), "ranks"):
-        with pytest.raises(NotImplementedError, match="multi-GPU"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             tsd.DecodeServe(_cfg("fused"), 2, 2, mesh=mesh, device="cpu")
-        with pytest.raises(NotImplementedError, match="multi-GPU"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             serving.ScanEngine(_cfg("fused"), 2, 2, mesh=mesh, device="cpu")
     for mesh in (False, None):
         assert serving.ScanEngine(_cfg("fused"), 2, 2, mesh=mesh,

@@ -1,5 +1,7 @@
 """The port's sharded tier (`ShardedHeap`, `sharded_init` /
-`sharded_step` / `sharded_inner`): the rank axis on one device.
+`sharded_step` / `sharded_inner`): the rank axis on one device, and the
+objects it takes for a mesh (the tier across processes is
+tests/test_torch_mesh.py).
 
 R ranks of C cores fold onto the core axis, so the tier must equal
 `MultiCoreHeap` per (rank, core) on every kind, and the reference's
@@ -88,7 +90,7 @@ def test_sharded_matches_reference_mesh_false():
             _fields_equal(g, w, f"round={r}")
         for a, b in zip(convert.leaves(ts.state), jax.tree.leaves(js.state)):
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))
-    fn, mesh = theap.sharded_inner(_cfg("hwsw"), mesh=None)
+    fn, mesh = theap.sharded_inner(_cfg("hwsw"), R, mesh=None)
     assert mesh is None
     st = theap.sharded_init(_cfg("hwsw"), R, C, device="cpu")
     req = theap.malloc_request(torch.full((R, C, T), 64, dtype=torch.int32))
@@ -154,11 +156,30 @@ def test_donation_and_rank_independence():
 
 
 def test_mesh_other_than_none_or_false_raises():
+    """Anything but None, False or a 1-D DeviceMesh raises, and so does a
+    mesh whose size does not divide R (a 3-process mesh of a fake
+    4-process group, which needs no processes)."""
     for mesh in (True, object(), "ranks"):
-        with pytest.raises(NotImplementedError, match="multi-GPU not ported"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             theap.ShardedHeap(_cfg(), R, C, mesh=mesh, device="cpu")
-        with pytest.raises(NotImplementedError):
-            theap.sharded_inner(_cfg(), mesh=mesh)
+        with pytest.raises(TypeError, match="DeviceMesh"):
+            theap.sharded_inner(_cfg(), R, mesh=mesh)
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=4)
+    try:
+        mesh = DeviceMesh("cpu", [0, 1], mesh_dim_names=("ranks",))
+        with pytest.raises(ValueError, match="num_ranks=3 not divisible"):
+            theap.ShardedHeap(_cfg(), R, C, mesh=mesh, device="cpu")
+        with pytest.raises(ValueError, match="not divisible"):
+            theap.sharded_inner(_cfg(), R, mesh=mesh)
+        flat = DeviceMesh("cpu", [[0, 1], [2, 3]],
+                          mesh_dim_names=("data", "model"))
+        with pytest.raises(TypeError, match="1-D DeviceMesh"):
+            theap.sharded_inner(_cfg(), 4, mesh=flat)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_defaults_to_the_card(monkeypatch):

@@ -25,7 +25,10 @@ tape, a kernel node that is not there, and a run whose missing fixture is
 not the write-race pass's; its dry-run check fails a peak above the
 measured one, argument bytes a leaf short and FLOPs outside the band, and
 the FLOPs it holds (train_flops less what the checkpointed step does not
-recompute) equal a reduced cut's dry-run to the unit.
+recompute) equal a reduced cut's dry-run to the unit. Phase 16's checks
+fail a corrupted gathered response, a process holding the wrong rank
+slice after a restore, and a flipped decode token at a clear top-2 gap
+(and pass one at a near-tie).
 """
 import dataclasses
 import sys
@@ -758,3 +761,75 @@ def test_dry_run_check_fails_a_high_peak_a_missing_leaf_and_flops():
     with pytest.raises(AssertionError, match="peak"):
         chip_smoke.check_dry_train(ana, args, ana["peak_bytes"] + 1,
                                    peak, want)
+
+
+# ------------------------------------------------------------ phase 16 --
+def _small_fleet():
+    """A one-device FleetServe session on the host (R=2, C=2), as phase
+    16 digests it: (want, responses)."""
+    from repro_torch.core.system import SystemConfig
+    from repro_torch.launch.serve_fleet import FleetServe, TrafficConfig
+    eng = FleetServe(SystemConfig(kind="sw", heap_bytes=1 << 19,
+                                  num_threads=16), 2, 2,
+                     traffic=TrafficConfig(seed=17, rounds=8,
+                                           arrival_rate=16.0, num_tenants=16,
+                                           queue_cap=32), device="cpu")
+    plan = eng.plan()
+    state, resps = eng.run(plan)
+    want = dict(report=eng.report(plan, resps, state),
+                resps=chip_smoke.resp_digests(resps),
+                state_rows={(r, r + 1): chip_smoke.leaf_digests(
+                    state, slice(r, r + 1)) for r in range(2)})
+    good = [dict(rank=r, report=want["report"], resps=want["resps"],
+                 held=(r, r + 1), state=want["state_rows"][(r, r + 1)])
+            for r in range(2)]
+    chip_smoke.check_mesh_fleet(good, want, "sound")
+    return want, good, resps
+
+
+def test_mesh_check_fails_a_corrupted_gathered_response():
+    want, good, resps = _small_fleet()
+    lat = resps.latency_cyc.clone()
+    lat.view(-1)[7] = torch.nextafter(lat.view(-1)[7], torch.tensor(1e9))
+    bad = dict(good[1], resps=chip_smoke.resp_digests(
+        resps._replace(latency_cyc=lat)))
+    with pytest.raises(AssertionError, match="process 1's responses.*"
+                       "latency_cyc"):
+        chip_smoke.check_mesh_fleet([good[0], bad], want, "(a)")
+
+
+def test_mesh_check_fails_a_wrong_rank_slice_after_a_restore():
+    want, good, _ = _small_fleet()
+    assert want["state_rows"][(0, 1)] != want["state_rows"][(1, 2)]
+    swapped = dict(good[0], state=want["state_rows"][(1, 2)])
+    with pytest.raises(AssertionError, match=r"ranks \[0, 1\)"):
+        chip_smoke.check_mesh_fleet([swapped, good[1]], want, "(b)")
+
+
+def test_decode_check_fails_a_flipped_token_and_passes_a_near_tie():
+    want = torch.tensor([[5, 6, 7, 8], [1, 2, 3, 4]])   # [B, steps + 1]
+    gaps = torch.full((4, 2), 0.5)                      # [steps + 1, B]
+    gaps[1, 0] = chip_smoke.SEQPAR_BF16_GAP / 2
+    near = want.clone()
+    near[0, 1] = 9                   # at a near-tie: allowed
+    errs, diff = chip_smoke.near_tie_errors(near, want, gaps, "fed")
+    assert errs == [] and diff == [(0, 1)]
+    near[0, 2:] = 0                  # a free-running history after it
+    errs, diff = chip_smoke.near_tie_errors(near, want, gaps, "free",
+                                            free=True)
+    assert errs == [] and diff == [(0, 1)]
+    flipped = want.clone()
+    flipped[1, 2] = 0                # at a clear gap: a fault
+    errs, diff = chip_smoke.near_tie_errors(flipped, want, gaps, "fed")
+    assert diff == [(1, 2)] and len(errs) == 1 and "request 1 step 2" in \
+        errs[0]
+
+
+def test_decode_gaps_read_the_real_vocabulary():
+    """`top2_gaps`: each step's top-2 gap over max |logit|, one row a
+    step, the padded columns past the vocabulary left out."""
+    step0 = torch.tensor([[4.0, 3.0, -8.0, 99.0], [1.0, 1.0, 0.5, 50.0]])
+    step1 = torch.tensor([[0.0, 2.0, 1.0, -1e30], [-10.0, 5.0, 4.0, 7.0]])
+    gaps = chip_smoke.top2_gaps([step0, step1], vocab=3)
+    torch.testing.assert_close(gaps, torch.tensor([[1 / 8, 0.0],
+                                                   [1 / 2, 1 / 10]]))
