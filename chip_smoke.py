@@ -3261,7 +3261,8 @@ TRAIN_LAYERS = 8      # of granite-3-8b's 40: the depth the card holds
 TRAIN_SEQ = 4096      # train_4k's sequence length
 TRAIN_BATCH = 4       # global batch (train_4k: 256)
 TRAIN_MICRO = 2       # microbatches a step
-TRAIN_STEPS = 4       # timed steps, after one warm-up step
+TRAIN_STEPS = 2       # timed steps, after one warm-up step (4 before
+#                       phase 17: its ~100 s came from here)
 TRAIN_REPEAT = 4      # steps on one repeated batch: the loss must fall
 CHECK_SEQ = 256       # (a): one full-width fp32 layer, B=1
 TRAIN_LOSS_TOL = 1e-5   # (a): |loss card - loss CPU| / |loss CPU|
@@ -3965,7 +3966,7 @@ def phase_families(seed, device):
 REC_ARCHS = ("mamba2_130m", "recurrentgemma_9b")
 REC_CHECK_LAYERS = {"mamba2_130m": 24,       # (a): full width, fp32; all
                     "recurrentgemma_9b": 3}  # one (rec, rec, attn) group
-REC_CHECK_BATCH = 8
+REC_CHECK_BATCH = 4     # 8 before phase 17; (a)'s CPU side is host-bound
 REC_CHECK_PROMPT = 256  # (a): two of mamba2's SSD chunks
 REC_CHECK_STEPS = 8
 REC_CHECK_SEQ = 256     # (a): the loss and its gradients at B=1
@@ -4422,7 +4423,7 @@ def phase_recurrent(seed, device, smi):
 # encoder too), TRAIN_CHECK_TEXT text tokens (paligemma after its patches)
 FAM_TRAIN_CHECK = {"olmoe_1b_7b": 1, "qwen2_moe_a2_7b": 1, "paligemma_3b": 2,
                    "whisper_small": 2}
-TRAIN_CHECK_TEXT = 256
+TRAIN_CHECK_TEXT = 128  # 256 before phase 17; (a)'s CPU side is host-bound
 # (b): (layers, microbatches) at full width, TRAIN_BATCH x TRAIN_SEQ text
 # tokens, 16 B of state a parameter: olmoe 4 of 16 layers (1.885 B params,
 # 30.2 GB), qwen2-moe 2 of 24 (1.833 B, 29.3 GB), paligemma and whisper
@@ -5569,6 +5570,495 @@ def phase_mesh(seed, device, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: training on a mesh of processes
+MT_PROCS = 4            # the ("data"=2, "model"=2) mesh
+MT_MESH = (2, 2)
+MT_LAYERS = 2           # (a): granite-3-8b at full width, 2 of its 40 layers
+MT_BATCH, MT_SEQ = 4, 1024   # (a): global batch
+MT_MICRO = 2            # (a): microbatches a step
+MT_STEPS = 2            # (a): steps
+MT_BF16_LOSS_TOL = 1e-3   # (a) bf16: |loss mesh - one device| / |loss|
+MT_BF16_GNORM_TOL = 1e-2  # (a) bf16: the same for the gradient norm
+MT_FP32 = (1, 4, 256, 1)  # (a) fp32 guard: layers, global batch,
+#                           sequence, steps (one microbatch: the guard's
+#                           cost is its weights' traffic, ~18 s a step
+#                           through the host; the update's effect is held
+#                           by the bf16 run's step 2 and by (c))
+MT_FP32_LOSS_TOL = 1e-5   # (a) fp32: loss, relative
+MT_FP32_GNORM_TOL = 1e-4  # (a) fp32: gradient norm, relative
+MT_PSUM_N = 4096 * 4096   # (b): elements each process sums
+MT_PSUM_TOL = 1e-6      # (b): max |sum - parent's| / max |parent's|
+MT_DRILL = ["--arch", SERVE_ARCH, "--reduced", "--steps", "12", "--batch",
+            "4", "--seq", "32", "--ckpt-every", "3", "--fail-at", "7"]
+MT_LINE_TOL = 1e-4      # (c): the trainer's printed numbers, rel and abs
+MT_RESTORE = (4, 2)     # (c): steps, the checkpoint restored (step 2)
+MT_RESTORE_LOSS_TOL = 1e-5  # (c): a restored run's loss, relative
+MT_RESTORE_PARAM_TOL = 5e-5  # (c): its parameters, absolute
+# (a)'s comparisons use the trainer's optimizer settings (lr 1e-3 after a
+# 10-step warm-up), so that step 2's loss reads step 1's update; (c) uses
+# flat attention weights: under the reduced config's attn_4d init 12 Adam
+# steps turn summation-order noise into another run (tests/test_torch_train)
+
+
+def mt_opt(steps):
+    from repro_torch.optim.adamw import AdamWConfig
+    return AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=steps)
+
+
+def mt_batches(vocab, B, S, n, seed):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        t = rng.integers(0, vocab, (B, S)).astype(np.int32)
+        out.append({"tokens": t, "labels": t.copy()})
+    return out
+
+
+def mt_cfg(layers, dtype):
+    from repro_torch import configs
+    return dataclasses.replace(configs.get(SERVE_ARCH), n_layers=layers,
+                               dtype=dtype, attn_4d=False)
+
+
+def mt_value(x):
+    return float(x.full_tensor() if hasattr(x, "placements") else x)
+
+
+def mt_run(cfg, batches, n_micro, device, mesh, seed, spent=None):
+    """`steps` of `cfg` from `seed`'s weights over `batches`, on one device
+    (mesh None) or on `mesh` (FSDP + TP by `param_specs(fsdp=True)`,
+    grad_pspec); each step's (loss, gradient norm, ms, collective ms) and
+    the local shapes of the parameters and of the first batch."""
+    import torch
+    from repro_torch.data import pipeline
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import registry
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding
+    opt_cfg = mt_opt(len(batches))
+    params = registry.init(cfg, seed=seed, device=device)
+    opt = adamw.init(opt_cfg, params)
+    pspec = None
+    if mesh is not None:
+        params, opt, pspec = sharding.place_state(mesh, params, opt,
+                                                  fsdp=True)
+        torch.cuda.empty_cache() if device.type == "cuda" else None
+    step = steps_mod.make_train_step(cfg, opt_cfg, n_micro=n_micro,
+                                     grad_pspec=pspec)
+    rows, local = [], None
+    for b in batches:
+        sync(device)
+        t0, c0 = time.perf_counter(), spent() if spent else 0.0
+        feed = (pipeline.to_device(b, device) if mesh is None
+                else pipeline.shard_batch(mesh, b))
+        params, opt, m = step(params, opt, feed)
+        loss, gnorm = mt_value(m["loss"]), mt_value(m["grad_norm"])
+        sync(device)
+        rows.append((loss, gnorm, 1e3 * (time.perf_counter() - t0),
+                     1e3 * ((spent() if spent else 0.0) - c0)))
+        if mesh is not None and local is None:
+            local = dict(params={k: tuple(v.to_local().shape) for k, v in
+                                 named_leaves(params).items()},
+                         batch={k: tuple(v.to_local().shape)
+                                for k, v in feed.items()})
+    return rows, local
+
+
+def mt_collective_clock():
+    """A reader of this process's seconds in collectives: the host-staged
+    gloo group's counter (None under nccl, whose collectives are
+    asynchronous)."""
+    import torch.distributed as dist
+    from repro_torch.parallel.comm import HostStagedGroup
+    if not isinstance(dist.group.WORLD, HostStagedGroup):
+        return None
+    return lambda: HostStagedGroup.spent_s
+
+
+def mt_restore_run(cfg, batches, device, mesh, ckpt_dir, seed):
+    """(c): `run_with_recovery` over `batches` (one microbatch a step,
+    a checkpoint every MT_RESTORE[1] steps) from `seed`'s weights placed on
+    `mesh` by `param_specs(fsdp=True)` (None: one device); each step's
+    loss, the final parameters on the host and the steps it ran."""
+    from repro_torch.data import pipeline
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import registry
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding
+    from repro_torch.runtime import fault
+    total, every = MT_RESTORE
+    opt_cfg = mt_opt(total)
+    params = registry.init(cfg, seed=seed, device=device)
+    opt = adamw.init(opt_cfg, params)
+    if mesh is not None:
+        params, opt, _ = sharding.place_state(mesh, params, opt, fsdp=True)
+    inner = steps_mod.make_train_step(cfg, opt_cfg)
+    losses = {}
+
+    def step(state, i, _):
+        feed = (pipeline.to_device(batches[i], device) if mesh is None
+                else pipeline.shard_batch(mesh, batches[i]))
+        p, o, m = inner(*state, feed)
+        losses[i] = mt_value(m["loss"])
+        return (p, o), m
+
+    (p, _), hist = fault.run_with_recovery(
+        fault.TrainLoopConfig(total_steps=total, ckpt_every=every,
+                              ckpt_dir=ckpt_dir),
+        init_state=(params, opt), step_fn=step, make_batch=lambda i: i)
+    whole = {k: (v.full_tensor() if hasattr(v, "placements") else v)
+             .detach().float().cpu() for k, v in named_leaves(p).items()}
+    return losses, whole, hist["steps"]
+
+
+def mesh_train_worker(seed, psum_seed, drill_dir, restore_dir, backend):
+    """Phase 17 on one process of the (2, 2) mesh: (a) the sharded step at
+    full width in bf16 and the fp32 guard, (b) compressed_psum, (c)
+    train.main on the (4, 1) mesh with --fail-at and the restore from
+    (2, 2) onto (1, 2). Returns host objects."""
+    import contextlib
+    import io
+    import os
+    import shutil
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+    from repro_torch import configs
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import train
+    from repro_torch.optim import compression
+    device = mesh_device()
+    rank = dist.get_rank()
+    mesh = mesh_mod.make_host_mesh(model=MT_MESH[1], live=True)
+    clock = mt_collective_clock()
+    out = dict(rank=rank, mesh=list(mesh.mesh.shape))
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    # ---- (a)
+    cfg = mt_cfg(MT_LAYERS, "bfloat16")
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    out["bf16"], out["local"] = mt_run(
+        cfg, mt_batches(cfg.vocab, MT_BATCH, MT_SEQ, MT_STEPS, seed),
+        MT_MICRO, device, mesh, seed, clock)
+    out["peak"] = (torch.cuda.max_memory_allocated(device)
+                   if device.type == "cuda" else 0)
+    out["launches"] = {k: fn.launches for k, fn in counters.items()}
+    L, B, S, n = MT_FP32
+    fcfg = mt_cfg(L, "float32")
+    out["fp32"], _ = mt_run(fcfg, mt_batches(fcfg.vocab, B, S, n, seed), 1,
+                            device, mesh, seed)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    # ---- (b)
+    flat = init_device_mesh(mesh.device_type, (dist.get_world_size(),),
+                            mesh_dim_names=("data",))
+    g = torch.Generator(device=device).manual_seed(psum_seed + rank)
+    x = torch.randn(MT_PSUM_N, generator=g, device=device)
+    qs, scales, n = compression.gather_quantized(x, "data", flat)
+    total = compression.compressed_psum(x, "data", flat)
+    out["psum"] = dict(q=[host_digest(q) for q in qs],
+                       scales=[host_digest(v) for v in scales], n=n,
+                       sum_digest=host_digest(total),
+                       sum=total.cpu() if rank == 0 else None)
+    del x, qs, scales, total
+    # ---- (c) the trainer, on the (4, 1) mesh
+    get = configs.get
+    configs.get = lambda name: dataclasses.replace(get(name), attn_4d=False)
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            (tp, _), hist = train.main(MT_DRILL + [
+                "--dist-backend", backend, "--ckpt-dir", drill_dir])
+    finally:
+        configs.get = get
+    out["drill"] = dict(lines=buf.getvalue().splitlines(), hist=hist,
+                        placements=sorted({str(p.placements) for p in
+                                           named_leaves(tp).values()}))
+    # ---- (c) the restore: (2, 2) -> (1, 2)
+    rcfg = dataclasses.replace(get(SERVE_ARCH).reduced(), attn_4d=False)
+    total, every = MT_RESTORE
+    batches = mt_batches(rcfg.vocab, 4, 32, total, seed + 1)
+    losses, whole, _ = mt_restore_run(rcfg, batches, device, mesh,
+                                      f"{restore_dir}/whole", seed)
+    out["whole"] = dict(losses=losses, params=whole if rank == 0 else None)
+    if rank == 0:
+        os.makedirs(f"{restore_dir}/sub")
+        shutil.copytree(f"{restore_dir}/whole/step_{every:08d}",
+                        f"{restore_dir}/sub/step_{every:08d}")
+    sub = DeviceMesh(mesh.device_type, torch.tensor([[0, 1]]),
+                     mesh_dim_names=("data", "model"))
+    from repro_torch.parallel import comm
+    comm.barrier()
+    if rank < 2:
+        losses, params, ran = mt_restore_run(rcfg, batches, device, sub,
+                                             f"{restore_dir}/sub", seed)
+        out["sub"] = dict(losses=losses, steps=ran,
+                          params=params if rank == 0 else None)
+    comm.barrier()
+    return out
+
+
+def mt_lines_equal(got, want, what):
+    """The trainer's printed lines: the same words, numbers within
+    MT_LINE_TOL (relative and absolute)."""
+    import re
+    num = re.compile(r"[-+]?\d+\.\d+(?:e[-+]\d+)?")
+    keep = ("arch=", "step ", "done:", "latest checkpoint")
+    # the watchdog's straggler count reads the host's clock
+    slow = re.compile(r"\d+ straggler events")
+    a = [slow.sub("#", x) for x in got if x.startswith(keep)]
+    b = [slow.sub("#", x) for x in want if x.startswith(keep)]
+    if len(a) != len(b):
+        raise AssertionError(f"{what}: {len(a)} lines, want {len(b)}")
+    for x, y in zip(a, b):
+        nx, ny = num.findall(x), num.findall(y)
+        if num.sub("#", x) != num.sub("#", y) or any(
+                abs(float(u) - float(v)) > MT_LINE_TOL * (1 + abs(float(v)))
+                for u, v in zip(nx, ny)):
+            raise AssertionError(f"{what}: {x!r} != {y!r}")
+    return len(a)
+
+
+def mt_want_local(cfg, mesh_shape):
+    """Each parameter leaf's local shape on a process of the mesh, from
+    its placement (`param_specs(fsdp=True)`): every dimension over the
+    product of the axes it names."""
+    from repro_torch.models import registry
+    from repro_torch.parallel import sharding
+    meta = registry.param_specs(cfg)
+    specs = named_leaves(sharding.param_specs(mesh_shape, meta, fsdp=True))
+    out = {}
+    for k, t in named_leaves(meta).items():
+        shape = list(t.shape)
+        for d, axes in enumerate(specs[k]):
+            for a in (() if axes is None else (axes,) if isinstance(
+                    axes, str) else axes):
+                shape[d] //= mesh_shape[a]
+        out[k] = tuple(shape)
+    return out
+
+
+def phase_mesh_train(seed, device, smi):
+    """Phase 17: (a) granite-3-8b at full width (MT_LAYERS layers, flat
+    attention weights), FSDP + TP on a (data=2, model=2) mesh of
+    MT_PROCS processes, grad_pspec, MT_MICRO microbatches, MT_STEPS steps
+    at MT_BATCH x MT_SEQ == the same steps on one device (bf16 within
+    MT_BF16_*, the fp32 guard within MT_FP32_*), every process holding the
+    shards its placements imply; (b) compressed_psum over the processes ==
+    each rank's quantization bit for bit, its sum within MT_PSUM_TOL of the
+    parent's; (c) train.main on the (4, 1) mesh with --fail-at == the
+    one-device trainer's lines, and a checkpoint saved on (2, 2) restored
+    onto (1, 2) and onto one device, each continuing == the uninterrupted
+    run. Returns the result dict."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import train
+    from repro_torch.models import registry
+    from repro_torch.optim import compression
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count() if device.type == "cuda" else 0
+    backend = "nccl" if cards >= MT_PROCS else "gloo"
+    where = (f"{backend} on one card: collectives staged through the host, "
+             f"not NVLink" if backend == "gloo" and cards <= 1 else backend)
+    print(f"phase 17: {cards} card(s); {MT_PROCS} processes on a "
+          f"(data={MT_MESH[0]}, model={MT_MESH[1]}) mesh, backend {backend}"
+          f" [{smi}]")
+    out = dict(cards=cards, backend=backend, procs=MT_PROCS)
+    # ---- one device, in this process
+    t0 = time.perf_counter()
+    cfg = mt_cfg(MT_LAYERS, "bfloat16")
+    one_bf16, _ = mt_run(cfg, mt_batches(cfg.vocab, MT_BATCH, MT_SEQ,
+                                         MT_STEPS, seed), MT_MICRO, device,
+                         None, seed)
+    L, B, S, n = MT_FP32
+    fcfg = mt_cfg(L, "float32")
+    one_fp32, _ = mt_run(fcfg, mt_batches(fcfg.vocab, B, S, n, seed), 1,
+                         device, None, seed)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    psum_seed = seed + 17
+    parts = []
+    for r in range(MT_PROCS):
+        g = torch.Generator(device=device).manual_seed(psum_seed + r)
+        parts.append(compression.quantize(torch.randn(
+            MT_PSUM_N, generator=g, device=device)))
+    want_q = [host_digest(q) for q, _, _ in parts]
+    want_s = [host_digest(s) for _, s, _ in parts]
+    want_sum = sum(compression.dequantize(q, s, n, (n,)).double()
+                   for q, s, n in parts).cpu()
+    del parts
+    get = configs.get
+    configs.get = lambda name: dataclasses.replace(get(name), attn_4d=False)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mt_")
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            train.main(MT_DRILL + ["--device", str(device), "--ckpt-dir",
+                                   f"{tmp}/one_drill"])
+        one_lines = buf.getvalue().splitlines()
+        rcfg = dataclasses.replace(get(SERVE_ARCH).reduced(), attn_4d=False)
+        one_s = time.perf_counter() - t0
+        # ---- the spawn
+        t0 = time.perf_counter()
+        got = mesh_mod.spawn(mesh_train_worker, MT_PROCS, seed, psum_seed,
+                             f"{tmp}/drill", f"{tmp}/restore", backend,
+                             backend=backend, timeout=900)
+        spawn_s = time.perf_counter() - t0
+        # ---- (c) the restore onto one device, here
+        total, every = MT_RESTORE
+        import os
+        os.makedirs(f"{tmp}/one")
+        shutil.copytree(f"{tmp}/restore/whole/step_{every:08d}",
+                        f"{tmp}/one/step_{every:08d}")
+        one_restore = mt_restore_run(
+            rcfg, mt_batches(rcfg.vocab, 4, 32, total, seed + 1), device,
+            None, f"{tmp}/one", seed)
+    finally:
+        configs.get = get
+        shutil.rmtree(tmp, ignore_errors=True)
+    errs = []
+    # ---- (a)
+    want_local = mt_want_local(cfg, dict(zip(("data", "model"), MT_MESH)))
+    whole_shapes = {k: tuple(v.shape) for k, v in
+                    named_leaves(registry.param_specs(cfg)).items()}
+    split = [k for k, v in want_local.items() if v != whole_shapes[k]]
+    worst = dict(bf16_loss=0.0, bf16_gnorm=0.0, fp32_loss=0.0,
+                 fp32_gnorm=0.0)
+    for g in got:
+        if g["local"]["params"] != want_local:
+            bad = [k for k in want_local
+                   if g["local"]["params"].get(k) != want_local[k]]
+            errs.append(f"(a) process {g['rank']}: local shapes differ from "
+                        f"the placements' on {bad}")
+        if g["local"]["batch"] != {k: (MT_BATCH // MT_MESH[0], MT_SEQ)
+                                   for k in ("tokens", "labels")}:
+            errs.append(f"(a) process {g['rank']}: batch shard "
+                        f"{g['local']['batch']}")
+        for key, ref, lt, gt in (("bf16", one_bf16, MT_BF16_LOSS_TOL,
+                                  MT_BF16_GNORM_TOL),
+                                 ("fp32", one_fp32, MT_FP32_LOSS_TOL,
+                                  MT_FP32_GNORM_TOL)):
+            for i, (a, w) in enumerate(zip(g[key], ref)):
+                el = abs(a[0] - w[0]) / abs(w[0])
+                eg = abs(a[1] - w[1]) / abs(w[1])
+                worst[f"{key}_loss"] = max(worst[f"{key}_loss"], el)
+                worst[f"{key}_gnorm"] = max(worst[f"{key}_gnorm"], eg)
+                if not (el <= lt and eg <= gt):
+                    errs.append(f"(a) {key} process {g['rank']} step {i}: "
+                                f"loss {a[0]:.6f} / {w[0]:.6f}, gnorm "
+                                f"{a[1]:.5f} / {w[1]:.5f}")
+    if not split:
+        errs.append("(a) no leaf is split: the mesh holds whole weights")
+    launched = {k: v for g in got for k, v in g["launches"].items() if v}
+    if launched:
+        errs.append(f"(a) the mesh step launched kernels {launched}: the "
+                    f"reference trains through none")
+    # ---- (b)
+    psum_err = None
+    for g in got:
+        p = g["psum"]
+        if p["q"] != want_q or p["scales"] != want_s or p["n"] != MT_PSUM_N:
+            errs.append(f"(b) process {g['rank']}: the gathered payloads or "
+                        f"scales != each rank's own quantization")
+        if p["sum_digest"] != got[0]["psum"]["sum_digest"]:
+            errs.append(f"(b) process {g['rank']}: its sum differs from "
+                        f"process 0's")
+    psum_err = float((got[0]["psum"]["sum"].double() - want_sum).abs().max()
+                     / want_sum.abs().max())
+    if not psum_err <= MT_PSUM_TOL:
+        errs.append(f"(b) max |sum - parent's| / max |parent's| = "
+                    f"{psum_err:.3g} > {MT_PSUM_TOL}")
+    # ---- (c)
+    d = got[0]["drill"]
+    try:
+        n_lines = mt_lines_equal(d["lines"], one_lines, "(c) train.main")
+    except AssertionError as e:
+        errs.append(str(e))
+        n_lines = 0
+    if d["hist"]["recoveries"] != 1 or d["hist"]["steps"] != list(range(12)):
+        errs.append(f"(c) train.main history {d['hist']}")
+    if d["placements"] != ["(Replicate(), Replicate())"]:
+        errs.append(f"(c) train.main placed its state {d['placements']}")
+    if any(g["drill"]["lines"] for g in got[1:]):
+        errs.append("(c) a process other than 0 printed")
+    whole = got[0]["whole"]
+    tail = {k: v for k, v in whole["losses"].items() if k >= every + 1}
+    restored = dict(one=one_restore, sub=(got[0]["sub"]["losses"],
+                                          got[0]["sub"]["params"],
+                                          got[0]["sub"]["steps"]))
+    restore_err = {}
+    for name, (losses, params, ran) in restored.items():
+        if ran != list(range(every + 1, total)) or losses.keys() != \
+                tail.keys():
+            errs.append(f"(c) restored onto {name}: ran steps {ran}")
+            continue
+        el = max(abs(losses[k] - tail[k]) / abs(tail[k]) for k in tail)
+        ep = max(float((params[k] - whole["params"][k]).abs().max())
+                 for k in params)
+        restore_err[name] = (el, ep)
+        if not (el <= MT_RESTORE_LOSS_TOL and ep <= MT_RESTORE_PARAM_TOL):
+            errs.append(f"(c) restored onto {name}: loss error {el:.3g}, "
+                        f"parameter error {ep:.3g}")
+    if got[1]["sub"]["losses"] != got[0]["sub"]["losses"]:
+        errs.append("(c) the (1, 2) mesh's processes disagree")
+    if errs:
+        raise AssertionError("; ".join(errs))
+    ms = [[r[2] for r in g["bf16"]] for g in got]
+    share = [[r[3] / r[2] for r in g["bf16"]] for g in got]
+    out.update(
+        bf16=[g["bf16"] for g in got], fp32=[g["fp32"] for g in got],
+        one_bf16=one_bf16, one_fp32=one_fp32, worst=worst,
+        peak_bytes=[g["peak"] for g in got], psum_err=psum_err,
+        restore_err=restore_err, one_device_s=one_s, spawn_s=spawn_s)
+    print(f"(a) {SERVE_ARCH} at full width ({MT_LAYERS} layers, bf16, flat "
+          f"attention weights from --seed), FSDP + TP by "
+          f"named(param_specs(fsdp=True)) on a (data={MT_MESH[0]}, "
+          f"model={MT_MESH[1]}) mesh of {MT_PROCS} processes, grad_pspec, "
+          f"{MT_MICRO} microbatches, {MT_STEPS} steps at {MT_BATCH} x "
+          f"{MT_SEQ}: each process holds the shards its placements imply "
+          f"({len(split)} of {len(want_local)} leaves split), 0 launches of "
+          f"the five kernels; against one "
+          f"device: loss {worst['bf16_loss']:.3g} (limit "
+          f"{MT_BF16_LOSS_TOL}), gnorm {worst['bf16_gnorm']:.3g} (limit "
+          f"{MT_BF16_GNORM_TOL}) relative; ms a step by process (step 1 "
+          f"warm) " + ", ".join(f"{x[-1]:.1f}" for x in ms)
+          + f" (one device {one_bf16[-1][2]:.1f}); share in collectives "
+          + (", ".join(f"{100 * x[-1]:.1f} %" for x in share)
+             if got[0]["bf16"][-1][3] else "not measured")
+          + "; peak memory by process " + ", ".join(
+              f"{g['peak'] / 1e9:.2f} GB" for g in got)
+          + f"; fp32 guard ({L} layer, {B} x {S}, {n} step): loss "
+          f"{worst['fp32_loss']:.3g} (limit {MT_FP32_LOSS_TOL}), gnorm "
+          f"{worst['fp32_gnorm']:.3g} (limit {MT_FP32_GNORM_TOL}) "
+          f"[{where}; {smi}]")
+    print(f"(b) compressed_psum of {MT_PSUM_N} fp32 over the {MT_PROCS} "
+          f"processes: the gathered int8 payloads and scales == each "
+          f"rank's own quantization bit for bit; the sum == on every "
+          f"process, max |sum - parent's| / max |parent's| {psum_err:.3g} "
+          f"(limit {MT_PSUM_TOL})")
+    print(f"(c) train.main {' '.join(MT_DRILL)} on the ({MT_PROCS}, 1) mesh "
+          f"(state replicated, shard_batch): {n_lines} lines == the one-"
+          f"device trainer's (numbers within {MT_LINE_TOL}), 1 recovery; a "
+          f"checkpoint saved on (2, 2) at step {every} restored onto (1, 2) "
+          f"and onto one device: (loss, parameter) error " + ", ".join(
+              f"{k} ({v[0]:.3g}, {v[1]:.3g})" for k, v in
+              restore_err.items()) + f" (limits {MT_RESTORE_LOSS_TOL}, "
+          f"{MT_RESTORE_PARAM_TOL})")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 17 took {out['seconds']:.1f} s: one device {one_s:.1f} "
+          f"s, spawned {spawn_s:.1f} s [{smi}]")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5674,6 +6164,9 @@ def main(argv=None) -> int:
 
     # ---- 16: the heap fleet and seqpar decode across processes -------------
     mesh_result = phase_mesh(args.seed, device, smi)
+
+    # ---- 17: training on a mesh of processes -------------------------------
+    mesh_train_result = phase_mesh_train(args.seed, device, smi)
     print(f"chip_smoke took {time.perf_counter() - t_main:.1f} s [{smi}]")
     if args.out:
         with open(args.out, "w") as f:
@@ -5687,6 +6180,7 @@ def main(argv=None) -> int:
                            recurrent=recurrent_result,
                            family_train=family_train_result,
                            analysis=analysis_result, mesh=mesh_result,
+                           mesh_train=mesh_train_result,
                            gpu=smi,
                            kernels=kernels), f, indent=1)
     print(json.dumps({"kernels": kernels}))

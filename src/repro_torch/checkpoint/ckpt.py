@@ -29,6 +29,20 @@ numpy template), or to ``device`` where one is given. ``shardings``
 None) keeps only those rows of a saved leaf's first axis: a process of a
 rank mesh restores its own slice of a whole-fleet checkpoint, the
 counterpart of the reference's re-placement under new shardings.
+
+A training state on a mesh has DTensor leaves. Saving one writes the whole
+arrays in the same format: every process takes part in gathering each
+leaf, process 0 alone writes, and the ``COMMITTED`` marker follows a
+barrier (`AsyncCheckpointer` writes on its thread and commits at its next
+save or `wait`, which every process makes at the same points). The
+manifest also records the mesh's shape. ``shardings`` leaves that are
+`repro_torch.parallel.sharding.NamedPlacement` (``named(mesh, specs)``)
+restore a leaf as a DTensor on that mesh, each process cutting its own
+shard of the saved array; a DTensor template leaf without one comes back on
+its own placements. The mesh may differ from the one saved on (the data
+axis may grow or shrink: the reference's elastic contract); its
+``"model"`` axis may not, and a restore onto another ``"model"`` size
+raises. Restoring without a mesh gives the whole arrays.
 """
 from __future__ import annotations
 
@@ -39,6 +53,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+
+from ..parallel.sharding import is_dtensor
 
 
 def _children(tree):
@@ -75,6 +91,42 @@ def _flatten(tree) -> dict:
 
 
 _BF16_BITS = np.dtype("V2")  # a bfloat16 leaf in the npz
+
+
+def _whole(tree):
+    """`tree` with every DTensor leaf gathered whole on the host (a
+    collective: every process of its mesh makes it, in the same order),
+    and the first such leaf's mesh (None without one)."""
+    meshes = []
+
+    def whole(_, x):
+        if not is_dtensor(x):
+            return x
+        meshes.append(x.device_mesh)
+        return x.full_tensor().detach().to("cpu", copy=True)
+
+    out = _map(whole, tree)
+    return out, (meshes[0] if meshes else None)
+
+
+def _mesh_shape(mesh) -> dict:
+    return dict(zip(mesh.mesh_dim_names, (int(n) for n in mesh.mesh.shape)))
+
+
+def _writer(mesh) -> bool:
+    """Whether this process writes a tree of `mesh`: its first process."""
+    import torch.distributed as dist
+    return dist.get_rank() == int(mesh.mesh.flatten()[0])
+
+
+def _barrier(mesh) -> None:
+    """Wait for every process of `mesh` (an all-reduce of one element over
+    its dimensions; processes outside the mesh take no part)."""
+    from torch.distributed.tensor import DTensor, Partial
+    from ..parallel.sharding import mesh_device
+    one = torch.zeros(1, device=mesh_device(mesh))
+    DTensor.from_local(one, mesh, [Partial()] * mesh.ndim,
+                       run_check=False).full_tensor()
 
 
 def _host(x) -> np.ndarray:
@@ -138,8 +190,10 @@ def _bf16_leaf(key, arr: np.ndarray, like) -> torch.Tensor:
     return t if t.dtype == want else _cast(key, t, want)
 
 
-def save(tree, step: int, ckpt_dir: str) -> str:
-    """Blocking save. Returns the checkpoint path."""
+def _write(tree, step: int, ckpt_dir: str, mesh_shape=None,
+           commit: bool = True) -> str:
+    """Write the leaves and the manifest of a host tree; the COMMITTED
+    marker last, where `commit`."""
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     os.makedirs(path, exist_ok=True)
     named = _flatten(tree)
@@ -151,11 +205,34 @@ def save(tree, step: int, ckpt_dir: str) -> str:
                        "dtype": _dtype_name(named[k], a)}
                    for k, a in arrays.items()},
     }
+    if mesh_shape is not None:
+        manifest["mesh"] = mesh_shape
     with open(os.path.join(path, "manifest.json"), "w") as f:
         json.dump(manifest, f, indent=1)
+    if commit:
+        _commit(path)
+    return path
+
+
+def _commit(path: str) -> None:
     # the completion marker, last: a save cut short is never restored
     with open(os.path.join(path, "COMMITTED"), "w") as f:
         f.write("ok")
+
+
+def save(tree, step: int, ckpt_dir: str) -> str:
+    """Blocking save. Returns the checkpoint path. A tree with DTensor
+    leaves is saved by every process of their mesh together."""
+    tree, mesh = _whole(tree)
+    if mesh is None:
+        return _write(tree, step, ckpt_dir)
+    path = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if _writer(mesh):
+        _write(tree, step, ckpt_dir, _mesh_shape(mesh), commit=False)
+    _barrier(mesh)
+    if _writer(mesh):
+        _commit(path)
+    _barrier(mesh)
     return path
 
 
@@ -166,24 +243,57 @@ class AsyncCheckpointer:
     `save` copies the tree to host memory before it returns (a device
     tensor is read back; a CPU tensor or numpy array is copied, since the
     caller may write to it before the worker serializes it); only the
-    serialization runs on the thread."""
+    serialization runs on the thread. A tree with DTensor leaves is
+    gathered whole by every process in `save`; process 0's thread writes
+    it, and it is committed, after a barrier, at the next `save` or
+    `wait`: every process makes these calls at the same points."""
 
     def __init__(self, ckpt_dir: str):
         self.ckpt_dir = ckpt_dir
         self._pool = ThreadPoolExecutor(max_workers=1)
         self._futures = []
+        self._uncommitted = []
+        self._mesh = None
         self._lock = threading.Lock()
 
     def save(self, tree, step: int):
-        host_tree = _map(lambda _, x: _host_copy(x), tree)
+        whole, mesh = _whole(tree)
+        if mesh is not None:
+            self._commit_pending()
+            self._mesh = mesh
+            self._uncommitted.append(os.path.join(self.ckpt_dir,
+                                                  f"step_{step:08d}"))
+            if not _writer(mesh):
+                return
+            host_tree = _map(lambda _, x: _host_copy(x), whole)
+            job = (_write, host_tree, step, self.ckpt_dir,
+                   _mesh_shape(mesh), False)
+        else:
+            host_tree = _map(lambda _, x: _host_copy(x), tree)
+            job = (_write, host_tree, step, self.ckpt_dir)
         with self._lock:
-            self._futures.append(
-                self._pool.submit(save, host_tree, step, self.ckpt_dir))
+            self._futures.append(self._pool.submit(*job))
 
-    def wait(self):
+    def _drain(self):
         with self._lock:
             futs, self._futures = self._futures, []
         return [f.result() for f in futs]
+
+    def _commit_pending(self):
+        if not self._uncommitted:
+            return
+        self._drain()
+        _barrier(self._mesh)
+        if _writer(self._mesh):
+            for path in self._uncommitted:
+                _commit(path)
+        self._uncommitted = []
+        _barrier(self._mesh)
+
+    def wait(self):
+        pending = list(self._uncommitted)
+        self._commit_pending()
+        return self._drain() or pending
 
 
 def latest_step(ckpt_dir: str):
@@ -199,21 +309,55 @@ def latest_step(ckpt_dir: str):
     return max(steps) if steps else None
 
 
+def placements_of(tree):
+    """A tree of the `NamedPlacement` of each DTensor leaf of `tree` (None
+    for a plain leaf): a state's own placements, to restore onto."""
+    from ..parallel.sharding import NamedPlacement
+    return _map(lambda _, x: NamedPlacement(x.device_mesh,
+                                            tuple(x.placements))
+                if is_dtensor(x) else None, tree)
+
+
+def _check_model_axis(manifest, placed, key):
+    saved = manifest.get("mesh")
+    if saved is None:
+        return
+    names = placed.mesh.mesh_dim_names
+    want = int(placed.mesh.mesh.shape[names.index("model")]) \
+        if "model" in names else 1
+    if want != saved.get("model", 1):
+        raise ValueError(f"restoring {key!r} onto a mesh with model="
+                         f"{want}: it was saved on {saved}, and the "
+                         f"'model' axis is an invariant (only the data axis "
+                         f"may grow or shrink)")
+
+
 def restore(tree_like, step: int, ckpt_dir: str, device=None,
             shardings=None):
     """Restore into the structure of `tree_like`, whose leaves (tensors or
     numpy arrays) give each leaf's shape, dtype and device. With
     ``device`` every leaf comes back as a tensor on it. With
-    ``shardings`` (a matching tree of ``slice`` leaves; a missing or None
-    leaf is whole) a leaf is the rows of the saved array its slice
-    selects, and the template's shape is that of the slice."""
+    ``shardings`` (a matching tree; a missing or None leaf is whole) a
+    ``slice`` leaf keeps the rows of the saved array it selects (the
+    template's shape is that of the slice), and a `NamedPlacement` leaf
+    gives a DTensor on its mesh. A DTensor template leaf without a
+    sharding comes back on its own placements."""
+    from ..parallel.sharding import NamedPlacement, mesh_device
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     rows = _flatten(shardings) if shardings is not None else {}
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
     with np.load(os.path.join(path, "leaves.npz")) as data:
         def leaf(key, like):
             arr = data[key]
-            if rows.get(key) is not None:
-                arr = np.ascontiguousarray(arr[rows[key]])
+            placed = rows.get(key)
+            if placed is None and is_dtensor(like):
+                placed = NamedPlacement(like.device_mesh,
+                                        tuple(like.placements))
+            if isinstance(placed, NamedPlacement):
+                _check_model_axis(manifest, placed, key)
+            elif placed is not None:
+                arr = np.ascontiguousarray(arr[placed])
             if tuple(arr.shape) != tuple(like.shape):
                 raise ValueError(f"shape mismatch restoring {key!r}: saved "
                                  f"{tuple(arr.shape)}, wanted "
@@ -222,22 +366,30 @@ def restore(tree_like, step: int, ckpt_dir: str, device=None,
                     isinstance(like, torch.Tensor)
                     and like.dtype == torch.bfloat16):
                 t = _bf16_leaf(key, arr, like)
+            else:
+                want = _np_dtype(like)
+                if arr.dtype != want:
+                    # dtype drift between writer and restorer: cast, but
+                    # refuse a lossy cast (a truncated heap pointer is
+                    # corruption)
+                    cast = arr.astype(want)
+                    if not np.array_equal(cast.astype(arr.dtype), arr):
+                        raise ValueError(
+                            f"lossy dtype cast restoring {key!r}: saved "
+                            f"{arr.dtype} -> wanted {want}")
+                    arr = cast
+                t = None
+            if isinstance(placed, NamedPlacement):
+                if t is None:
+                    t = torch.from_numpy(arr)
+                return placed.place(t, device=mesh_device(placed.mesh)
+                                    if device is None else device)
+            if t is not None:
                 if device is not None:
                     return t.to(device)
                 if isinstance(like, torch.Tensor):
                     return t.to(like.device)
                 return t.numpy()
-            want = _np_dtype(like)
-            if arr.dtype != want:
-                # dtype drift between writer and restorer: cast, but
-                # refuse a lossy cast (a truncated heap pointer is
-                # corruption)
-                cast = arr.astype(want)
-                if not np.array_equal(cast.astype(arr.dtype), arr):
-                    raise ValueError(
-                        f"lossy dtype cast restoring {key!r}: saved "
-                        f"{arr.dtype} -> wanted {want}")
-                arr = cast
             if device is not None:
                 return torch.from_numpy(arr).to(device)
             if isinstance(like, torch.Tensor):

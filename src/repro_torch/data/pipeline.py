@@ -4,9 +4,11 @@ The port of `repro.data.pipeline`. `StreamConfig` and `TokenStream` are
 the reference's, unchanged: host NumPy from ``Philox(key=seed,
 counter=step)``, so every batch is byte-identical to the reference's and a
 restore at step k resumes the exact byte stream (the fault-tolerance
-invariant). The reference's `shard_batch(mesh, batch)` becomes
-`to_device(batch, device)`: one device, no mesh (its `batch_pspec` waits
-for ROADMAP A7b).
+invariant). On a live ``("data", "model")`` `DeviceMesh` of processes,
+`shard_batch(mesh, batch)` (the reference's) gives each process a DTensor
+that holds only its rows, the leading dimension split over every axis
+but ``"model"`` (`batch_pspec`); without a mesh, `to_device(batch,
+device)` puts the whole batch on one device.
 """
 from __future__ import annotations
 
@@ -51,6 +53,32 @@ class TokenStream:
                 (cfg.global_batch, cfg.n_patches, cfg.d_model),
                 dtype=np.float32)
         return out
+
+
+def batch_pspec(mesh, batch: dict) -> dict:
+    """Each leaf's placement tuple on `mesh` (a live `DeviceMesh`): the
+    leading (global-batch) dimension over all non-``"model"`` axes."""
+    dp = tuple(a for a in mesh.mesh_dim_names if a != "model")
+    return {k: (dp,) + (None,) * (np.ndim(v) - 1) for k, v in batch.items()}
+
+
+def shard_batch(mesh, batch: dict) -> dict:
+    """A host batch as DTensors on `mesh` by `batch_pspec`: each process
+    copies only its own rows to its device. The batch must split evenly
+    over the data axes."""
+    from ..parallel.sharding import mesh_device, named
+    placed = named(mesh, batch_pspec(mesh, batch))
+    dev = mesh_device(mesh)
+    dp = mesh.size() // mesh.size(mesh.mesh_dim_names.index("model")) \
+        if "model" in mesh.mesh_dim_names else mesh.size()
+    out = {}
+    for k, v in batch.items():
+        v = np.asarray(v)
+        if v.shape[0] % dp:
+            raise ValueError(f"batch leaf {k!r} has {v.shape[0]} rows, not "
+                             f"divisible over the {dp} data positions")
+        out[k] = placed[k].place(torch.from_numpy(v), device=dev)
+    return out
 
 
 def to_device(batch: dict, device="cuda") -> dict:

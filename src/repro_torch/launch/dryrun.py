@@ -3,8 +3,9 @@ account for its work, its memory and its sharded state.
 
 The port of `repro.launch.dryrun`. The reference lowers and compiles each
 cell for the 256- and 512-chip production meshes; the port's SPMD
-programs are processes on a live `DeviceMesh` (`repro_torch.launch.mesh`)
-and its training half is not ported yet (ROADMAP A7b), so a cell here is
+programs are processes on a live `DeviceMesh` (`repro_torch.launch.mesh`),
+whose training step (DTensors, `repro_torch.launch.steps`) this dry-run
+does not lower yet (ROADMAP A7c), so a cell here is
 
   * the per-device state bytes on the production mesh, from the sharding
     rules as pure placement functions (`repro_torch.parallel.sharding`);
@@ -18,7 +19,7 @@ and its training half is not ported yet (ROADMAP A7b), so a cell here is
     roofline terms for the NVIDIA H100 SXM.
 
 The per-device SPMD program, its collective schedule and the collective
-term of the roofline wait for ROADMAP A7b and are reported as absent
+term of the roofline wait for ROADMAP A7c and are reported as absent
 with that reason.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite_3_8b \\
@@ -56,8 +57,8 @@ RESULTS_DIR = "results/dryrun"
 PEAK_FLOPS = 989.4e12        # bf16 dense tensor-core FLOP/s
 HBM_BW = 3.35e12             # HBM3 bytes/s
 CARD_BYTES = 80 * 10 ** 9    # device memory
-NO_MESH = ("waits for ROADMAP A7b: the port has no per-device SPMD "
-           "program or collective schedule of a step yet")
+NO_MESH = ("waits for ROADMAP A7c: the dry-run does not lower the "
+           "step's per-device SPMD program or its collective schedule yet")
 
 
 def input_specs(arch: str, shape_name: str):

@@ -75,7 +75,9 @@ def init_world(backend: str = "nccl", *, rank: int = None,
     raises otherwise; it never picks ``gloo`` on its own. Where a card is
     present, this process's card (``LOCAL_RANK`` modulo the cards) is made
     current before the group exists. A process already in a group keeps
-    it."""
+    it. ``gloo`` in a process that holds a card joins through
+    `repro_torch.parallel.comm.HostStagedGroup`: gloo's collectives with
+    CUDA tensors staged through the host, DTensor's collectives too."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r} (have {BACKENDS})")
     if dist.is_initialized():
@@ -98,6 +100,9 @@ def init_world(backend: str = "nccl", *, rank: int = None,
     if init_method is None:
         init_method = (f"tcp://{env.get('MASTER_ADDR', 'localhost')}:"
                        f"{env['MASTER_PORT']}")
+    if backend == "gloo" and cards:
+        from ..parallel.comm import register_host_staged
+        backend = register_host_staged()
     dist.init_process_group(backend, init_method=init_method, rank=rank,
                             world_size=world_size)
     return rank

@@ -15,6 +15,19 @@ config with bf16 weights and checkpoints). `build` also takes a cut depth
 (``layers=5`` trains recurrentgemma-9b's first group and its 2-layer tail
 at full width). The ssm and hybrid families train as the dense one
 does. Parameters are random from seed 0, made on the device.
+
+Under ``torchrun`` (or `launch.mesh.spawn`: ``WORLD_SIZE`` > 1) it trains
+on a mesh of processes, as the reference's ``main`` does on its host
+mesh: it joins the process group (``--dist-backend``; nccl needs a card
+per process, gloo lets them share one), builds the ``(world, 1)``
+``("data", "model")`` `DeviceMesh`, places the parameters and the
+optimizer state replicated on each process's mesh device and feeds every
+step `shard_batch(mesh, batch)`, so each process computes its rows and
+DTensor reduces the gradients over ``"data"``. Process 0 alone prints
+the lines.
+
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --reduced --device cpu --dist-backend gloo --steps 12
 """
 from __future__ import annotations
 
@@ -23,14 +36,18 @@ import dataclasses
 import os
 import tempfile
 
+import torch
+
 from .. import configs
 from .. import device as _device
 from ..checkpoint import ckpt as ckpt_lib
-from ..data.pipeline import StreamConfig, TokenStream, to_device
+from ..data.pipeline import StreamConfig, TokenStream, shard_batch, to_device
 from ..models import registry
 from ..optim import adamw
 from ..optim.adamw import AdamWConfig
+from ..parallel import sharding
 from ..runtime import fault
+from . import mesh as _mesh
 from .steps import make_train_step
 
 
@@ -78,23 +95,52 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--dtype", default=None, choices=["float32", "bfloat16"],
                     help="parameter dtype (default: the config's)")
+    ap.add_argument("--dist-backend", default="nccl", choices=_mesh.BACKENDS,
+                    help="under torchrun: the process group's backend "
+                         "(nccl needs a card per process; gloo lets them "
+                         "share one)")
     args = ap.parse_args(argv)
 
-    dev = _device.resolve(args.device)
+    mesh, joined = None, False
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        joined = not torch.distributed.is_initialized()
+        _mesh.init_world(args.dist_backend)
+        mesh = _mesh.make_host_mesh(live=True)
+    try:
+        return _run(args, mesh)
+    finally:
+        if joined:
+            torch.distributed.destroy_process_group()
+
+
+def _scalar(x) -> float:
+    return float(x.full_tensor() if hasattr(x, "placements") else x)
+
+
+def _run(args, mesh):
+    dev = (_device.resolve(args.device) if mesh is None
+           else sharding.mesh_device(mesh))
+    say = (mesh is None or torch.distributed.get_rank() == 0)
+    out = print if say else (lambda *a, **k: None)
     cfg, params, opt_state, step_fn, stream = build(
         args.arch, args.reduced, args.batch, args.seq, args.n_micro,
         args.steps, device=dev, dtype=args.dtype)
-    print(f"arch={cfg.name} params="
-          f"{sum(p.numel() for p in adamw.tree_leaves(params)):,}")
+    out(f"arch={cfg.name} params="
+        f"{sum(p.numel() for p in adamw.tree_leaves(params)):,}")
+    if mesh is not None:
+        # the reference's main: parameters (and state) replicated
+        params, opt_state = (sharding.place(t, sharding.named(
+            mesh, sharding.replicated_specs(t))) for t in (params, opt_state))
 
     def step(state, batch, step_idx):
         params, opt_state = state
-        batch = to_device(batch, dev)
+        batch = (to_device(batch, dev) if mesh is None
+                 else shard_batch(mesh, batch))
         params, opt_state, metrics = step_fn(params, opt_state, batch)
         if step_idx % 5 == 0:
-            print(f"step {step_idx}: loss={float(metrics['loss']):.4f} "
-                  f"gnorm={float(metrics['grad_norm']):.3f} "
-                  f"lr={float(metrics['lr']):.2e}", flush=True)
+            out(f"step {step_idx}: loss={_scalar(metrics['loss']):.4f} "
+                f"gnorm={_scalar(metrics['grad_norm']):.3f} "
+                f"lr={_scalar(metrics['lr']):.2e}", flush=True)
         return (params, opt_state), metrics
 
     injector = fault.FailureInjector([args.fail_at] if args.fail_at else [])
@@ -105,10 +151,10 @@ def main(argv=None):
     state, history = fault.run_with_recovery(
         loop_cfg, init_state=(params, opt_state), step_fn=step,
         make_batch=stream.batch, injector=injector, watchdog=watchdog)
-    print(f"done: {len(history['steps'])} steps, "
-          f"{history['recoveries']} recoveries, "
-          f"{history['stragglers']} straggler events")
-    print(f"latest checkpoint: step {ckpt_lib.latest_step(args.ckpt_dir)}")
+    out(f"done: {len(history['steps'])} steps, "
+        f"{history['recoveries']} recoveries, "
+        f"{history['stragglers']} straggler events")
+    out(f"latest checkpoint: step {ckpt_lib.latest_step(args.ckpt_dir)}")
     return state, history
 
 

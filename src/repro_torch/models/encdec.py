@@ -149,7 +149,8 @@ def forward(cfg: ArchConfig, params, tokens, enc_embeds):
     enc_out = encode(cfg, params, enc_embeds)
     cos, sin = layers.rope_tables(_positions(B, S, tokens.device),
                                   cfg.head_dim, cfg.rope_theta)
-    x = params["embed"][tokens].to(layers.torch_dtype(cfg.dtype))
+    x = layers.embed(params["embed"], tokens).to(
+        layers.torch_dtype(cfg.dtype))
     blk = functools.partial(_dec_block, cfg)
     for lp in _layers(params["dec"]):
         if cfg.remat:

@@ -285,7 +285,8 @@ def _attn_mixer_decode(cfg: ArchConfig, x, lp, win_k, win_v, pos):
 
 # ---------------------------------------------------------------- training --
 def _embed(cfg: ArchConfig, params, tokens):
-    return params["embed"][tokens].to(layers.torch_dtype(cfg.dtype))
+    return layers.embed(params["embed"], tokens).to(
+        layers.torch_dtype(cfg.dtype))
 
 
 def _groups(params):
@@ -307,6 +308,7 @@ def forward(cfg: ArchConfig, params, tokens, positions=None):
     G, R = _group_counts(cfg)
     if G:
         for lp1, lp2, lpa in _groups(params):
+            x = layers.activation_constraint(x, seq_over_model=cfg.seq_shard)
             x = rec(x, lp1)
             x = rec(x, lp2)
             x = att(x, positions, lpa)

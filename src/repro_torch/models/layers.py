@@ -7,15 +7,25 @@ the config dtype with fp32 accumulation, and the reference's tensor layouts
 weights under ``attn_4d``). Parameters are dicts of tensors stacked over
 layers (leading L axis). Every function differentiates under autograd: the
 masked scores' ``where`` gives them zero gradient, as the reference's
-does. ``activation_constraint`` pins a sharding under a mesh and is a
-no-op without one; the port has none yet (ROADMAP A7b).
+does.
+
+On a mesh the same functions run on DTensors (parameters placed by
+`repro_torch.parallel.sharding.named`, a batch by
+`repro_torch.data.pipeline.shard_batch`): `on_mesh` is the context a loss
+and its backward run in there, and `activation_constraint` pins the
+residual stream's placement, a no-op on a plain tensor (the reference's
+"no ambient mesh").
 """
 from __future__ import annotations
 
+import contextlib
+import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel.sharding import is_dtensor
 
 NEG_INF = -1e30
 
@@ -63,12 +73,39 @@ def _causal_mask(S, T, device, causal, window, q_offset=0):
     return mask
 
 
+def _attend_local(attn, q, k, v, **kw):
+    """`attn` over DTensors q [B, S, H, D], k, v [B, T, KVH, D]: each
+    process attends over its own rows and heads. The batch goes over the
+    data axes and the heads over ``"model"`` (where they divide: the KV
+    head of each local query head is then local too), sequence and head
+    dimension whole; the output is a DTensor of q's new placements. No
+    collective runs inside; the products are the one-device ones."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = q.device_mesh
+    names = tuple(mesh.mesh_dim_names or ())
+    data = [a for a in names if a != "model"]
+    B, H, KVH = q.shape[0], q.shape[2], k.shape[2]
+    b_ok = B % math.prod(mesh.size(names.index(a)) for a in data) == 0
+    m = mesh.size(names.index("model")) if "model" in names else 1
+    h_ok = H % m == 0 and KVH % m == 0
+    placements = [Shard(2) if a == "model" and h_ok else
+                  Shard(0) if a != "model" and b_ok else Replicate()
+                  for a in names]
+    q, k, v = (x.redistribute(mesh, placements) for x in (q, k, v))
+    o = attn(q.to_local(), k.to_local(), v.to_local(), **kw)
+    return _from_local(o, mesh, placements, q.shape)
+
+
 def attention(q, k, v, *, causal: bool = True, window: int = 0,
               q_offset: int = 0):
     """Materializing GQA attention (for short sequences).
 
     q: [B, S, H, D]; k, v: [B, T, KVH, D]. Returns [B, S, H, D].
-    window > 0 -> local (sliding-window) attention."""
+    window > 0 -> local (sliding-window) attention. On DTensors it runs
+    on each process's rows and heads (`_attend_local`)."""
+    if is_dtensor(q):
+        return _attend_local(attention, q, k, v, causal=causal,
+                             window=window, q_offset=q_offset)
     B, S, H, D = q.shape
     T, KVH = k.shape[1], k.shape[2]
     G = H // KVH
@@ -95,6 +132,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     memory, online softmax over KV blocks. Same signature and semantics as
     `attention`; for sequences where the S x T scores must not
     materialize."""
+    if is_dtensor(q):
+        return _attend_local(flash_attention, q, k, v, causal=causal,
+                             window=window, block_q=block_q,
+                             block_kv=block_kv)
     B, S, H, D = q.shape
     T, KVH = k.shape[1], k.shape[2]
     G = H // KVH
@@ -189,9 +230,98 @@ def cross_entropy(logits, labels, ignore: int = -100):
     valid = labels != ignore
     lbl = labels.clamp(min=0).long()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, lbl[..., None])[..., 0]
+    if is_dtensor(logits):
+        # a gather along a vocab-sharded dimension leaves a partial sum
+        # DTensor cannot reduce: pick the gold logit by a mask (one
+        # non-zero term a row, so the same value)
+        col = torch.arange(logits.shape[-1], device=lbl.device)
+        gold = torch.where(col == lbl[..., None], logits, 0.0).sum(-1)
+    else:
+        gold = torch.gather(logits, -1, lbl[..., None])[..., 0]
     nll = torch.where(valid, logz - gold, 0.0)
     return nll.sum() / valid.sum().clamp(min=1)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
+def on_mesh(params, batch=None):
+    """The context a loss over `params` (and its backward) runs in: a
+    no-op for plain tensors. Where the parameters are DTensors, the batch
+    must be too (`shard_batch`; a plain batch would run whole on every
+    process), and the tensors the model makes itself from positions and
+    shapes (RoPE tables, masks, column ids: the same on every process)
+    are taken as replicated."""
+    if not any(is_dtensor(p) for p in _leaves(params)):
+        return contextlib.nullcontext()
+    plain = [k for k, v in (batch or {}).items()
+             if isinstance(v, torch.Tensor) and not is_dtensor(v)]
+    if plain:
+        raise ValueError(f"parameters on a mesh and batch leaves {plain} "
+                         f"on one device: place the batch with shard_batch")
+    from torch.distributed.tensor.experimental import implicit_replication
+    return implicit_replication()
+
+
+def embed(table, tokens):
+    """``table[tokens]``: the embedding rows of `tokens`. On DTensors each
+    process looks up its own tokens in the whole table (gathered), and
+    the table's gradient is the sum over the processes whose tokens
+    differ (a partial sum over the axes the tokens are split on)."""
+    if not is_dtensor(table):
+        return table[tokens]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = table.device_mesh
+    whole = table.redistribute(mesh, [Replicate()] * mesh.ndim)
+    grad = [Partial() if isinstance(p, Shard) else Replicate()
+            for p in tokens.placements]
+    rows = whole.to_local(grad_placements=grad)[tokens.to_local()]
+    return _from_local(rows, mesh, tokens.placements,
+                       (*tokens.shape, table.shape[-1]))
+
+
+def _from_local(x, mesh, placements, shape):
+    """A DTensor of global `shape` (contiguous) from this process's
+    shard `x`: shards may be uneven."""
+    from torch.distributed.tensor import DTensor
+    stride, n = [], 1
+    for d in reversed(shape):
+        stride.insert(0, n)
+        n *= d
+    return DTensor.from_local(x.contiguous(), mesh, placements,
+                              run_check=False, shape=torch.Size(shape),
+                              stride=tuple(stride))
+
+
+def activation_constraint(x, seq_over_model: bool = False):
+    """Pin the residual stream's placement between layers: the batch over
+    the data axes (where it divides), with `seq_over_model` the sequence
+    over ``"model"`` (where it divides), the rest replicated. A no-op on
+    a plain tensor and on a mesh without a ``"model"`` axis."""
+    if not is_dtensor(x):
+        return x
+    mesh = x.device_mesh
+    names = tuple(mesh.mesh_dim_names or ())
+    if "model" not in names:
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    batch = [a for a in names if a != "model"]
+    if x.shape[0] % math.prod(mesh.size(names.index(a)) for a in batch):
+        batch = []
+    seq = seq_over_model and x.shape[1] % mesh.size(
+        names.index("model")) == 0
+    placements = [Shard(0) if a in batch else
+                  Shard(1) if a == "model" and seq else Replicate()
+                  for a in names]
+    return x.redistribute(mesh, placements)
+
+
+def seq_shard_constraint(x):
+    """`activation_constraint` with the sequence over ``"model"``."""
+    return activation_constraint(x, seq_over_model=True)
 
 
 def torch_dtype(name) -> torch.dtype:

@@ -185,7 +185,8 @@ def forward(cfg: ArchConfig, params, tokens, positions=None):
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, device=tokens.device).expand(B, S)
-    x = params["embed"][tokens].to(layers.torch_dtype(cfg.dtype))
+    x = layers.embed(params["embed"], tokens).to(
+        layers.torch_dtype(cfg.dtype))
     return transformer.forward_embeds(cfg, params, x, positions,
                                       ffn=_moe_mlp)
 

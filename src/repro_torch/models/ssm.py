@@ -220,7 +220,8 @@ def _per_layer(blocks):
 
 
 def _embed(cfg: ArchConfig, params, tokens):
-    return params["embed"][tokens].to(layers.torch_dtype(cfg.dtype))
+    return layers.embed(params["embed"], tokens).to(
+        layers.torch_dtype(cfg.dtype))
 
 
 def forward(cfg: ArchConfig, params, tokens, positions=None):
@@ -228,6 +229,7 @@ def forward(cfg: ArchConfig, params, tokens, positions=None):
     x = _embed(cfg, params, tokens)
     blk = functools.partial(_block_train, cfg)
     for lp in _per_layer(params["blocks"]):
+        x = layers.activation_constraint(x, seq_over_model=cfg.seq_shard)
         if cfg.remat:
             x = checkpoint(blk, x, lp, use_reentrant=False)
         else:

@@ -98,6 +98,10 @@ def _block(cfg: ArchConfig, x, positions, lp, *, window: int = 0,
            ffn=dense_mlp):
     B, S, D = x.shape
     H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if cfg.seq_shard:
+        # Megatron-SP: the residual is sequence-sharded between blocks;
+        # gather the sequence here so the TP matmuls see whole sequences
+        x = layers.activation_constraint(x, seq_over_model=False)
     h = layers.rms_norm(x, lp["ln1"])
     q = layers.qk_proj(h, lp["wq"], H, hd)
     k = layers.qk_proj(h, lp["wk"], KVH, hd)
@@ -122,6 +126,7 @@ def forward_embeds(cfg: ArchConfig, params, x, positions, ffn=dense_mlp):
     per_layer = zip(*(torch.unbind(params["blocks"][k]) for k in names))
     for ws in per_layer:
         lp = dict(zip(names, ws))
+        x = layers.activation_constraint(x, seq_over_model=cfg.seq_shard)
         if cfg.remat:
             x = checkpoint(blk, x, positions, lp, use_reentrant=False)
         else:
@@ -134,7 +139,8 @@ def forward(cfg: ArchConfig, params, tokens, positions=None):
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, device=tokens.device).expand(B, S)
-    x = params["embed"][tokens].to(layers.torch_dtype(cfg.dtype))
+    x = layers.embed(params["embed"], tokens).to(
+        layers.torch_dtype(cfg.dtype))
     return forward_embeds(cfg, params, x, positions)
 
 

@@ -31,8 +31,8 @@ def _embeds(cfg: ArchConfig, params, tokens, patch_embeds):
     B, S = tokens.shape
     P = patch_embeds.shape[1]
     dt = layers.torch_dtype(cfg.dtype)
-    x = torch.cat([patch_embeds.to(dt), params["embed"][tokens].to(dt)],
-                  dim=1)
+    x = torch.cat([patch_embeds.to(dt),
+                   layers.embed(params["embed"], tokens).to(dt)], dim=1)
     positions = torch.arange(P + S, device=tokens.device).expand(B, P + S)
     return x, positions
 

@@ -82,8 +82,18 @@ def global_norm(tree):
                           for x in tree_leaves(tree)))
 
 
+def _like_param(g, p):
+    """A DTensor gradient on its parameter's placements (a partial sum is
+    reduced there); a plain tensor as it is."""
+    from ..parallel.sharding import is_dtensor
+    if not is_dtensor(g) or tuple(g.placements) == tuple(p.placements):
+        return g
+    return g.redistribute(p.device_mesh, p.placements)
+
+
 def update(cfg: AdamWConfig, grads, state: AdamWState, params):
     """Returns (new_params, new_state, metrics)."""
+    grads = tree_map(_like_param, grads, params)
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)

@@ -9,9 +9,12 @@ The port of `repro.optim.compression`:
   * ErrorFeedback: the quantization error is kept and added back before
     the next step's quantization (Seide et al.).
 
-`compressed_psum` is the reference's `shard_map` collective (an int8
-all-reduce over a mesh axis); it waits for the training half of the
-mesh-only pieces (ROADMAP A7b) and raises here.
+`compressed_psum` is the reference's collective over a mesh axis, as its
+code computes it: each participant quantizes locally, the int8 payloads
+and the fp32 per-block scales are all-gathered, and the result is
+``sum_p scale_p * q_p``. PyTorch has no ambient axis, so the live
+`DeviceMesh` is passed with the axis name; the gathers go through
+`repro_torch.parallel.comm` (gloo stages CUDA tensors through the host).
 """
 from __future__ import annotations
 
@@ -51,11 +54,26 @@ def quantization_error(x):
     return x.float() - dequantize(q, s, n, x.shape)
 
 
-def compressed_psum(x, axis_name: str):
-    """The reference's int8-quantized psum along a mesh axis."""
-    raise NotImplementedError(
-        "compressed_psum is a collective over a device mesh: it waits for "
-        "the port's mesh-only pieces (ROADMAP A7b)")
+def gather_quantized(x, axis_name: str, mesh):
+    """Quantize `x` and all-gather the payloads and scales over the
+    processes along `axis_name` of `mesh`: (q [P, n_blocks, BLOCK] int8,
+    scales [P, n_blocks] fp32, numel), by position on the axis."""
+    from ..parallel import comm
+    q, s, n = quantize(x)
+    group = mesh.get_group(axis_name)
+    scales = torch.stack(comm.all_gather(s, group=group))
+    qs = torch.stack(comm.all_gather(q, group=group))
+    return qs, scales, n
+
+
+def compressed_psum(x, axis_name: str, mesh):
+    """The int8-quantized sum of `x` over the processes along `axis_name`
+    of the live `mesh`: every process gets ``sum_p scale_p * q_p`` in
+    `x`'s shape (fp32). A collective: each process of the axis's group
+    calls it."""
+    qs, scales, n = gather_quantized(x, axis_name, mesh)
+    total = torch.einsum("pb,pbk->bk", scales, qs.float())
+    return total.reshape(-1)[:n].reshape(x.shape)
 
 
 class ErrorFeedback(NamedTuple):

@@ -4,11 +4,11 @@ The port of `repro.parallel.sharding`'s rules. A mesh shape is an ordered
 mapping of axis names to sizes (``{"data": 16, "model": 16}``, or with a
 leading ``"pod"``); a placement is a tuple with, for each dimension of a
 leaf, the mesh axes it is split over (an axis name, a tuple of two or
-more) or ``None``: what a ``PartitionSpec`` holds. Nothing here touches
-a device. Turning placements into DTensor placements on a live
-``DeviceMesh`` (the reference's ``named``; the mesh itself is
-``repro_torch.launch.mesh.make_host_mesh(live=True)``) waits for the
-training half of the mesh-only pieces (ROADMAP A7b).
+more) or ``None``: what a ``PartitionSpec`` holds. The rules touch no
+device. `named` (the reference's) turns a tree of placements into DTensor
+placements on a live ``("data", "model")`` `DeviceMesh`
+(``repro_torch.launch.mesh.make_host_mesh(live=True)``), and `place` /
+`place_state` distribute a tree or a whole training state by them.
 
 Conventions (divisibility-aware — falls back per dimension):
   * batch/sequence data shard over all non-'model' axes ('pod','data').
@@ -22,6 +22,8 @@ Conventions (divisibility-aware — falls back per dimension):
     divisible, else the sequence / page dim; never head_dim.
 """
 from __future__ import annotations
+
+import dataclasses
 
 
 def dp_axes(mesh: dict) -> tuple:
@@ -222,3 +224,126 @@ def _sharded_bytes(tree, spec_tree, mesh: dict) -> int:
         total += n * t.element_size() // max(div, 1)
     return total
 
+
+# ------------------------------------------------------- live-mesh placement
+def is_dtensor(x) -> bool:
+    """Whether `x` is a DTensor (without importing DTensor for a plain
+    tensor)."""
+    import torch
+    if type(x) is torch.Tensor or not isinstance(x, torch.Tensor):
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedPlacement:
+    """A placement tuple made concrete on a live `DeviceMesh`: the
+    counterpart of a ``NamedSharding``. ``placements`` holds one DTensor
+    placement per mesh dimension, in the mesh's order."""
+
+    mesh: object
+    placements: tuple
+
+    def place(self, t, device=None):
+        """`t` (the whole array, the same on every process) as a DTensor
+        of these placements: each process cuts its own shard locally (no
+        collective) and moves only that to `device` (`t`'s by
+        default)."""
+        from torch.distributed.tensor import DTensor
+        from torch.distributed.tensor._utils import \
+            compute_local_shape_and_global_offset
+        local, offset = compute_local_shape_and_global_offset(
+            tuple(t.shape), self.mesh, self.placements)
+        mine = t
+        for d, (n, o) in enumerate(zip(local, offset)):
+            if n != t.shape[d]:
+                mine = mine.narrow(d, o, n)
+        mine = mine.contiguous().to(t.device if device is None else device)
+        return DTensor.from_local(mine, self.mesh, self.placements,
+                                  run_check=False, shape=t.shape,
+                                  stride=t.contiguous().stride())
+
+
+def _rebuild(like: tuple, items) -> tuple:
+    items = list(items)
+    return type(like)(*items) if hasattr(like, "_fields") else tuple(items)
+
+
+def _is_spec(x) -> bool:
+    return isinstance(x, tuple) and not hasattr(x, "_fields")
+
+
+def dtensor_placements(mesh, spec: tuple) -> tuple:
+    """One DTensor placement per dimension of `mesh`: ``Shard(d)`` on each
+    axis that dimension d of `spec` names, ``Replicate()`` elsewhere. An
+    axis named twice, or one the mesh lacks, raises."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = mesh.mesh_dim_names
+    out = [Replicate()] * len(names)
+    for d, axes in enumerate(spec):
+        if axes is None:
+            continue
+        for a in (axes,) if isinstance(axes, str) else axes:
+            if a not in names:
+                raise ValueError(f"placement {spec} names axis {a!r}; the "
+                                 f"mesh has {names}")
+            i = names.index(a)
+            if out[i] != Replicate():
+                raise ValueError(f"placement {spec} names axis {a!r} twice")
+            out[i] = Shard(d)
+    return tuple(out)
+
+
+def named(mesh, spec_tree):
+    """A tree of placement tuples (`param_specs`, `batch_specs`, ...) ->
+    the same tree of `NamedPlacement` on the live `mesh`."""
+    if _is_spec(spec_tree):
+        return NamedPlacement(mesh, dtensor_placements(mesh, spec_tree))
+    if isinstance(spec_tree, tuple):      # a NamedTuple of specs
+        return _rebuild(spec_tree, (named(mesh, s) for s in spec_tree))
+    return {k: named(mesh, v) for k, v in spec_tree.items()}
+
+
+def place(tree, placed):
+    """`tree` (tensors, whole and equal on every process) as DTensors by
+    `placed`, a matching tree of `NamedPlacement` (from `named`)."""
+    if isinstance(placed, NamedPlacement):
+        return placed.place(tree)
+    if isinstance(tree, tuple):
+        return _rebuild(tree, (place(t, p) for t, p in zip(tree, placed)))
+    return {k: place(tree[k], placed[k]) for k in tree}
+
+
+def replicated_specs(tree):
+    """Every leaf of a tree (dicts, NamedTuples) replicated."""
+    if isinstance(tree, dict):
+        return {k: replicated_specs(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return _rebuild(tree, (replicated_specs(t) for t in tree))
+    return (None,) * tree.dim()
+
+
+def mesh_device(mesh):
+    """This process's device on a live `mesh`: its current card, or the
+    CPU."""
+    import torch
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def mesh_shape(mesh) -> dict:
+    """A live `DeviceMesh`'s shape as the rules read it."""
+    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+
+
+def place_state(mesh, params, opt_state, fsdp: bool = False):
+    """(params, opt_state) as DTensors on the live `mesh`: the parameters
+    by `param_specs`, the moments like them, the count replicated.
+    Returns (params, opt_state, parameter specs)."""
+    from ..optim.adamw import AdamWState
+    p_spec = param_specs(mesh_shape(mesh), params, fsdp=fsdp)
+    o_spec = AdamWState(count=(), m=p_spec, v=p_spec)
+    return (place(params, named(mesh, p_spec)),
+            place(opt_state, named(mesh, o_spec)), p_spec)

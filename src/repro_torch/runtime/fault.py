@@ -10,9 +10,13 @@ the reference's loop, history fields and restore-from-latest rule:
     the step after it (the data stream is step-indexed, so it resumes
     byte for byte), or start over from the initial state without one.
 
-The reference's elastic re-meshing (restore onto a new mesh) waits for the
-training half of the mesh-only pieces (ROADMAP A7b); the port restores
-onto the state's device.
+Elastic re-meshing, the reference's contract: a checkpoint restores onto
+a NEW mesh, on which the data axis may grow or shrink (the global batch
+and the ``"model"`` axis's layout are invariants: another ``"model"`` size
+raises). `run_with_recovery` restores onto the placements of the state it
+was given, DTensors on that state's mesh (`ckpt.placements_of`), whatever
+mesh the checkpoint was written from; a plain state restores onto its
+leaves' device.
 """
 from __future__ import annotations
 
@@ -76,17 +80,20 @@ def run_with_recovery(cfg: TrainLoopConfig, *, init_state, step_fn: Callable,
     """Generic fault-tolerant loop.
 
     init_state: a tree (params, opt, ...), the checkpointable unit; its
-      leaves give each restored leaf's dtype and device
+      leaves give each restored leaf's dtype and device, or its mesh and
+      placements (DTensor leaves)
     step_fn(state, batch, step) -> (state, metrics)
     make_batch(step) -> batch
     Returns (state, history dict).
     """
     saver = ckpt_lib.AsyncCheckpointer(cfg.ckpt_dir)
     state = init_state
+    onto = ckpt_lib.placements_of(init_state)
     start = 0
     restored = ckpt_lib.latest_step(cfg.ckpt_dir)
     if restored is not None:
-        state = ckpt_lib.restore(state, restored, cfg.ckpt_dir)
+        state = ckpt_lib.restore(state, restored, cfg.ckpt_dir,
+                                 shardings=onto)
         start = restored + 1
 
     failures = 0
@@ -115,7 +122,8 @@ def run_with_recovery(cfg: TrainLoopConfig, *, init_state, step_fn: Callable,
             saver.wait()
             restored = ckpt_lib.latest_step(cfg.ckpt_dir)
             if restored is not None:
-                state = ckpt_lib.restore(state, restored, cfg.ckpt_dir)
+                state = ckpt_lib.restore(state, restored, cfg.ckpt_dir,
+                                         shardings=onto)
                 step = restored + 1
             else:
                 state = init_state

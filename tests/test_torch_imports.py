@@ -19,7 +19,11 @@ sharding rules; the five kernels as `repro_torch` operators), and the
 tier across processes (the collectives, the rank mesh, the live world
 and mesh with its spawn helper, the sharded heap on a mesh,
 `write_attend_seqpar`; tools/seqpar_divergence.py and seqpar_mutants.py
-and the mesh tests' per-process module); the registry lists all seven kinds and covers all
+and the mesh tests' per-process module), and training on a mesh
+(`named`, `place_state`, `batch_pspec` / `shard_batch`,
+`activation_constraint`, ``grad_pspec``, `compressed_psum`, the
+host-staged gloo group, checkpoints of DTensors; tools/mesh_train_mutants.py
+and the mesh training tests' per-process module); the registry lists all seven kinds and covers all
 six model families; `repro_torch.core` re-exports the reference's
 names."""
 import subprocess
@@ -45,7 +49,9 @@ import op_cost
 import dryrun_grid
 import seqpar_divergence
 import seqpar_mutants
+import mesh_train_mutants
 import torch_mesh_workers
+import torch_mesh_train_workers
 for name in ("quickstart", "graph_update", "serve_paged", "serve_decode",
              "serve_fleet", "train_lm"):
     spec = importlib.util.spec_from_file_location(
@@ -100,7 +106,18 @@ assert all(callable(f) for f in (
     paged.batch_rows, paged.local_pages, seqpar_divergence.main,
     seqpar_mutants.main, torch_mesh_workers.run_all, sharding.dp_axes,
     sharding.param_specs, sharding.batch_specs, sharding.cache_specs,
-    sharding._sharded_bytes))
+    sharding._sharded_bytes, sharding.named, sharding.place,
+    sharding.place_state, sharding.dtensor_placements,
+    sharding.replicated_specs, pipeline.batch_pspec, pipeline.shard_batch,
+    layers.activation_constraint, layers.seq_shard_constraint,
+    layers.on_mesh, compression.compressed_psum,
+    compression.gather_quantized, comm.register_host_staged,
+    comm.HostStagedGroup, ckpt.placements_of, mesh_train_mutants.main,
+    torch_mesh_train_workers.run_all, chip_smoke.phase_mesh_train,
+    chip_smoke.mesh_train_worker))
+import inspect
+assert "grad_pspec" in inspect.signature(steps.make_train_step).parameters
+assert "mesh" in inspect.signature(compression.compressed_psum).parameters
 assert pimcheck.TIERS == ("single", "vmap", "sharded")
 assert passes.PASS_NAMES == ("donation", "int-width", "index-bounds",
                              "write-race") and passes.SUPPRESSIONS == ()

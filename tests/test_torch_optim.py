@@ -14,7 +14,9 @@ on the CPU.
   * the reference's own optimizer tests, on the port;
   * `compression`: quantize / dequantize / quantization_error /
     ef_compress equal the reference's bit for bit (int8 values, scales,
-    residuals), and `compressed_psum` raises, naming ROADMAP A7.
+    residuals), and `compressed_psum` on a one-process mesh within
+    tests/test_substrate.py's bound of its input (4 processes:
+    tests/test_torch_mesh_train.py).
 """
 import jax
 import jax.numpy as jnp
@@ -219,6 +221,24 @@ def test_error_feedback_matches_reference():
                 grads["b"]["c"], rtol=1e-6)
 
 
-def test_compressed_psum_waits_for_the_mesh():
-    with pytest.raises(NotImplementedError, match="A7"):
-        tcomp.compressed_psum(torch.zeros(4), "data")
+def test_compressed_psum_on_a_one_process_mesh():
+    """The reference's test_compressed_psum_matches_fp32 on the port: one
+    participant, so the sum is its own dequantized input, held to that
+    test's bound; the payloads are this process's quantization."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.launch.mesh import free_port
+    x = torch.from_numpy(np.random.RandomState(0).randn(256).astype(
+        np.float32))
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1,), mesh_dim_names=("data",))
+        y = tcomp.compressed_psum(x, "data", mesh)
+        qs, scales, n = tcomp.gather_quantized(x, "data", mesh)
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_allclose(y.numpy(), x.numpy(), atol=0.1, rtol=0.02)
+    q, s, n1 = tcomp.quantize(x)
+    assert n == n1 and torch.equal(qs[0], q) and torch.equal(scales[0], s)
+    assert torch.equal(y, tcomp.dequantize(q, s, n, x.shape))

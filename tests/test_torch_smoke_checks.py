@@ -28,7 +28,10 @@ the FLOPs it holds (train_flops less what the checkpointed step does not
 recompute) equal a reduced cut's dry-run to the unit. Phase 16's checks
 fail a corrupted gathered response, a process holding the wrong rank
 slice after a restore, and a flipped decode token at a clear top-2 gap
-(and pass one at a near-tie).
+(and pass one at a near-tie). Phase 17's check of the trainer's lines
+passes another straggler count and rounding, and fails a loss off in its
+fourth decimal or a missing line; its local shapes of the (2, 2) mesh are
+pinned from the placements.
 """
 import dataclasses
 import sys
@@ -833,3 +836,41 @@ def test_decode_gaps_read_the_real_vocabulary():
     gaps = chip_smoke.top2_gaps([step0, step1], vocab=3)
     torch.testing.assert_close(gaps, torch.tensor([[1 / 8, 0.0],
                                                    [1 / 2, 1 / 10]]))
+
+
+LINES = ["arch=granite-3-8b params=426,624",
+         "step 0: loss=6.6975 gnorm=10.438 lr=1.00e-04",
+         "step 5: loss=5.6239 gnorm=9.571 lr=6.00e-04",
+         "done: 12 steps, 1 recoveries, 0 straggler events",
+         "latest checkpoint: step 11"]
+
+
+def test_mesh_train_lines_check_passes_rounding_and_fails_a_loss():
+    near = list(LINES)
+    near[1] = "step 0: loss=6.6976 gnorm=10.438 lr=1.00e-04"
+    near[3] = "done: 12 steps, 1 recoveries, 2 straggler events"
+    assert chip_smoke.mt_lines_equal(near + ["noise"], LINES, "ok") == 5
+    off = list(LINES)
+    off[2] = "step 5: loss=5.6259 gnorm=9.571 lr=6.00e-04"
+    with pytest.raises(AssertionError, match="step 5"):
+        chip_smoke.mt_lines_equal(off, LINES, "(c)")
+    with pytest.raises(AssertionError, match="4 lines, want 5"):
+        chip_smoke.mt_lines_equal(LINES[:2] + LINES[3:], LINES, "(c)")
+    recov = list(LINES)
+    recov[3] = "done: 12 steps, 0 recoveries, 0 straggler events"
+    with pytest.raises(AssertionError, match="recoveries"):
+        chip_smoke.mt_lines_equal(recov, LINES, "(c)")
+
+
+def test_mesh_train_local_shapes_follow_the_placements():
+    from repro_torch import configs
+    cfg = dataclasses.replace(configs.get("granite_3_8b").reduced(),
+                              attn_4d=False)
+    got = chip_smoke.mt_want_local(cfg, {"data": 2, "model": 2})
+    L, D, V, F = 2, 128, 512, 256
+    assert got["embed"] == (V // 2, D // 2)         # vocab / model, D / data
+    assert got["head"] == (D // 2, V // 2)          # D / data, vocab / model
+    assert got["blocks/wq"] == (L, D // 2, 4 * 32 // 2)
+    assert got["blocks/wo"] == (L, 4 * 32 // 2, D // 2)
+    assert got["blocks/w2"] == (L, F // 2, D // 2)
+    assert got["blocks/ln1"] == (L, D) and got["ln_f"] == (D,)
