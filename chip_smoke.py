@@ -214,7 +214,9 @@ Phases (each raises on failure; nothing is caught and carried on):
      version's, SDPA's over gathered K/V and the bound;
  13. the recurrent families (mamba2-130m: SSD; recurrentgemma-9b: RG-LRU
      + local attention), which launch none of the five kernels (weights
-     from ``--seed``, each model freed before the next): (a) each at full
+     from ``--seed``, each model freed before the next), in the order (b),
+     (c), (a), so that the examples phase 14 starts after (c) overlap
+     only (a), which is not timed: (a) each at full
      width in fp32 (mamba2's 24 layers, recurrentgemma's first group of
      3), 8 x 256 prompt tokens (two SSD chunks) and 8 greedy decode steps
      on the card and on the CPU, the CPU fed the card's tokens: every
@@ -265,9 +267,10 @@ Phases (each raises on failure; nothing is caught and carried on):
      its hwsw row), serve_decode and serve_fleet (kind ``fused``), the
      paged-attention kernel by serve_paged, train_lm's recovery drill;
      quickstart's and graph_update's lines == their ``--device cpu``
-     runs' but the launch count. The two CPU runs and graph_update's card
-     run start with (a), which is not timed, and the other card runs
-     follow it side by side; (b) runs last, alone;
+     runs' but the launch count. The eight runs start after phase 13's
+     timed steps and overlap its (a), phase 15 (which runs between phases
+     13 and 14) and this (a), none of which times the card; (b) runs
+     last, alone;
  15. the analysis tooling, the kernel counters read before and after:
      (a) `repro_torch.analysis.pimcheck --all-kinds --tapes --fixtures
      --device cuda`: exit 0, the seven kinds at the three tiers (C=1,
@@ -276,17 +279,30 @@ Phases (each raises on failure; nothing is caught and carried on):
      ``repro_torch::heap_step`` node a round (checked through its plain
      version's ops), each seeded-bug fixture flagged by its pass, the
      four committed tapes lint-clean; and with the write-race pass left
-     out, exit 1 on exactly the fixture planted for it; (b) the dry-run
-     (`launch.dryrun.dryrun_cell`) of phase 11 (b)'s cell on fake CUDA
-     tensors: its argument bytes == the parameters, AdamW's m, v and
-     count and the batch of phase 11's specs, byte for byte; its peak
-     estimate between phase 11's state plan and phase 11's measured peak
-     of this run; its FLOPs within 5 % of `train_flops` less what the
+     out, exit 1 on exactly the fixture planted for it; (b) the dry-run's
+     one-device program (`launch.dryrun.program`) of phase 11 (b)'s cell
+     on fake CUDA tensors: its argument bytes == the parameters, AdamW's
+     m, v and count and the batch of phase 11's specs, byte for byte; its
+     peak estimate between phase 11's state plan and phase 11's measured
+     peak of this run; its FLOPs within 5 % of `train_flops` less what the
      checkpointed step does not run (`recompute_skipped`); a decode step
      at phase 7's shape records 40 paged-attention nodes and launches
      nothing; (c) the `dryrun --all` grid's decode cells (long_500k,
      decode_32k) until GRID_BUDGET_S is spent, one line each (its prefill
-     and train cells take minutes each: tools/dryrun_grid.py);
+     and train cells take minutes each: tools/dryrun_grid.py); (d) the
+     per-device SPMD program (`launch.dryrun.spmd_program`) of
+     granite-3-8b at full width (2 layers) on fake ``"cuda"`` worlds:
+     train_4k (256 x 4096, 8 microbatches) on 16 x 16 and 2 x 16 x 16,
+     decode_32k on 16 x 16, and olmoe-1b-7b's train_4k on 16 x 16 (1
+     layer: its routed experts on the mesh): each device's argument
+     bytes == the rules' state (and for the decode, the whole weights the port's
+     serving program holds) plus its rows, all-gathers over ``"data"`` in
+     the train schedules and the combine's all-reduces over ``"model"``
+     in the decode's, its FLOPs exactly the one-device program's share
+     for granite's train cells (between that share and the whole for
+     the others), the collective term at NVLINK_BW; per device its
+     FLOPs, bytes, peak, collective bytes by op and by axis, the three
+     terms and the bottleneck; no kernel launched;
  16. the heap fleet and sequence-parallel decode across processes
      (`repro_torch.launch.mesh.spawn`; ``nccl`` where there is a card for
      every process, ``gloo`` otherwise, its collectives staged through
@@ -317,7 +333,15 @@ Phases (each raises on failure; nothing is caught and carried on):
      free-running decode (and `serve` on one device) first differs only
      at such a step; ms a step and
      the all-reduces' share; a 2-layer slice in fp32 with the config's
-     weights within SEQPAR_FP32_TOL of max |logit|, tokens equal.
+     weights within SEQPAR_FP32_TOL of max |logit|, tokens equal;
+ 17. training on a (data=2, model=2) mesh of processes (`phase_mesh_train`:
+     (a) the sharded step at full width against one device, (b)
+     compressed_psum, (c) the trainer and a restore onto new meshes);
+     (d) each process records its step 2 (`analysis.trace_utils.record`)
+     and the dry-run of the same cell on a fake (2, 2) ``"cuda"`` world
+     must run process 0's collectives exactly: every op, result shape,
+     mesh axis, count and byte; the host-staged group's own byte count
+     (`HostStagedGroup.moved_bytes`) is printed beside it.
 
 In the ``kernels`` record, each kernel's ``ms``, ``plain_ms``,
 ``bound_ms`` and ``library_ms`` are per launch: averaged over the launches
@@ -4401,19 +4425,28 @@ def train_family(name, seed, device, smi, n_layers, n_micro, label):
 
 
 def phase_recurrent(seed, device, smi):
-    """Phase 13; returns its result dict."""
+    """Phase 13, in the order (b), (c), (a): the timed decode steps and
+    training steps run alone; then the example runs phase 14 (c) compares
+    start (`start_examples_ahead`) and overlap (a), the card == CPU
+    checks, which are not timed. Returns (its result dict, the examples'
+    processes)."""
     t0 = time.perf_counter()
     out = {"card_vs_cpu": {}, "serve": {}, "train": {}}
-    for name in REC_ARCHS:
-        out["card_vs_cpu"][name] = rec_card_vs_cpu(name, seed, device)
     for name in REC_ARCHS:
         out["serve"][name] = rec_serve(name, seed, device, smi)
     for name in REC_ARCHS:
         out["train"][name] = train_family(name, seed, device, smi,
                                           *REC_TRAIN[name], "(c)")
+    procs = start_examples_ahead()
+    try:
+        for name in REC_ARCHS:
+            out["card_vs_cpu"][name] = rec_card_vs_cpu(name, seed, device)
+    except BaseException:
+        stop_examples(procs)
+        raise
     out["seconds"] = time.perf_counter() - t0
     print(f"phase 13 took {out['seconds']:.1f} s")
-    return out
+    return out, procs
 
 
 # ---------------------------------------------------------------------------
@@ -4423,7 +4456,8 @@ def phase_recurrent(seed, device, smi):
 # encoder too), TRAIN_CHECK_TEXT text tokens (paligemma after its patches)
 FAM_TRAIN_CHECK = {"olmoe_1b_7b": 1, "qwen2_moe_a2_7b": 1, "paligemma_3b": 2,
                    "whisper_small": 2}
-TRAIN_CHECK_TEXT = 128  # 256 before phase 17; (a)'s CPU side is host-bound
+TRAIN_CHECK_TEXT = 64   # 256 before phase 17, 128 before phase 15 (d);
+#                         (a)'s CPU side is host-bound
 # (b): (layers, microbatches) at full width, TRAIN_BATCH x TRAIN_SEQ text
 # tokens, 16 B of state a parameter: olmoe 4 of 16 layers (1.885 B params,
 # 30.2 GB), qwen2-moe 2 of 24 (1.833 B, 29.3 GB), paligemma and whisper
@@ -4437,7 +4471,6 @@ EXAMPLES = (("quickstart", "heap-step"), ("graph_update", "heap-step"),
             ("serve_paged", "paged-attention"), ("serve_decode", "heap-step"),
             ("serve_fleet", "heap-step"), ("train_lm", None))
 EXAMPLES_VS_CPU = ("quickstart", "graph_update")  # == their --device cpu runs
-EXAMPLES_AHEAD = ("graph_update",)  # its card run overlaps the others'
 EXAMPLE_TIMEOUT = 600   # seconds a subprocess may take
 
 
@@ -4633,14 +4666,16 @@ def start_example(name, device, threads=None):
 
 
 def start_examples_ahead():
-    """The example runs phase 14 starts before its (a), which they overlap
-    (it is not timed): quickstart and graph_update with ``--device cpu``
-    (two host threads each) and graph_update's card run (the longest: the
-    straw-man's host-bound rounds). {(name, device): (process, start)}."""
+    """The example runs phase 14 (c) compares, started after phase 13's
+    timed steps: they overlap phase 13 (a), phase 15 and phase 14 (a),
+    none of which times the card. Every example's card run (graph_update's
+    the longest: the straw-man's host-bound rounds) and quickstart and
+    graph_update with ``--device cpu`` (two host threads each). {(name,
+    device): (process, start)}."""
     procs = {(name, "cpu"): start_example(name, "cpu", threads=2)
              for name in EXAMPLES_VS_CPU}
     procs.update({(name, "cuda"): start_example(name, "cuda")
-                  for name in EXAMPLES_AHEAD})
+                  for name, _ in EXAMPLES})
     return procs
 
 
@@ -4655,19 +4690,15 @@ def run_examples(smi, procs):
     """Phase 14 (c): each port example (examples/*_torch.py) at its
     default size (graph_update at the paper's partition: the only run of
     it at that size) in a subprocess with ``--device cuda``, all side by
-    side (those of `procs`, `start_examples_ahead`, collected last);
-    quickstart and graph_update also with ``--device cpu``. Every run must
+    side (`procs`, `start_examples_ahead`); quickstart and graph_update
+    also with ``--device cpu``. Every run must
     exit with 0; the card's runs of quickstart and
     graph_update print the same lines as the CPU's but their last (the
     launch count), and graph_update's fused row == its hwsw row; the
     kernel each example's last line counts was launched (> 0)."""
     out = {}
     try:
-        for name, _ in EXAMPLES:
-            if (name, "cuda") not in procs:
-                procs[name, "cuda"] = start_example(name, "cuda")
-        for name, kernel in sorted(EXAMPLES,
-                                   key=lambda e: e[0] in EXAMPLES_AHEAD):
+        for name, kernel in EXAMPLES:
             proc, t0 = procs[name, "cuda"]
             lines = finish(proc, f"{name}_torch.py --device cuda")
             secs = time.perf_counter() - t0
@@ -4709,13 +4740,13 @@ def run_examples(smi, procs):
     return out
 
 
-def phase_train_families(seed, device, smi):
+def phase_train_families(seed, device, smi, procs=None):
     """Phase 14, in the order (a), (c), (b): the examples started ahead
-    overlap (a), and (b)'s timed steps run alone. Returns its result
-    dict."""
+    (`procs`, `start_examples_ahead`; started here if None) overlap (a),
+    and (b)'s timed steps run alone. Returns its result dict."""
     t0 = time.perf_counter()
     out = {"card_vs_cpu": {}, "train": {}}
-    procs = start_examples_ahead()
+    procs = start_examples_ahead() if procs is None else procs
     try:
         for name in FAMILY_ARCHS:
             out["card_vs_cpu"][name] = fam_train_card_vs_cpu(name, seed,
@@ -4731,8 +4762,8 @@ def phase_train_families(seed, device, smi):
     out["seconds"] = time.perf_counter() - t0
     out["b_s"] = out["seconds"] - out["a_s"] - out["c_s"]
     print(f"phase 14 took {out['seconds']:.1f} s: (a) {out['a_s']:.1f}, "
-          f"(c) {out['c_s']:.1f} (the examples started with (a)), (b) "
-          f"{out['b_s']:.1f}")
+          f"(c) {out['c_s']:.1f} (the examples started in phase 13 (a)), "
+          f"(b) {out['b_s']:.1f}")
     return out
 
 
@@ -4741,11 +4772,17 @@ def phase_train_families(seed, device, smi):
 # ---------------------------------------------------------------------------
 FLOP_BAND = 0.05        # (b): |dry-run FLOPs / the step's count - 1|
 DECODE_CELL = ("decode_32k", SERVE_PROMPT + SERVE_STEPS + 128, SERVE_BATCH)
-GRID_BUDGET_S = 30.0    # (c): cells of `dryrun --all` run until this is spent
+GRID_BUDGET_S = 5.0     # (c): cells of `dryrun --all` run until this is spent
 # (c)'s shapes: a decode cell records 2-11k ops (~1-4 s); a prefill or
 # train cell up to ~10^6 (minutes), which tools/dryrun_grid.py runs
 GRID_ORDER = ("long_500k", "decode_32k")
 RACE_PASS = "write-race"
+# (d): (arch, shape, on 2 x 16 x 16, layers) at full width: granite 2 of
+# its 40 layers, olmoe 1 of 16
+DRY_CELLS = ((SERVE_ARCH, "train_4k", False, 2),
+             (SERVE_ARCH, "train_4k", True, 2),
+             (SERVE_ARCH, "decode_32k", False, 2),
+             ("olmoe_1b_7b", "train_4k", False, 1))
 
 
 def check_pimcheck(rc, report, kinds, tiers, card=True):
@@ -4827,21 +4864,134 @@ def check_dry_train(ana, want_args, plan, peak, want_flops):
 
 
 def dry_line(res):
-    """One line for a dry-run cell."""
+    """One line for a dry-run cell: the one-device program, then the
+    per-device one where the cell has it."""
     if res["status"] != "ok":
         return (f"{res['arch']}/{res['shape']}/{res['mesh']}: "
                 f"{res['status']} ({res.get('reason', res.get('error'))})")
-    a, rf = res["op_analysis"], res["roofline"]
+    a = res["op_analysis"]
     state = sum(res["state_bytes_per_device"].values())
-    return (f"{res['arch']}/{res['shape']}/{res['mesh']}: layers "
+    line = (f"{res['arch']}/{res['shape']}/{res['mesh']}: layers "
             f"{res['layers']}, B={res['global_batch']}, S={res['seq_len']}"
             + (f", n_micro {res['n_micro']}" if "n_micro" in res else "")
-            + f"; {a['flops'] / 1e12:.2f} TFLOP, memory "
-            f"{a['memory_bytes'] / 1e12:.3f} TB, peak {a['peak_bytes'] / 1e9:.2f}"
-            f" GB (fits one card: {res['fits_one_card']}), state per device "
-            f"{state / 1e9:.3f} GB; compute {rf['compute_s']:.4g} s, memory "
-            f"{rf['memory_s']:.4g} s ({rf['bottleneck']}); {a['n_ops']} ops "
-            f"recorded in {res['record_s']} s")
+            + f"; one device {a['flops'] / 1e12:.2f} TFLOP, memory "
+            f"{a['memory_bytes'] / 1e12:.3f} TB, peak "
+            f"{a['peak_bytes'] / 1e9:.2f} GB (fits one card: "
+            f"{res['fits_one_card']}), {a['n_ops']} ops in "
+            f"{res['record_s']} s; state per device {state / 1e9:.3f} GB")
+    d = res["spmd_program"]
+    if d["status"] != "ok":
+        raise AssertionError(f"{line}; the per-device program failed:\n"
+                             f"{d['traceback']}")
+    rf = res["roofline"]
+    return line + (
+        f"; per device {d['flops'] / 1e12:.4g} TFLOP, args "
+        f"{d['argument_bytes'] / 1e9:.3f} GB, peak "
+        f"{d['peak_bytes'] / 1e9:.3f} GB (fits: {d['fits_per_device']}), "
+        f"collectives {d['collective_bytes'] / 1e9:.4g} GB; compute "
+        f"{rf['compute_s']:.4g} s, memory {rf['memory_s']:.4g} s, "
+        f"collective {rf['collective_s']:.4g} s ({rf['bottleneck']}); "
+        f"{d['n_ops']} ops in {d['record_s']} s")
+
+
+def dry_want_args(cfg, res, mesh):
+    """(d): the argument bytes a device of the cell's program holds: for a
+    train cell the rules' state (parameters, m, v) + AdamW's count + its
+    rows of the batch; for a serving cell the whole weights (the port's
+    serving program holds them whole) + its rows' slice of the cache's
+    pages + its rows of the rest."""
+    from repro_torch.models import registry
+    from repro_torch.models.config import SHAPES
+    from repro_torch.parallel import sharding
+    shape = SHAPES[res["shape"]]
+    dp = math.prod(n for a, n in mesh.items() if a != "model")
+    if shape.kind == "train":
+        rows = shape.global_batch // dp
+        batch = registry.train_specs(cfg, shape)
+        return (sum(res["state_bytes_per_device"].values()) + 4
+                + tree_bytes(batch) // shape.global_batch * rows)
+    batch, cache = registry.decode_specs(cfg, shape)
+    data, model = mesh["data"], mesh["model"]
+    div = {k: data * (model if k in ("k_pages", "v_pages") else 1)
+           for k in cache}
+    return (tree_bytes(registry.param_specs(cfg))
+            + sum(t.numel() * t.element_size() // div[k]
+                  for k, t in cache.items())
+            + tree_bytes(batch) // data)
+
+
+def check_dry_spmd(res, cfg, mesh, one_flops):
+    """(d): one cell's per-device program (module docstring). Raises
+    AssertionError."""
+    from repro_torch.launch import dryrun
+    d = res["spmd_program"]
+    if d["status"] != "ok":
+        raise AssertionError(f"dry-run (d) {res['arch']}/{res['shape']}/"
+                             f"{res['mesh']}: the per-device program failed:"
+                             f"\n{d['traceback']}")
+    errs = []
+    rf, sched = res["roofline"], res["collective_schedule"]
+    n = math.prod(mesh.values())
+    want = dry_want_args(cfg, res, mesh)
+    if res["devices"] != n or d["argument_bytes"] != want:
+        errs.append(f"devices {res['devices']} (want {n}), argument bytes "
+                    f"{d['argument_bytes']} (want {want})")
+    if res["kind"] == "train" and cfg.family == "dense":
+        # each weight gathered at its use: a device runs its share exactly
+        if d["flops"] * n != one_flops:
+            errs.append(f"FLOPs {d['flops']} x {n} != the one-device "
+                        f"program's {one_flops}")
+    elif not one_flops / n <= d["flops"] <= one_flops:
+        errs.append(f"FLOPs {d['flops']} outside [{one_flops / n}, "
+                    f"{one_flops}]")
+    if rf["collective_s"] != d["collective_bytes"] / dryrun.NVLINK_BW or \
+            rf["bottleneck"] != max(("compute_s", "memory_s",
+                                     "collective_s"), key=rf.get):
+        errs.append(f"roofline {rf}")
+    ops = {(e["op"], e["axis"]) for e in sched}
+    if res["kind"] == "train":
+        if ("all_gather_into_tensor", "data") not in ops:
+            errs.append(f"no all-gather over data in {sorted(ops)}")
+    elif ops != {("allreduce_", "model")} or sum(
+            e["times"] for e in sched) != 2 * res["layers"]:
+        errs.append(f"decode schedule {sched}")
+    if d["kernel_nodes"]:
+        errs.append(f"kernel nodes {d['kernel_nodes']}")
+    if errs:
+        raise AssertionError(f"dry-run (d) {res['shape']}/{res['mesh']}: "
+                             + "; ".join(errs))
+
+
+def spmd_lines(res, one_flops):
+    """(d)'s lines for a cell's per-device program."""
+    d, rf = res["spmd_program"], res["roofline"]
+    n = res["devices"]
+    state = sum(res["state_bytes_per_device"].values())
+    top = ", ".join(f"{e['op']} {e['shape']} over {e['axis']} x{e['times']}"
+                    for e in res["collective_schedule"][:3])
+    return [
+        f"(d) {res['arch']}/{res['shape']}/{res['mesh']} ({n} devices, "
+        f"{res['layers']} layers" + (f", n_micro {res['n_micro']}"
+                                     if "n_micro" in res else "")
+        + f"): per device argument bytes {d['argument_bytes']} (rules' "
+        f"state {state} + the rows" + (" + whole weights less the rules' "
+                                       "share" if res["kind"] != "train"
+                                       else " + count")
+        + f"), peak {d['peak_bytes'] / 1e9:.3f} GB (fits: "
+        f"{d['fits_per_device']}); {d['flops'] / 1e12:.4f} TFLOP against "
+        f"the one-device program's / {n} = {one_flops / n / 1e12:.4f} "
+        f"({d['flops'] / (one_flops / n):.3f} x)",
+        f"(d)   collectives {d['collective_bytes'] / 1e9:.4f} GB a step: "
+        f"by op " + ", ".join(f"{k} {v / 1e9:.4f}" for k, v in
+                              d["collective_bytes_by_op"].items())
+        + "; by axis " + ", ".join(f"{k} {v / 1e9:.4f}" for k, v in
+                                   d["collective_bytes_by_axis"].items())
+        + f" GB; largest: {top}",
+        f"(d)   compute {rf['compute_s']:.4g} s, memory "
+        f"{rf['memory_s']:.4g} s, collective {rf['collective_s']:.4g} s at "
+        f"NVLink's data-sheet 450 GB/s: {rf['bottleneck']}; recorded "
+        f"{d['n_ops']} ops in {d['record_s']} s (one-device program "
+        f"{res['record_s']} s)"]
 
 
 def phase_analysis(seed, device, smi, train_result):
@@ -4850,7 +5000,8 @@ def phase_analysis(seed, device, smi, train_result):
     against phase 11's plan, measured peak and FLOP count, and of a
     decode step at phase 7's shape (one paged-attention node a layer, no
     launch); (c) as many decode cells of the `dryrun --all` grid as fit
-    GRID_BUDGET_S. Returns its result dict."""
+    GRID_BUDGET_S; (d) the per-device programs of DRY_CELLS on fake worlds
+    of 256 and 512 ranks (`check_dry_spmd`). Returns its result dict."""
     import tempfile
 
     from repro_torch import configs
@@ -4898,11 +5049,8 @@ def phase_analysis(seed, device, smi, train_result):
     counters = kernel_counters()
     before = {k: f.launches for k, f in counters.items()}
     cell = ShapeConfig("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train")
-    res = dryrun.dryrun_cell(SERVE_ARCH, cell, n_micro=TRAIN_MICRO,
-                             layers=TRAIN_LAYERS, device=where,
-                             verbose=False)
-    ana = res["op_analysis"]
     cfg = dataclasses.replace(configs.get(SERVE_ARCH), n_layers=TRAIN_LAYERS)
+    ana, rec_s = dryrun.program(cfg, cell, TRAIN_MICRO, where)
     ospec = steps.opt_state_specs(cfg, adamw.AdamWConfig(
         moment_dtype=cfg.opt_moment_dtype))
     want_args = (tree_bytes(registry.param_specs(cfg)) + tree_bytes(
@@ -4914,17 +5062,16 @@ def phase_analysis(seed, device, smi, train_result):
     plan, peak = train_result["plan_bytes"], train_result["peak_bytes"]
     check_dry_train(ana, want_args, plan, peak, tf - skipped)
     shape = ShapeConfig(*DECODE_CELL[:2], DECODE_CELL[2], "decode")
-    dec = dryrun.dryrun_cell(SERVE_ARCH, shape, device=where,
-                             verbose=False)
-    nodes = dec["op_analysis"]["kernel_nodes"]
+    dec, _ = dryrun.program(dataclasses.replace(
+        configs.get(SERVE_ARCH), attend_impl="kernel"), shape, 1, where)
+    nodes = dec["kernel_nodes"]
     want_nodes = {"repro_torch::paged_attention":
                   configs.get(SERVE_ARCH).n_layers} if card else {}
     launched = {k: f.launches - before[k] for k, f in counters.items()}
     if nodes != want_nodes or any(launched.values()):
         raise AssertionError(f"dry-run (b) decode: kernel nodes {nodes} "
                              f"(want {want_nodes}); launches {launched}")
-    out["dry_train"] = res
-    out["dry_decode"] = dec
+    out["dry_train"], out["dry_decode"] = ana, dec
     out["b_s"] = time.perf_counter() - t0
     print(f"(b) dry-run of phase 11's cell ({SERVE_ARCH}, {TRAIN_LAYERS} "
           f"layers, {TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_MICRO} microbatches, "
@@ -4938,10 +5085,10 @@ def phase_analysis(seed, device, smi, train_result):
           f"{(tf - skipped) / 1e12:.3f} (train_flops {tf / 1e12:.3f} less "
           f"{skipped / 1e12:.3f} not recomputed; {ana['flops'] / tf:.4f} x "
           f"train_flops), memory {ana['memory_bytes'] / 1e12:.3f} TB, "
-          f"{ana['n_ops']} ops in {res['record_s']} s; decode at phase 7's "
+          f"{ana['n_ops']} ops in {rec_s:.2f} s; decode at phase 7's "
           f"shape (B={shape.global_batch}, {shape.seq_len} positions): "
-          f"{nodes}, {dec['op_analysis']['flops'] / 1e9:.2f} GFLOP, peak "
-          f"{dec['op_analysis']['peak_bytes'] / 1e9:.2f} GB, 0 launches "
+          f"{nodes}, {dec['flops'] / 1e9:.2f} GFLOP, peak "
+          f"{dec['peak_bytes'] / 1e9:.2f} GB, 0 launches "
           f"[{out['b_s']:.1f} s] [{smi}]")
 
     # ---- (c) the grid, as far as the budget goes ---------------------------
@@ -4958,13 +5105,35 @@ def phase_analysis(seed, device, smi, train_result):
         print("(c) " + dry_line(cells[-1]))
     out["grid"] = cells
     out["c_s"] = time.perf_counter() - t0
-    out["seconds"] = time.perf_counter() - t_phase
     print(f"(c) {len(cells)} of the grid's {len(grid)} decode cells in "
           f"{out['c_s']:.1f} s (the whole grid of 80: "
           f"tools/dryrun_grid.py)")
+
+    # ---- (d) the per-device SPMD program on fake worlds -------------------
+    t0 = time.perf_counter()
+    before = {k: f.launches for k, f in counters.items()}
+    from repro_torch.launch.mesh import make_production_mesh
+    programs, out["spmd"] = {}, []
+    for arch, name, mp, layers in DRY_CELLS:
+        res = dryrun.dryrun_cell(arch, name, multi_pod=mp, layers=layers,
+                                 device=where, verbose=False,
+                                 _programs=programs)
+        dcfg = dataclasses.replace(configs.get(arch), n_layers=layers)
+        one = res["op_analysis"]["flops"]
+        check_dry_spmd(res, dcfg, make_production_mesh(multi_pod=mp), one)
+        out["spmd"].append(res)
+        for line in spmd_lines(res, one):
+            print(line)
+    launched = {k: f.launches - before[k] for k, f in counters.items()}
+    if any(launched.values()):
+        raise AssertionError(f"dry-run (d) launched kernels {launched}")
+    out["d_s"] = time.perf_counter() - t0
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"(d) {len(DRY_CELLS)} per-device programs on fake worlds of "
+          f"256 and 512 ranks in {out['d_s']:.1f} s, 0 launches [{smi}]")
     print(f"phase 15 took {out['seconds']:.1f} s: (a) "
           f"{out['pimcheck']['s']:.1f}, (b) {out['b_s']:.1f}, (c) "
-          f"{out['c_s']:.1f} [{smi}]")
+          f"{out['c_s']:.1f}, (d) {out['d_s']:.1f} [{smi}]")
     return out
 
 
@@ -5575,7 +5744,8 @@ def phase_mesh(seed, device, smi):
 MT_PROCS = 4            # the ("data"=2, "model"=2) mesh
 MT_MESH = (2, 2)
 MT_LAYERS = 2           # (a): granite-3-8b at full width, 2 of its 40 layers
-MT_BATCH, MT_SEQ = 4, 1024   # (a): global batch
+MT_BATCH, MT_SEQ = 4, 512    # (a): global batch (4 x 1024 before phase
+#                              15 (d))
 MT_MICRO = 2            # (a): microbatches a step
 MT_STEPS = 2            # (a): steps
 MT_BF16_LOSS_TOL = 1e-3   # (a) bf16: |loss mesh - one device| / |loss|
@@ -5626,11 +5796,15 @@ def mt_value(x):
     return float(x.full_tensor() if hasattr(x, "placements") else x)
 
 
-def mt_run(cfg, batches, n_micro, device, mesh, seed, spent=None):
+def mt_run(cfg, batches, n_micro, device, mesh, seed, spent=None,
+           record=None):
     """`steps` of `cfg` from `seed`'s weights over `batches`, on one device
     (mesh None) or on `mesh` (FSDP + TP by `param_specs(fsdp=True)`,
     grad_pspec); each step's (loss, gradient norm, ms, collective ms) and
-    the local shapes of the parameters and of the first batch."""
+    the local shapes of the parameters and of the first batch. With
+    `record` (a step index) that step runs under the recorder
+    (`trace_utils.record`) and the result's third item is its collectives
+    (`mt_recorded`)."""
     import torch
     from repro_torch.data import pipeline
     from repro_torch.launch import steps as steps_mod
@@ -5647,13 +5821,17 @@ def mt_run(cfg, batches, n_micro, device, mesh, seed, spent=None):
         torch.cuda.empty_cache() if device.type == "cuda" else None
     step = steps_mod.make_train_step(cfg, opt_cfg, n_micro=n_micro,
                                      grad_pspec=pspec)
-    rows, local = [], None
-    for b in batches:
+    rows, local, recorded = [], None, None
+    for i, b in enumerate(batches):
         sync(device)
         t0, c0 = time.perf_counter(), spent() if spent else 0.0
         feed = (pipeline.to_device(b, device) if mesh is None
                 else pipeline.shard_batch(mesh, b))
-        params, opt, m = step(params, opt, feed)
+        if i == record:
+            params, opt, m, recorded = mt_recorded(step, params, opt, feed,
+                                                   mesh)
+        else:
+            params, opt, m = step(params, opt, feed)
         loss, gnorm = mt_value(m["loss"]), mt_value(m["grad_norm"])
         sync(device)
         rows.append((loss, gnorm, 1e3 * (time.perf_counter() - t0),
@@ -5663,7 +5841,31 @@ def mt_run(cfg, batches, n_micro, device, mesh, seed, spent=None):
                                  named_leaves(params).items()},
                          batch={k: tuple(v.to_local().shape)
                                 for k, v in feed.items()})
-    return rows, local
+    return (rows, local) if record is None else (rows, local, recorded)
+
+
+def mt_recorded(step, params, opt, feed, mesh):
+    """(d): one mesh step under the recorder; returns its (params, opt,
+    metrics) and its collectives: the whole schedule by mesh axis, the
+    bytes by op and by axis, and the host-staged group's own count of
+    the bytes its collectives wrote (`HostStagedGroup.moved_bytes`; None
+    under another backend)."""
+    import torch.distributed as dist
+    from repro_torch.analysis import trace_utils
+    from repro_torch.launch import op_analysis
+    from repro_torch.launch.mesh import mesh_axes
+    from repro_torch.parallel.comm import HostStagedGroup
+    staged = isinstance(dist.group.WORLD, HostStagedGroup)
+    HostStagedGroup.moved_bytes = {}
+    rec, (params, opt, m) = trace_utils.record(step, params, opt, feed,
+                                               descend=False, dtensor=True)
+    axes = mesh_axes(mesh)
+    ana = op_analysis.analyze(rec, axes)
+    return params, opt, m, dict(
+        schedule=op_analysis.collective_schedule(rec, 1 << 30, axes),
+        by_op=ana["collective_bytes_by_op"],
+        by_axis=ana["collective_bytes_by_axis"],
+        moved=dict(HostStagedGroup.moved_bytes) if staged else None)
 
 
 def mt_collective_clock():
@@ -5741,9 +5943,9 @@ def mesh_train_worker(seed, psum_seed, drill_dir, restore_dir, backend):
     cfg = mt_cfg(MT_LAYERS, "bfloat16")
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    out["bf16"], out["local"] = mt_run(
+    out["bf16"], out["local"], out["recorded"] = mt_run(
         cfg, mt_batches(cfg.vocab, MT_BATCH, MT_SEQ, MT_STEPS, seed),
-        MT_MICRO, device, mesh, seed, clock)
+        MT_MICRO, device, mesh, seed, clock, record=MT_STEPS - 1)
     out["peak"] = (torch.cuda.max_memory_allocated(device)
                    if device.type == "cuda" else 0)
     out["launches"] = {k: fn.launches for k, fn in counters.items()}
@@ -5853,7 +6055,9 @@ def phase_mesh_train(seed, device, smi):
     parent's; (c) train.main on the (4, 1) mesh with --fail-at == the
     one-device trainer's lines, and a checkpoint saved on (2, 2) restored
     onto (1, 2) and onto one device, each continuing == the uninterrupted
-    run. Returns the result dict."""
+    run; (d) each process's step 2 of (a), recorded, runs exactly the
+    collectives of the dry-run of (a)'s cell on a fake (2, 2) world.
+    Returns the result dict."""
     import contextlib
     import io
     import shutil
@@ -6010,6 +6214,29 @@ def phase_mesh_train(seed, device, smi):
                         f"parameter error {ep:.3g}")
     if got[1]["sub"]["losses"] != got[0]["sub"]["losses"]:
         errs.append("(c) the (1, 2) mesh's processes disagree")
+    # ---- (d) the dry-run of (a)'s cell against process 0's step 2
+    t0 = time.perf_counter()
+    from repro_torch.launch import dryrun
+    from repro_torch.models.config import ShapeConfig
+    dry, dry_sched, _ = dryrun.spmd_program(
+        cfg, ShapeConfig("phase_17", MT_SEQ, MT_BATCH, "train"),
+        dict(zip(("data", "model"), MT_MESH)), MT_MICRO, device,
+        schedule_len=1 << 30)
+    live = got[0]["recorded"]
+    if live["schedule"] != dry_sched or \
+            live["by_op"] != dry["collective_bytes_by_op"] or \
+            live["by_axis"] != dry["collective_bytes_by_axis"]:
+        key = [(e["op"], e["shape"], e["axis"], e["times"], e["bytes"])
+               for e in live["schedule"]]
+        want = [(e["op"], e["shape"], e["axis"], e["times"], e["bytes"])
+                for e in dry_sched]
+        errs.append(f"(d) process 0's step 2 ran collectives the dry-run "
+                    f"does not: {sorted(set(key) - set(want))[:4]}; the "
+                    f"dry-run's it did not run: "
+                    f"{sorted(set(want) - set(key))[:4]}")
+    if any(g["recorded"]["schedule"] != live["schedule"] for g in got[1:]):
+        errs.append("(d) the processes ran different collectives")
+    dry_s = time.perf_counter() - t0
     if errs:
         raise AssertionError("; ".join(errs))
     ms = [[r[2] for r in g["bf16"]] for g in got]
@@ -6053,9 +6280,25 @@ def phase_mesh_train(seed, device, smi):
               f"{k} ({v[0]:.3g}, {v[1]:.3g})" for k, v in
               restore_err.items()) + f" (limits {MT_RESTORE_LOSS_TOL}, "
           f"{MT_RESTORE_PARAM_TOL})")
+    moved = live["moved"]
+    print(f"(d) process 0's step 2, recorded: {len(dry_sched)} kinds of "
+          f"collective, {sum(e['times'] for e in dry_sched)} calls, == the "
+          f"dry-run of the same cell on a fake (2, 2) {device.type!r} world "
+          f"(every op, result shape, axis, count and byte; every process "
+          f"the same): by op " + ", ".join(
+              f"{k} {v / 1e9:.4f}" for k, v in
+              dry["collective_bytes_by_op"].items())
+          + " GB; by axis " + ", ".join(
+              f"{k} {v / 1e9:.4f}" for k, v in
+              dry["collective_bytes_by_axis"].items())
+          + " GB; the host-staged group's own count of the bytes it wrote "
+          + ("not kept (another backend)" if moved is None else ", ".join(
+              f"{k} {v / 1e9:.4f}" for k, v in moved.items()) + " GB")
+          + f"; the dry-run took {dry_s:.1f} s [{smi}]")
+    out.update(dry=dry, dry_schedule=dry_sched, recorded=live, dry_s=dry_s)
     out["seconds"] = time.perf_counter() - t_phase
     print(f"phase 17 took {out['seconds']:.1f} s: one device {one_s:.1f} "
-          f"s, spawned {spawn_s:.1f} s [{smi}]")
+          f"s, spawned {spawn_s:.1f} s, (d) {dry_s:.1f} s [{smi}]")
     return out
 
 
@@ -6153,14 +6396,19 @@ def main(argv=None) -> int:
     kernels += entries
 
     # ---- 13: the recurrent families served and trained at full width -------
-    recurrent_result = phase_recurrent(args.seed, device, smi)
-
-    # ---- 14: the moe, vlm and audio families trained; the examples --------
-    family_train_result = phase_train_families(args.seed, device, smi)
-
-    # ---- 15: the analysis tooling ------------------------------------------
-    analysis_result = phase_analysis(args.seed, device, smi,
-                                     train_result["full"])
+    # the examples phase 14 (c) holds against the CPU, and its longest card
+    # run, start after its timed steps: they overlap 13 (a) and 14 (a)
+    recurrent_result, procs = phase_recurrent(args.seed, device, smi)
+    try:
+        # ---- 15: the analysis tooling, beside the examples (times nothing
+        # on the card) --------------------------------------------------------
+        analysis_result = phase_analysis(args.seed, device, smi,
+                                         train_result["full"])
+        # ---- 14: the moe, vlm and audio families trained; the examples ----
+        family_train_result = phase_train_families(args.seed, device, smi,
+                                                   procs)
+    finally:
+        stop_examples(procs)
 
     # ---- 16: the heap fleet and seqpar decode across processes -------------
     mesh_result = phase_mesh(args.seed, device, smi)

@@ -27,11 +27,25 @@ the same inputs, so its ops are recorded as a CPU run records them.
 Host reads (``aten::_local_scalar_dense``) are recorded as ops with
 ``host_read`` set; what the host then does with the number is not
 seen.
+
+On a mesh (``record(..., dtensor=True)``) the recording is one process's
+program. An op on DTensors (or on the waiting wrappers of collective
+results) is handed back to them, and what they run below it is recorded:
+the local ops on this process's shards and the collectives
+(``_c10d_functional::*`` and their ``wait_tensor``, or ``c10d::*`` in
+place), whose process group is kept as its name. The ops DTensor runs at
+the global shape only to learn an output's shape (its sharding
+propagation) are not recorded. A DTensor argument or result counts as its
+local tensor. Only such a recording touches DTensor's internals
+(`_dtensor_as_live`), and it gives them back on exit.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import math
+import sys
 import weakref
 from typing import NamedTuple
 
@@ -111,13 +125,118 @@ def leaves(tree) -> list:
     return [x for x in tree_flatten(tree)[0] if isinstance(x, torch.Tensor)]
 
 
+# DTensor's bookkeeping the recorder runs unrecorded: (module, class,
+# attribute); the first must exist, the others where this torch has them
+_BOOKKEEPING = (
+    ("torch.distributed.tensor._sharding_prop", "ShardingPropagator",
+     "propagate_op_sharding_non_cached"),
+    ("torch.distributed.tensor._sharding_prop", "ShardingPropagator",
+     "_propagate_tensor_meta_non_cached"),
+    ("torch.distributed.tensor.placement_types", "_StridedShard",
+     "local_shard_size_and_offset"),
+)
+
+
+def _not_tracing() -> bool:
+    return False
+
+
+def _wrappers() -> tuple:
+    """The tensor subclasses whose ops are handed back (DTensor and the
+    waiting wrapper of a functional collective's result): empty while
+    `torch.distributed.tensor` is not imported, since then none exists."""
+    if "torch.distributed.tensor" not in sys.modules:
+        return ()
+    from torch.distributed._functional_collectives import \
+        AsyncCollectiveTensor
+    from torch.distributed.tensor import DTensor
+    return DTensor, AsyncCollectiveTensor
+
+
+def local(t: torch.Tensor) -> torch.Tensor:
+    """The tensor an argument or result stands for on this process: a
+    DTensor's local shard, a collective result's waited tensor, else
+    `t`."""
+    for _ in range(4):
+        inner = getattr(t, "_local_tensor", None)
+        if inner is None:
+            inner = getattr(t, "elem", None)
+        if not isinstance(inner, torch.Tensor):
+            return t
+        t = inner
+    return t
+
+
+def _group_name(x) -> str:
+    """A process group's name (a ``c10d`` op takes the group as a
+    script object)."""
+    import torch.distributed as dist
+    return dist.ProcessGroup.unbox(x).group_name
+
+
+@contextlib.contextmanager
+def _dtensor_as_live(rec):
+    """While a DTensor recording runs (`Recorder` with ``dtensor``), let
+    DTensor run as a live process runs it. Its bookkeeping runs unrecorded
+    and on real tensors (with `FakeTensorMode` set aside): its sharding
+    propagation, which runs the op at the global shape on fake tensors of
+    its own to learn the output's shape and prices candidate placements,
+    and the strided-shard arithmetic (index tensors read back to the
+    host), which a fake tensor cannot answer. And it is told that it is
+    not being traced: under `FakeTensorMode` it would take the compiler's
+    paths, whose redistribution plans differ from the ones a live process
+    runs. Everything patched is given back on exit, also on an error."""
+    import importlib
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    from torch.distributed import _functional_collectives as funcol
+    tracing = funcol._are_we_tracing
+    patched = []
+
+    def quiet(fn):
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            rec._muted += 1
+            try:
+                with unset_fake_temporarily():
+                    return fn(*args, **kwargs)
+            finally:
+                rec._muted -= 1
+        return run
+
+    try:
+        for mod in [m for n, m in sys.modules.items()
+                    if n.startswith("torch.distributed")]:
+            if getattr(mod, "_are_we_tracing", None) is tracing:
+                patched.append((mod, "_are_we_tracing", tracing))
+                mod._are_we_tracing = _not_tracing
+        for i, (mod, cls, attr) in enumerate(_BOOKKEEPING):
+            owner = getattr(importlib.import_module(mod), cls, None)
+            raw = None if owner is None else owner.__dict__.get(attr)
+            if raw is None:
+                if i == 0:
+                    raise RuntimeError("trace_utils: DTensor's sharding "
+                                       "propagation is not where this "
+                                       "recorder looks for it")
+                continue
+            kind = type(raw) if isinstance(raw, (staticmethod,
+                                                 classmethod)) else None
+            wrapped = quiet(raw.__func__ if kind else raw)
+            patched.append((owner, attr, raw))
+            setattr(owner, attr, kind(wrapped) if kind else wrapped)
+        yield
+    finally:
+        while patched:
+            setattr(*patched.pop())
+
+
 class Recorder(TorchDispatchMode):
     """`TorchDispatchMode` that appends an `Op` for every dispatched op."""
 
-    def __init__(self, descend: bool = True):
+    def __init__(self, descend: bool = True, dtensor: bool = False):
         super().__init__()
         self.rec = Recording()
         self.descend = descend
+        self.dtensor = dtensor
         self._stack = [self.rec.ops]
         self._serial = {}     # id(storage object) -> serial
         self._version = {}    # serial -> current version
@@ -126,6 +245,9 @@ class Recorder(TorchDispatchMode):
         self._live = 0
         self._hook = None
         self._pending = None   # (operator, sub ops, their result values)
+        self._handed = ()      # wrapper subclasses handed back
+        self._muted = 0        # inside DTensor's bookkeeping
+        self._undo = None      # what __exit__ gives back
 
     # ---- values ------------------------------------------------------------
     def _storage(self, t: torch.Tensor) -> int:
@@ -154,18 +276,29 @@ class Recorder(TorchDispatchMode):
             return self.tv(x)
         if isinstance(x, (list, tuple)):
             return [self._conv(y) for y in x]
+        if isinstance(x, torch.ScriptObject) and \
+                x._type().qualified_name().endswith("c10d.ProcessGroup"):
+            return _group_name(x)
         return x
 
     # ---- a kernel operator's plain version ---------------------------------
     def __enter__(self):
-        if self.descend:
-            self._hook, _library.HOOK = _library.HOOK, self._plain
-        return super().__enter__()
+        with contextlib.ExitStack() as undo:
+            if self.descend:
+                self._hook, _library.HOOK = _library.HOOK, self._plain
+                undo.callback(setattr, _library, "HOOK", self._hook)
+            if self.dtensor:
+                self._handed = _wrappers()
+                undo.enter_context(_dtensor_as_live(self))
+            mode = super().__enter__()
+            self._undo = undo.pop_all()
+        return mode
 
     def __exit__(self, *exc):
-        if self.descend:
-            _library.HOOK = self._hook
-        return super().__exit__(*exc)
+        try:
+            return super().__exit__(*exc)
+        finally:
+            self._undo.close()
 
     def _plain(self, name, args):
         """Record the operator's plain version, about to be launched on
@@ -184,10 +317,14 @@ class Recorder(TorchDispatchMode):
     # ---- the mode ----------------------------------------------------------
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if self._handed and any(issubclass(t, self._handed) for t in types):
+            # a DTensor op: what it runs on this process is recorded below
+            return NotImplemented
         schema = func._schema
         name = schema.name
-        if name.startswith("prim::"):
-            # metadata queries (a fake tensor's `.device`): no op runs
+        if name.startswith("prim::") or self._muted:
+            # metadata queries (a fake tensor's `.device`), DTensor's
+            # bookkeeping: no op of the program runs
             return func(*args, **kwargs)
         named, written = {}, []
         for i, a in enumerate(schema.arguments):
@@ -233,15 +370,18 @@ class Recorder(TorchDispatchMode):
         return out
 
 
-def record(fn, *args, descend: bool = True, **kwargs):
+def record(fn, *args, descend: bool = True, dtensor: bool = False,
+           **kwargs):
     """Run ``fn(*args, **kwargs)`` under a `Recorder`; returns (Recording,
     result). The tensor leaves of `args` and `kwargs` are the call's
-    arguments (their storages count as argument bytes); the tensor leaves
-    of the result its outputs."""
-    r = Recorder(descend=descend)
+    arguments (their storages count as argument bytes; a DTensor's, its
+    local shard's); the tensor leaves of the result its outputs. With
+    `dtensor` the recording is one process's program on a mesh (module
+    docstring)."""
+    r = Recorder(descend=descend, dtensor=dtensor)
     rec = r.rec
     seen = set()
-    for t in leaves((args, kwargs)):
+    for t in map(local, leaves((args, kwargs))):
         tv = r.tv(t)
         rec.arguments.append(tv)
         if tv.val[0] not in seen:
@@ -251,7 +391,7 @@ def record(fn, *args, descend: bool = True, **kwargs):
     with r:
         result = fn(*args, **kwargs)
     outs = set()
-    for t in leaves(result):
+    for t in map(local, leaves(result)):
         tv = r.tv(t)
         rec.outputs.append(tv)
         if tv.val[0] in r._fresh and tv.val[0] not in outs:

@@ -147,10 +147,16 @@ def write_prefill(pages, kv, page_table, mesh=None):
         idx = page_table[:, :sp].long().clamp(0, P - 1)
         pages[bidx, idx] = kv4
         return pages
-    base, n_local = local_pages(mesh, page_table.shape[1])
-    idx = page_table[:, :sp].long().clamp(0, page_table.shape[1] - 1)
-    mine = (idx >= base) & (idx < base + n_local)
-    pages[bidx.expand(B, sp)[mine], (idx - base)[mine]] = kv4[mine]
+    # each local page's prompt page (the inverse page table), so that no
+    # shape hangs on the data: a fake tensor, which has none, runs it too
+    Pn = page_table.shape[1]
+    base, n_local = local_pages(mesh, Pn)
+    inv = torch.full((B, Pn), -1, dtype=torch.long, device=pages.device)
+    inv.scatter_(1, page_table[:, :sp].long().clamp(0, Pn - 1),
+                 torch.arange(sp, device=pages.device).expand(B, sp))
+    src = inv[:, base:base + n_local]
+    hit = (src >= 0)[:, :, None, None, None]
+    pages.copy_(torch.where(hit, kv4[bidx, src.clamp(min=0)], pages))
     return pages
 
 

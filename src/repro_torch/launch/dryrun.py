@@ -1,11 +1,10 @@
 """Dry-run: drive every (arch x shape) cell's step on fake tensors and
-account for its work, its memory and its sharded state.
+account for its work, its memory and its sharded state, on one device and
+on each device of the production meshes.
 
-The port of `repro.launch.dryrun`. The reference lowers and compiles each
-cell for the 256- and 512-chip production meshes; the port's SPMD
-programs are processes on a live `DeviceMesh` (`repro_torch.launch.mesh`),
-whose training step (DTensors, `repro_torch.launch.steps`) this dry-run
-does not lower yet (ROADMAP A7c), so a cell here is
+The port of `repro.launch.dryrun`, which lowers and compiles each cell
+for the 256- and 512-chip meshes and reads the per-device program. A cell
+here is
 
   * the per-device state bytes on the production mesh, from the sharding
     rules as pure placement functions (`repro_torch.parallel.sharding`);
@@ -15,12 +14,27 @@ does not lower yet (ROADMAP A7c), so a cell here is
     CPU), the step of `repro_torch.launch.steps` run once under the
     recorder (`repro_torch.analysis.trace_utils.record`), and its FLOPs,
     memory bytes and argument / output / peak bytes from
-    `repro_torch.launch.op_analysis`; whether it fits one card; the
-    roofline terms for the NVIDIA H100 SXM.
-
-The per-device SPMD program, its collective schedule and the collective
-term of the roofline wait for ROADMAP A7c and are reported as absent
-with that reason.
+    `repro_torch.launch.op_analysis`; whether it fits one card;
+  * the per-device SPMD program (`spmd_program`): the same step run as
+    rank 0 of a fake world of 256 (16 x 16) or 512 (2 x 16 x 16) ranks
+    (`repro_torch.launch.mesh.fake_world`) under `FakeTensorMode`, and
+    recorded as that one process runs it: its local ops and its
+    collectives. A train cell places the parameters and AdamW state by
+    the rules (`sharding.place_state`, FSDP as the config says) and the
+    batch by `sharding.batch_specs` (the rows over ``("pod", "data")``,
+    `pipeline.shard_batch`'s placement wherever they divide), and runs
+    `steps.make_train_step` with ``grad_pspec``. A prefill or decode cell
+    runs the port's serving program on the mesh (``mesh=``, as
+    `launch.serve` runs it): the batch rows over ``"data"``
+    (`paged.batch_rows`), the pages over ``"model"``, the decode through
+    `paged.write_attend_seqpar`, the weights whole on every process (the
+    rules place them tensor-parallel: both are reported); the recurrent
+    families, whose caches have no pages, split their rows only. Its
+    FLOPs, bytes, peak and collective schedule, and the roofline's three
+    terms for the NVIDIA H100 SXM: compute, memory and the collective
+    bytes over `NVLINK_BW`, the counterpart of the reference's `ICI_BW`.
+    A per-device program that fails is reported in the cell (its error
+    under ``spmd_program``) beside the one-device part, which stands.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite_3_8b \\
         --shape train_4k [--multi-pod] [--out results/dryrun] [--device cpu]
@@ -41,12 +55,13 @@ import torch
 from .. import configs
 from .. import device as _device
 from ..analysis import trace_utils
+from ..kvcache import paged
 from ..models import registry
 from ..models.config import SHAPES, ShapeConfig
 from ..optim.adamw import AdamWConfig, AdamWState
 from ..parallel import sharding
 from . import op_analysis
-from .mesh import make_production_mesh, mesh_name
+from .mesh import fake_world, make_production_mesh, mesh_axes, mesh_name
 from .steps import (make_decode_step, make_prefill_step, make_train_step,
                     opt_state_specs)
 
@@ -57,8 +72,13 @@ RESULTS_DIR = "results/dryrun"
 PEAK_FLOPS = 989.4e12        # bf16 dense tensor-core FLOP/s
 HBM_BW = 3.35e12             # HBM3 bytes/s
 CARD_BYTES = 80 * 10 ** 9    # device memory
-NO_MESH = ("waits for ROADMAP A7c: the dry-run does not lower the "
-           "step's per-device SPMD program or its collective schedule yet")
+NVLINK_BW = 450e9
+"""Bytes/s one H100 SXM sends over NVLink 4: the data sheet's 900 GB/s
+both ways, one way; a figure from the data sheet, not a measurement. It
+prices every collective byte alike, as the reference's single ``ICI_BW``
+figure does: a 16-wide axis spans two 8-card nodes, and the link between
+nodes (slower than NVLink) is not priced."""
+SCHEDULE_LEN = 25            # collective schedule entries, as the reference
 
 
 def input_specs(arch: str, shape_name: str):
@@ -117,6 +137,70 @@ def program(cfg, shape: ShapeConfig, n_micro: int = 1, device="cuda"):
     return op_analysis.analyze(rec), time.perf_counter() - t0
 
 
+def _fake_rows(tree, rows: slice, device):
+    """`_fake` of this process's `rows` of a tree of batch-major meta
+    tensors (a fake tensor of its own, not a view of the whole)."""
+    if isinstance(tree, dict):
+        return {k: _fake_rows(v, rows, device) for k, v in tree.items()}
+    return torch.empty((rows.stop - rows.start, *tree.shape[1:]),
+                       dtype=tree.dtype, device=device)
+
+
+def _serving_rows_only(cfg) -> bool:
+    """Families whose cache has no pages to split over ``"model"``: on a
+    mesh they split their batch rows only (`launch.serve`)."""
+    return cfg.family in ("hybrid", "ssm")
+
+
+def spmd_program(cfg, shape: ShapeConfig, mesh_shape: dict, n_micro: int = 1,
+                 device="cuda", schedule_len: int = SCHEDULE_LEN):
+    """The cell's step as rank 0 of a fake world of `mesh_shape` (an
+    ordered {axis: size}, `make_production_mesh`) runs it, on fake tensors
+    on `device`'s type, recorded once (module docstring). Returns
+    (op_analysis.analyze of it with its collectives named by mesh axis,
+    the first `schedule_len` entries of its collective schedule, seconds
+    it took)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    dev = _device.resolve(device)
+    t0 = time.perf_counter()
+    b_spec, c_spec = _specs(cfg, shape)
+    with fake_world(tuple(mesh_shape.values()), tuple(mesh_shape),
+                    dev.type) as mesh, FakeTensorMode():
+        params = _fake(registry.param_specs(cfg), dev)
+        if shape.kind == "train":
+            opt_cfg = AdamWConfig(moment_dtype=cfg.opt_moment_dtype)
+            opt = _fake(opt_state_specs(cfg, opt_cfg), dev)
+            params, opt, p_spec = sharding.place_state(
+                mesh, params, opt, fsdp=cfg.fsdp)
+            batch = sharding.place(_fake(b_spec, dev), sharding.named(
+                mesh, sharding.batch_specs(mesh_shape, b_spec)))
+            step = make_train_step(cfg, opt_cfg, n_micro, grad_pspec=p_spec)
+            args, grad = (params, opt, batch), torch.enable_grad()
+        else:
+            mod = registry.get_module(cfg)
+            rows = paged.batch_rows(mesh, shape.global_batch)
+            on_mesh = {} if _serving_rows_only(cfg) else {"mesh": mesh}
+            cache = mod.init_cache(cfg, rows.stop - rows.start,
+                                   shape.seq_len, device=dev, **on_mesh)
+            batch = _fake_rows(b_spec, rows, dev)
+            if shape.kind == "prefill":
+                def step(p, b, c):
+                    return mod.prefill(cfg, p, b, c, **on_mesh)
+                args = (params, batch, cache)
+            else:
+                def step(p, c, b):
+                    return mod.decode(cfg, p, c, b, **on_mesh)
+                args = (params, cache, batch)
+            grad = torch.no_grad()
+        with grad:
+            rec, _ = trace_utils.record(step, *args, descend=False,
+                                        dtensor=True)
+        axes = mesh_axes(mesh)
+        ana = op_analysis.analyze(rec, axes)
+        sched = op_analysis.collective_schedule(rec, schedule_len, axes)
+    return ana, sched, time.perf_counter() - t0
+
+
 def dryrun_cell(arch: str, shape_name, multi_pod: bool = False,
                 n_micro: int | None = None, overrides: dict | None = None,
                 layers: int | None = None, device="cuda",
@@ -124,7 +208,10 @@ def dryrun_cell(arch: str, shape_name, multi_pod: bool = False,
     """One cell: `shape_name` is a key of `SHAPES` or a `ShapeConfig`;
     `layers` cuts the depth, `overrides` replaces config fields (decode
     cells serve through the paged-attention kernel, ``attend_impl`` =
-    ``kernel``, unless `overrides` says otherwise)."""
+    ``kernel``, unless `overrides` says otherwise). A per-device program
+    that fails leaves the one-device part as it is: its error stands in
+    ``spmd_program`` (``status`` ``"error"``), with no schedule and no
+    roofline."""
     dev = _device.resolve(device)
     cfg = configs.get(arch)
     shape = shape_name if isinstance(shape_name, ShapeConfig) else \
@@ -183,20 +270,32 @@ def dryrun_cell(arch: str, shape_name, multi_pod: bool = False,
     result["record_s"] = round(secs, 2)
     result["op_analysis"] = ana
     result["fits_one_card"] = ana["peak_bytes"] <= CARD_BYTES
-    terms = {"compute_s": ana["flops"] / PEAK_FLOPS,
-             "memory_s": ana["memory_bytes"] / HBM_BW}
-    terms["bottleneck"] = max(terms, key=terms.get)
-    terms["collective_s"] = None
-    terms["collective_reason"] = NO_MESH
-    terms["card"] = ("NVIDIA H100 80GB HBM3 at 700 W: "
-                     f"{PEAK_FLOPS / 1e12} TFLOP/s bf16 dense, "
-                     f"{HBM_BW / 1e12} TB/s")
-    result["roofline"] = terms
-    result["collective_schedule"] = None
-    result["spmd_program"] = NO_MESH
+    # ----- the per-device program on a fake world ---------------------------
+    try:
+        dana, sched, dsecs = spmd_program(cfg, shape, mesh, nm, dev)
+    except Exception as e:  # noqa: BLE001 (reported beside the one-device)
+        result["spmd_program"] = {
+            "status": "error", "error": str(e)[-2000:],
+            "traceback": traceback.format_exc()[-4000:]}
+    else:
+        result["spmd_program"] = dict(
+            dana, status="ok",
+            fits_per_device=dana["peak_bytes"] <= CARD_BYTES,
+            record_s=round(dsecs, 2))
+        result["collective_schedule"] = sched
+        terms = {"compute_s": dana["flops"] / PEAK_FLOPS,
+                 "memory_s": dana["memory_bytes"] / HBM_BW,
+                 "collective_s": dana["collective_bytes"] / NVLINK_BW}
+        terms["bottleneck"] = max(terms, key=terms.get)
+        terms["card"] = ("NVIDIA H100 80GB HBM3 at 700 W: "
+                         f"{PEAK_FLOPS / 1e12} TFLOP/s bf16 dense, "
+                         f"{HBM_BW / 1e12} TB/s, NVLink "
+                         f"{NVLINK_BW / 1e9} GB/s a direction "
+                         f"(data sheet)")
+        result["roofline"] = terms
 
     if verbose:
-        print(json.dumps({k: result[k] for k in
+        print(json.dumps({k: result.get(k) for k in
                           ("arch", "shape", "mesh", "status", "record_s")}))
     return result
 
@@ -232,7 +331,7 @@ def main(argv=None):
     else:
         cells = [(args.arch, args.shape, mp) for mp in meshes]
 
-    failures = 0
+    failures = spmd_failures = 0
     programs = {}
     for arch, shape, mp in cells:
         key = f"{arch}/{shape}/{'2x16x16' if mp else '16x16'}"
@@ -246,10 +345,16 @@ def main(argv=None):
                    "status": "error", "error": str(e)[-2000:],
                    "traceback": traceback.format_exc()[-4000:]}
             print(f"FAIL {key}: {e}")
+        spmd = res.get("spmd_program", {}).get("status", "ok")
+        if spmd != "ok":
+            spmd_failures += 1
+            print(f"FAIL {key} per device: {res['spmd_program']['error']}")
         path = save_result(res, args.out)
-        print(f"{key}: {res['status']} -> {path}", flush=True)
-    if failures:
-        raise SystemExit(f"{failures} dry-run cells failed")
+        print(f"{key}: {res['status']}, per device {spmd} -> {path}",
+              flush=True)
+    if failures or spmd_failures:
+        raise SystemExit(f"{failures} dry-run cells and {spmd_failures} "
+                         f"per-device programs failed")
 
 
 if __name__ == "__main__":

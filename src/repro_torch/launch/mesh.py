@@ -14,9 +14,16 @@ sets), ``make_host_mesh(live=True)`` is the ``("data", "model")``
 With ``nccl`` every process needs a card of its own; with ``gloo`` the
 processes may share one card (or run on the CPU), their collectives
 staged through the host (`repro_torch.parallel.comm`).
+
+`fake_world` stands one process for rank 0 of a world of any size (the
+dry-run's 256 and 512 ranks): the group's collectives do nothing, and
+under `FakeTensorMode` the program rank 0 runs is recorded from shapes
+alone (`repro_torch.launch.dryrun.spmd_program`).
 """
 from __future__ import annotations
 
+import contextlib
+import math
 import os
 import pickle
 import queue as _queue
@@ -62,6 +69,44 @@ def mesh_name(mesh: dict) -> str:
     """``16x16`` / ``2x16x16``: the sizes joined, as the reference names
     its result files."""
     return "x".join(str(n) for n in mesh.values())
+
+
+@contextlib.contextmanager
+def fake_world(shape, names, device_type: str = "cuda"):
+    """A world of ``prod(shape)`` ranks held by this one process as rank
+    0, on a backend whose collectives do nothing
+    (`repro_torch.parallel.comm.FakeWorldGroup`); yields the `DeviceMesh`
+    of `shape` with axis `names` (``("data", "model")``, or ``("pod",
+    "data", "model")``) over it on `device_type`, and destroys the group
+    on exit. Run the program under `FakeTensorMode`: its collectives are
+    then computed from shapes. Raises if a process group is already
+    initialised (a live world is not replaced)."""
+    if dist.is_initialized():
+        raise RuntimeError("fake_world: this process already holds a "
+                           "process group; a fake world needs one of its "
+                           "own")
+    if len(shape) != len(names):
+        raise ValueError(f"mesh shape {tuple(shape)} and axis names "
+                         f"{tuple(names)} differ in length")
+    from torch.distributed.device_mesh import init_device_mesh
+    from ..parallel.comm import register_fake_world
+    dist.init_process_group(register_fake_world(), store=dist.HashStore(),
+                            rank=0, world_size=math.prod(shape))
+    try:
+        yield init_device_mesh(device_type, tuple(shape),
+                               mesh_dim_names=tuple(names))
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_axes(mesh) -> dict:
+    """The process-group name of each axis of a live or fake `DeviceMesh`
+    -> the axis name, the world's group -> ``"world"``: what a recorded
+    collective names its group by."""
+    out = {dist.group.WORLD.group_name: "world"}
+    for i, name in enumerate(mesh.mesh_dim_names):
+        out[mesh.get_group(i).group_name] = name
+    return out
 
 
 def init_world(backend: str = "nccl", *, rank: int = None,

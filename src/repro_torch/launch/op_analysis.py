@@ -22,8 +22,14 @@ trip-count multipliers have nothing left to scale.
     ``index_put_`` / ``scatter`` its values, else the written view). Views,
     ``expand`` and ``transpose`` allocate nothing in eager PyTorch and so
     count nothing, as the reference leaves broadcasts out.
-  * collective bytes: the result bytes of every ``_c10d_functional`` (and
-    ``c10d``) collective; none on one card.
+  * collective bytes: the result bytes of every ``_c10d_functional``
+    collective (``all_gather_into_tensor``, ``reduce_scatter_tensor``,
+    ``all_reduce``, ``all_to_all_single``, ``broadcast``; the reference
+    counts result buffers too), of DTensor's
+    ``_dtensor::shard_dim_alltoall`` and of every in-place ``c10d`` one,
+    by op and by the process group it ran over (a mesh axis where the
+    caller names the groups, `repro_torch.launch.mesh.mesh_axes`); a
+    ``wait_tensor`` counts nothing. None on one card.
   * live bytes: the recorder's argument, output and peak bytes (arguments
     plus every storage the call allocated and had not yet freed), the
     counterparts of ``compiled.memory_analysis()``.
@@ -39,11 +45,13 @@ _MATMUL = {"mm": "self", "bmm": "self", "addmm": "mat1",
            "baddbmm": "batch1", "addbmm": "batch1"}
 _CONV = ("convolution", "_convolution", "convolution_backward")
 _COLLECTIVE_NS = ("_c10d_functional::", "c10d::",
-                  "_c10d_functional_autograd::")
-# collective op names in those namespaces (functional, then in-place c10d)
+                  "_c10d_functional_autograd::", "_dtensor::")
+# collective op names in those namespaces (functional, in-place c10d, and
+# DTensor's own all-to-all between two sharded dimensions, which it runs
+# on a "cuda" mesh)
 _COLLECTIVES = ("all_reduce", "all_gather", "reduce_scatter", "all_to_all",
                 "broadcast", "allreduce", "allgather", "alltoall",
-                "_allgather", "_reduce_scatter")
+                "_allgather", "_reduce_scatter", "shard_dim_alltoall")
 _UPDATE_ARG = {"index_put_": "values", "index_put": "values",
                "_index_put_impl_": "values", "scatter_": "src",
                "scatter": "src", "scatter_add_": "src",
@@ -111,11 +119,31 @@ def _collective(op) -> bool:
         op.kind.startswith(_COLLECTIVES)
 
 
-def analyze(recording) -> dict:
+def collective_axis(op, axes=None) -> str:
+    """What a recorded collective ran over: the mesh axis `axes` (process
+    group name -> axis name) gives its group, else ``"group of N"``."""
+    name = op.args.get("group_name", op.args.get("process_group"))
+    name = getattr(name, "group_name", name)
+    if axes and name in axes:
+        return axes[name]
+    size = op.args.get("group_size")
+    if size is None:
+        try:
+            import torch.distributed as dist
+            size = dist.distributed_c10d._resolve_process_group(
+                name).size()
+        except (KeyError, RuntimeError, ValueError):
+            return f"group {name}"       # a group of a world now gone
+    return f"group of {size}"
+
+
+def analyze(recording, axes=None) -> dict:
     """Totals over a recording's top-level ops (a kernel node counts as
-    its operator, not as its plain version's ops)."""
+    its operator, not as its plain version's ops); `axes` names the
+    collectives' groups (`collective_axis`)."""
     flops = mem = coll = 0
     coll_ops = defaultdict(int)
+    coll_axes = defaultdict(int)
     by_class = defaultdict(int)
     nodes = defaultdict(int)
     n = 0
@@ -133,6 +161,7 @@ def analyze(recording) -> dict:
             b = sum(tv.nbytes for tv in op.outputs)
             coll += b
             coll_ops[op.kind] += b
+            coll_axes[collective_axis(op, axes)] += b
         mem += 2 * op_bytes(op)
     return {
         "flops": flops,
@@ -140,6 +169,7 @@ def analyze(recording) -> dict:
         "memory_bytes": mem,
         "collective_bytes": coll,
         "collective_bytes_by_op": dict(coll_ops),
+        "collective_bytes_by_axis": dict(coll_axes),
         "argument_bytes": recording.argument_bytes,
         "output_bytes": recording.output_bytes,
         "peak_bytes": recording.peak_bytes,
@@ -148,15 +178,18 @@ def analyze(recording) -> dict:
     }
 
 
-def collective_schedule(recording, limit: int = 40):
-    """(op, result shape, times, bytes) of the recorded collectives, the
-    largest traffic first."""
+def collective_schedule(recording, limit: int = 40, axes=None):
+    """(op, result shape, axis, times, bytes) of the recorded collectives,
+    the largest traffic first (ties by op, axis and shape); `axes` names
+    their groups (`collective_axis`)."""
     seen = defaultdict(int)
     for op, _ in iter_ops(recording.ops, descend=False):
         if _collective(op):
             shape = tuple(tv.shape for tv in op.outputs)
-            seen[(op.kind, shape, sum(tv.nbytes for tv in op.outputs))] += 1
-    out = [{"op": k, "shape": s, "times": t, "bytes": b}
-           for (k, s, b), t in seen.items()]
-    out.sort(key=lambda d: -d["bytes"] * d["times"])
+            seen[(op.kind, shape, collective_axis(op, axes),
+                  sum(tv.nbytes for tv in op.outputs))] += 1
+    out = [{"op": k, "shape": s, "axis": a, "times": t, "bytes": b}
+           for (k, s, a, b), t in seen.items()]
+    out.sort(key=lambda d: (-d["bytes"] * d["times"], d["op"], d["axis"],
+                            str(d["shape"])))
     return out[:limit]

@@ -86,6 +86,7 @@ def _gelu_mlp(x, lp):
 
 
 def _enc_block(cfg, x, cos, sin, lp):
+    lp = layers.at_use(lp)
     h = layers.rms_norm(x, lp["ln1"])
     q, k, v = _self_qkv(cfg, h, lp, cos, sin)
     o = layers.attention(q, k, v, causal=False)
@@ -140,7 +141,7 @@ def _dec_layer(cfg, x, cos, sin, enc_out, lp):
 
 
 def _dec_block(cfg, x, cos, sin, enc_out, lp):
-    return _dec_layer(cfg, x, cos, sin, enc_out, lp)[0]
+    return _dec_layer(cfg, x, cos, sin, enc_out, layers.at_use(lp))[0]
 
 
 def forward(cfg: ArchConfig, params, tokens, enc_embeds):
@@ -163,7 +164,8 @@ def forward(cfg: ArchConfig, params, tokens, enc_embeds):
 
 def logits_fn(cfg: ArchConfig, params, hidden):
     return layers.mask_padded_logits(
-        hidden @ params["embed"].T.to(hidden.dtype), cfg.vocab)  # tied
+        hidden @ layers.at_use(params["embed"].T).to(hidden.dtype),
+        cfg.vocab)  # tied
 
 
 def loss(cfg: ArchConfig, params, batch):

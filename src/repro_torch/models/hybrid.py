@@ -227,7 +227,7 @@ def _rec_mixer(cfg: ArchConfig, x, lp, conv_state=None, rg_state=None):
 
 
 def _rec_mixer_train(cfg: ArchConfig, x, lp):
-    return _rec_mixer(cfg, x, lp)[0]
+    return _rec_mixer(cfg, x, layers.at_use(lp))[0]
 
 
 def _attn_qkv(cfg: ArchConfig, x, lp, positions):
@@ -252,7 +252,7 @@ def _attn_mixer(cfg: ArchConfig, x, positions, lp):
 
 
 def _attn_mixer_train(cfg: ArchConfig, x, positions, lp):
-    return _attn_mixer(cfg, x, positions, lp)[0]
+    return _attn_mixer(cfg, x, positions, layers.at_use(lp))[0]
 
 
 def _attn_mixer_decode(cfg: ArchConfig, x, lp, win_k, win_v, pos):
@@ -320,7 +320,8 @@ def forward(cfg: ArchConfig, params, tokens, positions=None):
 
 def logits_fn(cfg: ArchConfig, params, hidden):
     return layers.mask_padded_logits(
-        hidden @ params["embed"].T.to(hidden.dtype), cfg.vocab)  # tied
+        hidden @ layers.at_use(params["embed"].T).to(hidden.dtype),
+        cfg.vocab)  # tied
 
 
 def loss(cfg: ArchConfig, params, batch):

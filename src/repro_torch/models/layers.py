@@ -12,9 +12,10 @@ does.
 On a mesh the same functions run on DTensors (parameters placed by
 `repro_torch.parallel.sharding.named`, a batch by
 `repro_torch.data.pipeline.shard_batch`): `on_mesh` is the context a loss
-and its backward run in there, and `activation_constraint` pins the
-residual stream's placement, a no-op on a plain tensor (the reference's
-"no ambient mesh").
+and its backward run in there, `activation_constraint` pins the residual
+stream's placement and its gradient's, and `at_use` gathers a layer's
+FSDP-sharded weights before its products; each is a no-op on a plain
+tensor (the reference's "no ambient mesh").
 """
 from __future__ import annotations
 
@@ -76,23 +77,41 @@ def _causal_mask(S, T, device, causal, window, q_offset=0):
 def _attend_local(attn, q, k, v, **kw):
     """`attn` over DTensors q [B, S, H, D], k, v [B, T, KVH, D]: each
     process attends over its own rows and heads. The batch goes over the
-    data axes and the heads over ``"model"`` (where they divide: the KV
-    head of each local query head is then local too), sequence and head
-    dimension whole; the output is a DTensor of q's new placements. No
-    collective runs inside; the products are the one-device ones."""
-    from torch.distributed.tensor import Replicate, Shard
+    data axes and the query heads over ``"model"`` where they divide, with
+    the KV heads they read: split alike where ``"model"`` divides them
+    too, else (fewer KV heads than ``"model"`` positions, granite's 8 on
+    16) whole on every process, which then reads the one KV head its
+    query heads share. Sequence and head dimension stay whole; the output
+    is a DTensor of q's new placements. No collective runs inside; the
+    products are the one-device ones."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
     mesh = q.device_mesh
     names = tuple(mesh.mesh_dim_names or ())
     data = [a for a in names if a != "model"]
     B, H, KVH = q.shape[0], q.shape[2], k.shape[2]
     b_ok = B % math.prod(mesh.size(names.index(a)) for a in data) == 0
     m = mesh.size(names.index("model")) if "model" in names else 1
-    h_ok = H % m == 0 and KVH % m == 0
-    placements = [Shard(2) if a == "model" and h_ok else
-                  Shard(0) if a != "model" and b_ok else Replicate()
-                  for a in names]
-    q, k, v = (x.redistribute(mesh, placements) for x in (q, k, v))
-    o = attn(q.to_local(), k.to_local(), v.to_local(), **kw)
+    q_ok = H % m == 0 and (KVH % m == 0 or m % KVH == 0)
+    kv_split = q_ok and KVH % m == 0
+
+    def placed(heads):
+        return [Shard(2) if a == "model" and heads else
+                Shard(0) if a != "model" and b_ok else Replicate()
+                for a in names]
+    placements = placed(q_ok)
+    q = q.redistribute(mesh, placements)
+    if q_ok and not kv_split:
+        # this process's H / m query heads share KV head `j`: each process
+        # reads (and gives a gradient to) its own slice of the whole heads
+        kv = placed(False)
+        grad = [Partial() if a == "model" else p for a, p in zip(names, kv)]
+        j = mesh.get_coordinate()[names.index("model")] * (H // m) \
+            // (H // KVH)
+        k, v = (x.redistribute(mesh, kv).to_local(grad_placements=grad)
+                [:, :, j:j + 1] for x in (k, v))
+    else:
+        k, v = (x.redistribute(mesh, placements).to_local() for x in (k, v))
+    o = attn(q.to_local(), k, v, **kw)
     return _from_local(o, mesh, placements, q.shape)
 
 
@@ -174,22 +193,101 @@ def pick_attention(S: int, T: int, min_seq: int = 8193):
     return attention if max(S, T) < min_seq else flash_attention
 
 
+def _whole_heads(y, dim: int, H: int):
+    """`y` with its dimension `dim` (H heads of equal width, flattened)
+    gathered over the mesh axes that split it where their product does not
+    divide H (8 KV heads over a 16-wide ``"model"`` axis): a view back to
+    ``[.., H, hd]`` never cuts a head. `y` itself otherwise."""
+    if not is_dtensor(y):
+        return y
+    from torch.distributed.tensor import Replicate, Shard
+    mesh, dim = y.device_mesh, dim % y.ndim
+    on = [i for i, p in enumerate(y.placements)
+          if isinstance(p, Shard) and p.dim % y.ndim == dim]
+    if H % math.prod(mesh.size(i) for i in on) == 0:
+        return y
+    return y.redistribute(mesh, [Replicate() if i in on else p
+                                 for i, p in enumerate(y.placements)])
+
+
+class _HeadsGrad(torch.autograd.Function):
+    """The identity, whose backward applies `_whole_heads` to the
+    gradient: a flattened tensor's gradient is viewed back to its
+    heads."""
+
+    @staticmethod
+    def forward(ctx, x, dim, H):
+        ctx.dim, ctx.H = dim, H
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _whole_heads(g, ctx.dim, ctx.H), None, None
+
+
+def _flat_heads(w, shape, dim: int, H: int):
+    """``w.reshape(shape)`` of a tensor whose H heads are flattened into
+    its dimension `dim`; on a DTensor mesh whose axes do not divide H, the
+    gradient's heads are kept whole (`_HeadsGrad`)."""
+    flat = w.reshape(shape)
+    if is_dtensor(w):
+        names = w.device_mesh.mesh_dim_names or ()
+        if any(H % w.device_mesh.size(i) for i in range(len(names))):
+            flat = _HeadsGrad.apply(flat, dim, H)
+    return flat
+
+
+def split_heads(y, H: int, hd: int):
+    """``y [..., H*hd] -> [..., H, hd]``; on a mesh the heads are kept
+    whole (`_whole_heads`)."""
+    return _whole_heads(y, -1, H).reshape(*y.shape[:-1], H, hd)
+
+
+def merge_heads(o):
+    """``o [..., H, hd] -> [..., H*hd]``; on a mesh whose axes do not
+    divide the H heads, the gradient's heads are kept whole."""
+    return _flat_heads(o, (*o.shape[:-2], -1), -1, o.shape[-2])
+
+
+def _columns_over_model(w):
+    """A projection weight ``[D, N]`` that the rules replicate over
+    ``"model"`` (8 KV heads on a 16-wide axis), used split over its N
+    columns where they divide the axis: each process computes its slice
+    of the product, as for the query heads, and `split_heads` gathers the
+    heads after. `w` itself otherwise."""
+    if not is_dtensor(w):
+        return w
+    from torch.distributed.tensor import Replicate, Shard
+    names = tuple(w.device_mesh.mesh_dim_names or ())
+    if "model" not in names:
+        return w
+    i = names.index("model")
+    if not isinstance(w.placements[i], Replicate) or \
+            w.shape[-1] % w.device_mesh.size(i):
+        return w
+    placements = list(w.placements)
+    placements[i] = Shard(w.ndim - 1)
+    return w.redistribute(w.device_mesh, placements)
+
+
 def qk_proj(h, w, H: int, hd: int):
     """Attention projection for both weight layouts: w 2-D ``[D, H*hd]``
     (flat) or 3-D ``[D, H, hd]`` (``attn_4d``). The 3-D product runs as one
-    matmul over a view of w, accumulating in fp32."""
-    if w.dim() == 2:
-        return (h @ w).reshape(*h.shape[:-1], H, hd)
-    return (h @ w.reshape(w.shape[0], -1)).reshape(*h.shape[:-1], H, hd)
+    matmul over a view of w, accumulating in fp32. On a mesh a weight
+    replicated over ``"model"`` is used split over its columns
+    (`_columns_over_model`)."""
+    if w.dim() == 3:
+        w = _flat_heads(w, (w.shape[0], -1), 1, H)
+    return split_heads(h @ _columns_over_model(w), H, hd)
 
 
 def out_proj(o, w):
     """o [..., H, hd] x wo (``[H*hd, D]`` flat | ``[H, hd, D]``
     ``attn_4d``) -> [..., D]."""
-    flat = o.reshape(*o.shape[:-2], -1)
+    flat = merge_heads(o)
     if w.dim() == 2:
         return flat @ w
-    return flat @ w.reshape(-1, w.shape[-1])
+    return flat @ _flat_heads(w, (-1, w.shape[-1]), 0, w.shape[0])
 
 
 def mlp(x, w1, w2, w3, kind: str):
@@ -233,9 +331,12 @@ def cross_entropy(logits, labels, ignore: int = -100):
     if is_dtensor(logits):
         # a gather along a vocab-sharded dimension leaves a partial sum
         # DTensor cannot reduce: pick the gold logit by a mask (one
-        # non-zero term a row, so the same value)
+        # non-zero term a row, so the same value). The DTensor is the left
+        # operand: Python hands a subclass on the right the op first, and a
+        # fake `col` (the dry-run's) is no subclass, so on the right the
+        # operands would reach DTensor swapped and its placements differ
         col = torch.arange(logits.shape[-1], device=lbl.device)
-        gold = torch.where(col == lbl[..., None], logits, 0.0).sum(-1)
+        gold = torch.where(lbl[..., None] == col, logits, 0.0).sum(-1)
     else:
         gold = torch.gather(logits, -1, lbl[..., None])[..., 0]
     nll = torch.where(valid, logz - gold, 0.0)
@@ -313,10 +414,49 @@ def activation_constraint(x, seq_over_model: bool = False):
         batch = []
     seq = seq_over_model and x.shape[1] % mesh.size(
         names.index("model")) == 0
-    placements = [Shard(0) if a in batch else
-                  Shard(1) if a == "model" and seq else Replicate()
-                  for a in names]
-    return x.redistribute(mesh, placements)
+    placements = tuple(Shard(0) if a in batch else
+                       Shard(1) if a == "model" and seq else Replicate()
+                       for a in names)
+    return _Pin.apply(x, placements)
+
+
+class _Pin(torch.autograd.Function):
+    """A DTensor redistributed to `placements`, and its gradient too (a
+    partial sum is reduced there): the backward keeps the forward's
+    placements, as Megatron's all-reduce pairs do, where DTensor would
+    otherwise pick each gradient's placement by cost and repeat products
+    on gathered operands."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        ctx.placements = placements
+        return x.redistribute(x.device_mesh, placements)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(g.device_mesh, ctx.placements), None
+
+
+def at_use(tree):
+    """A layer's weights (a dict of tensors, or one tensor) as its
+    products use them: on a mesh each DTensor is gathered over the axes
+    other than ``"model"`` (FSDP's shard over ``"data"``), as GSPMD
+    gathers a weight before its product, so every product runs on the
+    process's own rows with whole contractions; the gradient goes back
+    reduce-scattered onto the shard. Plain tensors, and DTensors split
+    over ``"model"`` only, are returned as they are."""
+    if isinstance(tree, dict):
+        return {k: at_use(v) for k, v in tree.items()}
+    if not is_dtensor(tree):
+        return tree
+    from torch.distributed.tensor import Replicate
+    mesh = tree.device_mesh
+    names = mesh.mesh_dim_names or ()
+    want = [p if name == "model" else Replicate()
+            for name, p in zip(names, tree.placements)]
+    if want == list(tree.placements):
+        return tree
+    return tree.redistribute(mesh, want)
 
 
 def seq_shard_constraint(x):

@@ -30,6 +30,10 @@ the reference's order: chunk ``i_m * n_iter + i_iter`` of the (padded)
 token stream lands at ``i_iter * m + i_m``, which is the identity unless
 both ``m`` and ``n_iter`` exceed 1 (more than ``moe_parallel_groups``
 groups: ROADMAP C).
+
+On a mesh (training on DTensors) the routed experts run on local tensors
+(`_routed_on_mesh`) with the same groups of the whole token stream, so a
+group's capacity is shared by the same tokens as on one device.
 """
 from __future__ import annotations
 
@@ -135,21 +139,29 @@ def slots(idx, E: int, C: int):
     return pos, pos < C
 
 
-def _moe_mlp(cfg: ArchConfig, h, lp):
-    """h [B, S, D] -> [B, S, D] routed through capacity-bounded experts."""
-    B, S, D = h.shape
-    E, K = cfg.padded_experts, cfg.top_k
-    N = B * S
-    dev = h.device
-    Gs, C, m, n_iter = group_shape(cfg, N)
-    x = h.reshape(N, D)
+def _groups(cfg: ArchConfig, x):
+    """The reference's groups of a token stream x [N, D]: [G, Gs, D],
+    chunk ``i_m * n_iter + i_iter`` of the (padded) stream at group
+    ``i_iter * m + i_m``."""
+    N, D = x.shape
+    Gs, _, m, n_iter = group_shape(cfg, N)
     pad = n_iter * m * Gs - N
     if pad:
         x = F.pad(x, (0, 0, 0, pad))
-    # the reference's groups: chunk i_m * n_iter + i_iter at [i_iter, i_m]
-    xg = x.reshape(m, n_iter, Gs, D).transpose(0, 1).reshape(-1, Gs, D)
-    G = xg.shape[0]
-    gates, idx = route(cfg, xg, lp["wr"])                  # [G, Gs, K]
+    return x.reshape(m, n_iter, Gs, D).transpose(0, 1).reshape(-1, Gs, D)
+
+
+def _experts(cfg: ArchConfig, xg, wr, we1, we2, we3, e0: int = 0):
+    """The routed experts of the groups xg [G, Gs, D] -> [G, Gs, D]. The
+    router sees all E experts; `we1` / `we3` [E_l, D, F_l] and `we2`
+    [E_l, F_l, D] are experts ``e0 .. e0 + E_l`` (all of them on one
+    device), and a (token, k) routed elsewhere contributes 0 here."""
+    G, Gs, D = xg.shape
+    E, K = cfg.padded_experts, cfg.top_k
+    E_l = we1.shape[0]
+    dev = xg.device
+    C = max(8 * -(-int(Gs * K * cfg.capacity_factor / E) // 8), 8)
+    gates, idx = route(cfg, xg, wr)                        # [G, Gs, K]
     pos, keep = slots(idx, E, C)
     e_flat = idx.reshape(G, Gs * K)
     # slot tables: token id per (group, expert, slot); -1 = empty. Kept
@@ -160,24 +172,100 @@ def _moe_mlp(cfg: ArchConfig, h, lp):
     gidx = torch.arange(G, device=dev)[:, None].expand(G, Gs * K)
     slot_tok = torch.full((G, E, C + 1), -1, dtype=torch.long, device=dev)
     slot_tok[gidx, e_flat, torch.where(keep, pos, C)] = tok
-    slot_tok = slot_tok[..., :C]
-    # gather tokens -> [G, E, C, D], run the experts in fp32, gather back
+    slot_tok = slot_tok[:, e0:e0 + E_l, :C]
+    # gather tokens -> [G, E_l, C, D], run the experts in fp32, gather back
     filled = slot_tok >= 0
     x_e = xg[torch.arange(G, device=dev)[:, None, None],
              slot_tok.clamp(min=0)]
     x_e = torch.where(filled[..., None], x_e, 0).float()
-    h1 = F.silu(x_e @ lp["we1"].float())
-    h3 = x_e @ lp["we3"].float()
-    y_e = ((h1 * h3).to(h.dtype).float() @ lp["we2"].float()).to(h.dtype)
+    h1 = F.silu(x_e @ we1.float())
+    h3 = x_e @ we3.float()
+    y_e = ((h1 * h3).to(xg.dtype).float() @ we2.float()).to(xg.dtype)
     # combine: y[g, t] = sum_k gate_k * y_e[g, idx_k, pos_k]
     pos_k = pos.reshape(G, Gs, K).clamp(max=C - 1)
-    picked = y_e[torch.arange(G, device=dev)[:, None, None], idx, pos_k]
-    w = torch.where(keep.reshape(G, Gs, K), gates, 0.0).to(h.dtype)
-    yg = torch.einsum("ngkd,ngk->ngd", picked, w)
-    y = yg.reshape(-1, D)[:N].reshape(B, S, D)
+    here = keep.reshape(G, Gs, K)
+    if E_l != E:
+        here = here & (idx >= e0) & (idx < e0 + E_l)
+    picked = y_e[torch.arange(G, device=dev)[:, None, None],
+                 (idx - e0).clamp(0, E_l - 1), pos_k]
+    w = torch.where(here, gates, 0.0).to(xg.dtype)
+    return torch.einsum("ngkd,ngk->ngd", picked, w)
+
+
+def _moe_mlp(cfg: ArchConfig, h, lp):
+    """h [B, S, D] -> [B, S, D] routed through capacity-bounded experts."""
+    if layers.is_dtensor(h):
+        y = _routed_on_mesh(cfg, h, lp)
+    else:
+        B, S, D = h.shape
+        yg = _experts(cfg, _groups(cfg, h.reshape(B * S, D)), lp["wr"],
+                      lp["we1"], lp["we2"], lp["we3"])
+        y = yg.reshape(-1, D)[:B * S].reshape(B, S, D)
     if cfg.n_shared_experts:
         y = y + layers.mlp(h, lp["ws1"], lp["ws2"], lp["ws3"], "swiglu")
     return y.to(h.dtype)
+
+
+def _routed_on_mesh(cfg: ArchConfig, h, lp):
+    """The routed half of `_moe_mlp` on DTensors (training on a mesh),
+    with the reference's groups of the whole token stream: each process
+    computes the groups that hold its rows (its rows alone where they are
+    whole groups in place, else from the stream gathered over the data
+    axes) and, of each, the experts its ``"model"`` shard holds (or its
+    slice of every expert's width); the result is its rows, a partial sum
+    over ``"model"``. A token's output has no gradient path to another
+    token's, so each row's gradient comes back from its own process."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh, (B, S, D) = h.device_mesh, h.shape
+    names = tuple(mesh.mesh_dim_names or ())
+    N = B * S
+    Gs, _, m, n_iter = group_shape(cfg, N)
+    row = [isinstance(p, Shard) and p.dim == 0 for p in h.placements]
+    dp = math.prod(mesh.size(d) for d, r in enumerate(row) if r)
+    coord = mesh.get_coordinate()
+    rank = 0
+    for d, r in enumerate(row):
+        if r:
+            rank = rank * mesh.size(d) + coord[d]
+    n_l = N // dp
+    # where the experts' weights split over "model", this process holds
+    # a share of each output (partial), else the whole output
+    we1 = lp["we1"]
+    split = [n == "model" and isinstance(p, Shard)
+             for n, p in zip(names, we1.placements)]
+    part = [Partial() if r or s else Replicate()
+            for r, s in zip(row, split)]
+
+    def local(w):
+        return w.to_local(grad_placements=[
+            Partial() if r else p for r, p in zip(row, w.placements)])
+
+    x_rows = h.redistribute(mesh, [Shard(0) if r else Replicate()
+                                   for r in row])
+    if (m == 1 or n_iter == 1) and n_l % Gs == 0:
+        # the groups are this process's rows, in order
+        xg = x_rows.to_local(grad_placements=[
+            Shard(0) if r else p for r, p in zip(row, part)]
+        ).reshape(n_l // Gs, Gs, D)
+        lo = 0
+    else:
+        whole = x_rows.redistribute(mesh, [Replicate()] * mesh.ndim)
+        g0 = rank * n_l // Gs
+        g1 = -(-(rank + 1) * n_l // Gs)
+        xg = _groups(cfg, whole.to_local(grad_placements=part).reshape(
+            N, D))[g0:g1]
+        lo = rank * n_l - g0 * Gs
+    e0 = 0
+    for i, s in enumerate(split):
+        if s and we1.placements[i].dim == 0:     # the experts themselves
+            e0 = coord[i] * (cfg.padded_experts // mesh.size(i))
+    wr = lp["wr"].redistribute(mesh, [Replicate()] * mesh.ndim)
+    yg = _experts(cfg, xg, wr.to_local(grad_placements=part), local(we1),
+                  local(lp["we2"]), local(lp["we3"]), e0)
+    y = yg.reshape(-1, D)[lo:lo + n_l].reshape(n_l // S, S, D)
+    out = [Shard(0) if r else Partial() if s else Replicate()
+           for r, s in zip(row, split)]
+    return layers._from_local(y, mesh, out, (B, S, D))
 
 
 def forward(cfg: ArchConfig, params, tokens, positions=None):

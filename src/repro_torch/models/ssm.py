@@ -34,12 +34,14 @@ and ``cache["conv_state"]`` in place and return a new dict sharing them.
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from .. import device as _device
+from ..parallel.sharding import is_dtensor
 from . import layers
 from .config import ArchConfig
 
@@ -175,6 +177,44 @@ def ssd_recurrent_step(state, x, dt, A, B_, C_):
     return state, y.to(x.dtype)
 
 
+def _ssd_local(x, dt, A, B_, C_, chunk: int):
+    """`ssd_chunked` over DTensors (x [b,s,h,p], dt [b,s,h], A [h], B_, C_
+    [b,s,n]): each process runs it on its own rows over the data axes and
+    its own heads over ``"model"`` (where they divide), the sequence
+    whole, as `layers._attend_local` attends; no collective inside, the
+    one-device arithmetic. Returns (y, state) as DTensors."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = x.device_mesh
+    names = tuple(mesh.mesh_dim_names or ())
+    b, s, h, p = x.shape
+    dp = math.prod(mesh.size(i) for i, a in enumerate(names) if a != "model")
+    m = math.prod(mesh.size(i) for i, a in enumerate(names) if a == "model")
+    b_ok, h_ok = b % dp == 0, h % m == 0
+
+    def placed(heads):
+        """Rows over the data axes, dimension `heads` over "model"."""
+        return [Shard(heads) if a == "model" and h_ok and heads is not None
+                else Shard(0) if a != "model" and b_ok else Replicate()
+                for a in names]
+
+    def local(t, pl, grad=None):
+        return t.redistribute(mesh, pl).to_local(grad_placements=grad)
+
+    heads_only = [Shard(0) if a == "model" and h_ok else Replicate()
+                  for a in names]
+    # B_ and C_ are shared by the heads: where the heads are split, each
+    # process's gradient of them is its heads' part of the sum
+    shared = [Partial() if a == "model" and h_ok else pl
+              for a, pl in zip(names, placed(None))]
+    y, state = ssd_chunked(local(x, placed(2)), local(dt, placed(2)),
+                           local(A, heads_only),
+                           local(B_, placed(None), shared),
+                           local(C_, placed(None), shared), chunk)
+    return (layers._from_local(y, mesh, placed(2), x.shape),
+            layers._from_local(state, mesh, placed(1),
+                               (b, h, p, B_.shape[-1])))
+
+
 def _proj(lp, h):
     return (h @ lp["wz"], h @ lp["wxi"], h @ lp["wb"], h @ lp["wc"],
             h @ lp["wdt"])
@@ -195,21 +235,22 @@ def _mixer(cfg: ArchConfig, x, lp, conv_state=None, ssm_state=None):
     dt = softplus(dtp.float() + lp["dt_bias"])
     A = -torch.exp(lp["a_log"])
     if ssm_state is None:
-        xh = xs.reshape(B, S, H, cfg.ssm_head_dim)
-        y, ssm_state = ssd_chunked(xh, dt, A, B_, C_, cfg.ssm_chunk)
+        xh = layers.split_heads(xs, H, cfg.ssm_head_dim)
+        ssd = _ssd_local if is_dtensor(xh) else ssd_chunked
+        y, ssm_state = ssd(xh, dt, A, B_, C_, cfg.ssm_chunk)
         y = y + lp["d_skip"][None, None, :, None].to(y.dtype) * xh
     else:
         xh = xs[:, 0].reshape(B, H, cfg.ssm_head_dim)
         ssm_state, y = ssd_recurrent_step(ssm_state, xh, dt[:, 0], A,
                                           B_[:, 0], C_[:, 0])
         y = y + lp["d_skip"][None, :, None].to(y.dtype) * xh
-    y = y.reshape(B, S, d_inner)
+    y = layers.merge_heads(y).reshape(B, S, d_inner)
     y = layers.rms_norm(y * F.silu(z.float()).to(y.dtype), lp["ln_y"])
     return x + (y @ lp["out_proj"]).to(x.dtype), ssm_state, conv_state
 
 
 def _block_train(cfg: ArchConfig, x, lp):
-    return _mixer(cfg, x, lp)[0]
+    return _mixer(cfg, x, layers.at_use(lp))[0]
 
 
 def _per_layer(blocks):
@@ -239,7 +280,8 @@ def forward(cfg: ArchConfig, params, tokens, positions=None):
 
 def logits_fn(cfg: ArchConfig, params, hidden):
     return layers.mask_padded_logits(
-        hidden @ params["embed"].T.to(hidden.dtype), cfg.vocab)  # tied
+        hidden @ layers.at_use(params["embed"].T).to(hidden.dtype),
+        cfg.vocab)  # tied
 
 
 def loss(cfg: ArchConfig, params, batch):

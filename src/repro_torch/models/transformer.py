@@ -77,7 +77,8 @@ def init(cfg: ArchConfig, seed: int = 0, device="cuda") -> dict:
 
 
 def logits_fn(cfg: ArchConfig, params, hidden):
-    head = params["embed"].T if cfg.tie_embeddings else params["head"]
+    head = layers.at_use(params["embed"].T if cfg.tie_embeddings
+                         else params["head"])
     return layers.mask_padded_logits(hidden @ head.to(hidden.dtype),
                                      cfg.vocab)
 
@@ -98,6 +99,7 @@ def _block(cfg: ArchConfig, x, positions, lp, *, window: int = 0,
            ffn=dense_mlp):
     B, S, D = x.shape
     H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    lp = layers.at_use(lp)
     if cfg.seq_shard:
         # Megatron-SP: the residual is sequence-sharded between blocks;
         # gather the sequence here so the TP matmuls see whole sequences
@@ -113,9 +115,10 @@ def _block(cfg: ArchConfig, x, positions, lp, *, window: int = 0,
         v = v.repeat_interleave(H // KVH, dim=2)
     attn = layers.pick_attention(S, S, cfg.flash_min_seq)
     o = attn(q, k, v, causal=True, window=window)
-    x = x + layers.out_proj(o, lp["wo"]).to(x.dtype)
+    x = x + layers.activation_constraint(
+        layers.out_proj(o, lp["wo"]).to(x.dtype))
     h2 = layers.rms_norm(x, lp["ln2"])
-    x = x + ffn(cfg, h2, lp)
+    x = x + layers.activation_constraint(ffn(cfg, h2, lp))
     return x
 
 

@@ -1,4 +1,6 @@
-"""The few collectives the mesh tiers run, over `torch.distributed`.
+"""The few collectives the mesh tiers run, over `torch.distributed`, and
+the two process groups the port brings: `HostStagedGroup` (gloo through
+the host) and `FakeWorldGroup` (a world whose collectives do nothing).
 
 Each takes tensors on any device and returns them on the device they came
 from. Under ``gloo`` a CUDA tensor is staged through the host (copied to
@@ -67,16 +69,36 @@ def barrier(group=None) -> None:
 
 
 # ------------------------------------------------- gloo staged through the host
-def _timed(method):
-    """Add the call's host seconds to `HostStagedGroup.spent_s`."""
-    @functools.wraps(method)
-    def run(self, *a, **kw):
-        t0 = time.perf_counter()
-        try:
-            return method(self, *a, **kw)
-        finally:
-            HostStagedGroup.spent_s += time.perf_counter() - t0
-    return run
+def _timed(kind, result):
+    """Add the call's host seconds to `HostStagedGroup.spent_s` and the
+    bytes of its results to ``moved_bytes[kind]``; ``result(*args)`` is
+    the tensors the call writes."""
+    def wrap(method):
+        @functools.wraps(method)
+        def run(self, *a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return method(self, *a, **kw)
+            finally:
+                cls = HostStagedGroup
+                cls.spent_s += time.perf_counter() - t0
+                if kind is not None:
+                    cls.moved_bytes[kind] = cls.moved_bytes.get(
+                        kind, 0) + sum(t.numel() * t.element_size()
+                                       for t in result(*a, **kw))
+        return run
+    return wrap
+
+
+def _flat(*xs):
+    """The tensors of nested lists."""
+    out = []
+    for x in xs:
+        if isinstance(x, torch.Tensor):
+            out.append(x)
+        else:
+            out += _flat(*x)
+    return out
 
 
 class HostStagedGroup(dist.ProcessGroup):
@@ -90,10 +112,14 @@ class HostStagedGroup(dist.ProcessGroup):
     it returns. A summing reduce-scatter is gloo's all-to-all of the
     chunks and a local sum in fp32. ``spent_s`` sums the host
     seconds of this process's calls (copies included), for the share of a
-    step spent in collectives."""
+    step spent in collectives; ``moved_bytes`` the bytes of their results
+    by kind, named as the functional collectives are
+    (``all_gather_into_tensor``, ``reduce_scatter_tensor``,
+    ``all_reduce``, ``all_to_all_single``, ``broadcast``, ``gather``)."""
 
     NAME = "gloo_host"
     spent_s = 0.0
+    moved_bytes: dict = {}
 
     def __init__(self, store, rank: int, size: int, timeout):
         super().__init__(rank, size)
@@ -142,7 +168,7 @@ class HostStagedGroup(dist.ProcessGroup):
         return h
 
     # ---- collectives
-    @_timed
+    @_timed("all_reduce", lambda tensors, opts=None: _flat(tensors))
     def allreduce(self, tensors, opts=None):
         op = opts.reduceOp if opts is not None else dist.ReduceOp.SUM
         for t in tensors:
@@ -152,14 +178,15 @@ class HostStagedGroup(dist.ProcessGroup):
     def allreduce_coalesced(self, tensors, opts=None):
         return self.allreduce(tensors, opts)
 
-    @_timed
+    @_timed("all_gather_into_tensor",
+            lambda outs, ins, opts=None: _flat(outs))
     def allgather(self, output_tensors, input_tensors, opts=None):
         for outs, x in zip(output_tensors, input_tensors):
             for o, g in zip(outs, self._gather_host(x)):
                 o.copy_(g)
         return self._done(output_tensors)
 
-    @_timed
+    @_timed("all_gather_into_tensor", lambda out, x, opts=None: [out])
     def all_gather_single(self, output, input, opts=None):
         output.copy_(self._gather_host(input).view(output.shape))
         return self._done(output)
@@ -173,7 +200,7 @@ class HostStagedGroup(dist.ProcessGroup):
 
     all_gather_single_coalesced = allgather_into_tensor_coalesced
 
-    @_timed
+    @_timed("reduce_scatter_tensor", lambda out, x, opts=None: [out])
     def reduce_scatter_single(self, output, input, opts=None):
         op = opts.reduceOp if opts is not None else dist.ReduceOp.SUM
         if op != dist.ReduceOp.SUM:
@@ -200,7 +227,7 @@ class HostStagedGroup(dist.ProcessGroup):
 
     reduce_scatter_single_coalesced = reduce_scatter_tensor_coalesced
 
-    @_timed
+    @_timed("all_to_all_single", lambda out, *a, **kw: [out])
     def all_to_all_single(self, output, input, output_split_sizes=None,
                           input_split_sizes=None, opts=None):
         out = torch.empty(output.shape, dtype=output.dtype)
@@ -213,7 +240,7 @@ class HostStagedGroup(dist.ProcessGroup):
 
     alltoall_base = all_to_all_single
 
-    @_timed
+    @_timed("broadcast", lambda tensors, opts=None: _flat(tensors))
     def broadcast(self, tensors, opts=None):
         hs = [self._host(t) for t in tensors]
         self._gloo.broadcast(hs, opts or dist.BroadcastOptions()).wait()
@@ -221,7 +248,7 @@ class HostStagedGroup(dist.ProcessGroup):
             t.copy_(h)
         return self._done(tensors)
 
-    @_timed
+    @_timed("gather", lambda outs, ins, opts=None: _flat(outs))
     def gather(self, output_tensors, input_tensors, opts=None):
         got = self._gather_host(input_tensors[0])
         root = opts.rootRank if opts is not None else 0
@@ -230,7 +257,7 @@ class HostStagedGroup(dist.ProcessGroup):
                 o.copy_(g)
         return self._done(output_tensors)
 
-    @_timed
+    @_timed(None, None)
     def barrier(self, opts=None):
         self._allreduce_host(torch.zeros(1), dist.ReduceOp.SUM)
         return self._done()
@@ -242,5 +269,57 @@ def register_host_staged() -> str:
     name = HostStagedGroup.NAME
     if name.upper() not in dist.Backend._plugins:
         dist.Backend.register_backend(name, HostStagedGroup,
+                                      devices=["cpu", "cuda"])
+    return name
+
+
+# ------------------------------------------------- a world that sends nothing
+class FakeWorldGroup(dist.ProcessGroup):
+    """A process group whose collectives do nothing: the backend of a fake
+    world (`repro_torch.launch.mesh.fake_world`), one process standing for
+    rank 0 of many. It lets the world, a `DeviceMesh` over it and the
+    mesh's sub-groups be made without a peer. Its collectives are the
+    c10d operators (``c10d::allreduce_``, ``_c10d_functional::*``), which
+    under `FakeTensorMode` are computed from shapes and reach no backend;
+    on real tensors they raise, for it has none. Its name is held here,
+    since it has no backend to hold it."""
+
+    NAME = "fake_world"
+
+    def __init__(self, store, rank: int, size: int, timeout):
+        super().__init__(rank, size)
+        self._rank, self._size = rank, size
+        self._name = self._desc = None
+
+    def getBackendName(self) -> str:
+        return self.NAME
+
+    def size(self) -> int:
+        return self._size
+
+    def rank(self) -> int:
+        return self._rank
+
+    def _set_group_name(self, name) -> None:
+        self._name = name
+
+    @property
+    def group_name(self):
+        return self._name
+
+    def _set_group_desc(self, desc) -> None:
+        self._desc = desc
+
+    @property
+    def group_desc(self):
+        return self._desc
+
+
+def register_fake_world() -> str:
+    """Register `FakeWorldGroup` as a backend (once) and return its name,
+    for ``init_process_group(backend=...)``."""
+    name = FakeWorldGroup.NAME
+    if name.upper() not in dist.Backend._plugins:
+        dist.Backend.register_backend(name, FakeWorldGroup,
                                       devices=["cpu", "cuda"])
     return name

@@ -236,6 +236,28 @@ def is_dtensor(x) -> bool:
     return isinstance(x, DTensor)
 
 
+def local_shard(shape: tuple, mesh, placements) -> tuple:
+    """(local shape, global offset) of this process's shard of a tensor of
+    `shape` under `placements` (``Shard`` / ``Replicate``) on `mesh`:
+    DTensor's split (``torch.chunk``'s, the mesh dimensions in order),
+    from the mesh's sizes and this process's coordinate alone, so that it
+    runs where DTensor's own helper would compute on tensors (a fake
+    world under `FakeTensorMode`)."""
+    from torch.distributed.tensor import Shard
+    coord = mesh.get_coordinate()
+    size, offset = list(shape), [0] * len(shape)
+    for i, p in enumerate(placements):
+        if not isinstance(p, Shard):
+            continue
+        d = p.dim % len(shape)
+        full = -(-size[d] // mesh.size(i))
+        lo = min(size[d], full * coord[i])
+        hi = min(size[d], full * (coord[i] + 1))
+        offset[d] += lo
+        size[d] = hi - lo
+    return tuple(size), tuple(offset)
+
+
 @dataclasses.dataclass(frozen=True)
 class NamedPlacement:
     """A placement tuple made concrete on a live `DeviceMesh`: the
@@ -248,18 +270,20 @@ class NamedPlacement:
     def place(self, t, device=None):
         """`t` (the whole array, the same on every process) as a DTensor
         of these placements: each process cuts its own shard locally (no
-        collective) and moves only that to `device` (`t`'s by
-        default)."""
+        collective) into a storage of its own (a shard is never a view
+        that keeps the whole array alive) and moves only that to `device`
+        (`t`'s by default)."""
+        import torch
         from torch.distributed.tensor import DTensor
-        from torch.distributed.tensor._utils import \
-            compute_local_shape_and_global_offset
-        local, offset = compute_local_shape_and_global_offset(
-            tuple(t.shape), self.mesh, self.placements)
+        local, offset = local_shard(tuple(t.shape), self.mesh,
+                                    self.placements)
         mine = t
         for d, (n, o) in enumerate(zip(local, offset)):
             if n != t.shape[d]:
                 mine = mine.narrow(d, o, n)
-        mine = mine.contiguous().to(t.device if device is None else device)
+        mine = (mine.contiguous() if mine is t else
+                mine.clone(memory_format=torch.contiguous_format))
+        mine = mine.to(t.device if device is None else device)
         return DTensor.from_local(mine, self.mesh, self.placements,
                                   run_check=False, shape=t.shape,
                                   stride=t.contiguous().stride())
@@ -335,7 +359,7 @@ def mesh_device(mesh):
 
 def mesh_shape(mesh) -> dict:
     """A live `DeviceMesh`'s shape as the rules read it."""
-    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    return {name: mesh.size(i) for i, name in enumerate(mesh.mesh_dim_names)}
 
 
 def place_state(mesh, params, opt_state, fsdp: bool = False):

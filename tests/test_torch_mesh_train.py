@@ -60,10 +60,12 @@ from repro.models import registry as jreg
 
 from repro_torch import configs as tconfigs
 from repro_torch.data import pipeline
+from repro_torch.launch import dryrun
 from repro_torch.launch import mesh as tmesh
 from repro_torch.launch import steps as tsteps
 from repro_torch.launch import train as ttrain
-from repro_torch.models import layers
+from repro_torch.models import layers, registry
+from repro_torch.models.config import ShapeConfig
 from repro_torch.optim import adamw
 from repro_torch.parallel import sharding
 
@@ -289,6 +291,73 @@ def test_host_staged_group_collectives(group):
             [x[2 * k:2 * k + 2] for x in xs]).tolist()
         assert got["all_reduce"] == total.tolist()
         assert got["broadcast"] == xs[1].tolist()
+        # its byte count: the results' bytes by kind (fp32)
+        assert got["moved_bytes"] == {
+            "all_gather_into_tensor": 4 * WORLD * 8,
+            "reduce_scatter_tensor": 4 * 8 // WORLD,
+            "all_to_all_single": 4 * 8, "all_reduce": 4 * 8,
+            "broadcast": 4 * 8}
+
+
+@pytest.mark.parametrize("arch", ["mamba2_130m", "granite_3_8b"])
+def test_heads_that_meet_the_mesh(group, arch):
+    """One step on the mesh == the same step on one device (loss within
+    LOSS_RTOL, gradient norm within GNORM_RTOL): mamba2's SSD runs on each
+    process's rows and heads on the (2, 2) mesh; granite's 2 KV heads meet
+    a (1, 4) mesh, whose "model" axis does not divide them, so their
+    projections and the weights' gradients keep the heads whole."""
+    spec, results, _, _ = group
+    want = W.one_step(W.reduced(arch), spec["batches"][0], None)
+    for r in results:
+        got = r["heads"][arch]
+        np.testing.assert_allclose(got[0], want[0], rtol=LOSS_RTOL, atol=0)
+        np.testing.assert_allclose(got[1], want[1], rtol=GNORM_RTOL, atol=0)
+
+
+@pytest.mark.parametrize("case", list(W.MOE_CASES))
+def test_moe_on_the_mesh(group, case):
+    """The MoE's routed experts on the mesh (`moe._routed_on_mesh`) keep
+    the reference's groups of the whole token stream: one step == the
+    same step on one device (loss within LOSS_RTOL, gradient norm within
+    GNORM_RTOL), where a group spans processes, where the groups are
+    reordered (more than moe_parallel_groups of them), where each
+    process's rows are whole groups, and where "model" splits each
+    expert's width instead of the experts."""
+    spec, results, _, _ = group
+    arch, over, B, S, _ = W.MOE_CASES[case]
+    want = W.one_step(W.reduced(arch, **over), W.moe_batch(arch, over, B, S),
+                      None)
+    for r in results:
+        got = r["moe"][case]
+        np.testing.assert_allclose(got[0], want[0], rtol=LOSS_RTOL, atol=0)
+        np.testing.assert_allclose(got[1], want[1], rtol=GNORM_RTOL, atol=0)
+
+
+def test_live_schedule_equals_the_dry_run(group):
+    """The collectives one live step of the reduced cell runs on each
+    process of the (2, 2) gloo world (recorded by `trace_utils.record`)
+    == the dry-run's per-device program of the same cell on a fake (2, 2)
+    world (`dryrun.spmd_program`): every op, result shape, mesh axis,
+    count and byte; and its argument bytes == the rules' per-device state
+    (parameters, m, v) + count + the process's rows of the batch."""
+    spec, results, _, _ = group
+    cfg = tconfigs.get(ARCH).reduced()
+    B, S = spec["batches"][0]["tokens"].shape
+    ana, sched, _ = dryrun.spmd_program(
+        cfg, ShapeConfig("t", S, B, "train"), {"data": 2, "model": 2},
+        spec["n_micro"], "cpu", schedule_len=1 << 30)
+    assert sched and {e["axis"] for e in sched} == {"data", "model"}
+    for r in results:
+        live = r["live"]
+        assert live["schedule"] == sched, f"process {r['rank']}"
+        assert live["by_op"] == ana["collective_bytes_by_op"]
+        assert live["by_axis"] == ana["collective_bytes_by_axis"]
+        assert live["argument_bytes"] == ana["argument_bytes"]
+    mesh = {"data": 2, "model": 2}
+    meta = registry.param_specs(cfg)
+    state = 3 * sharding._sharded_bytes(
+        meta, sharding.param_specs(mesh, meta, fsdp=True), mesh)
+    assert ana["argument_bytes"] == state + 4 + 2 * 4 * (B // 2) * S
 
 
 def test_the_mesh_processes_import_no_jax(group):

@@ -127,8 +127,13 @@ def test_collective_bytes_on_a_one_rank_group(tmp_path):
         assert ana["collective_bytes"] == 8 * 128 * 4
         assert ana["collective_bytes_by_op"] == {"all_reduce": 8 * 128 * 4}
         sched = op_analysis.collective_schedule(rec)
+        assert ana["collective_bytes_by_axis"] == {"group of 1": 8 * 128 * 4}
         assert sched == [{"op": "all_reduce", "shape": ((8, 128),),
-                          "times": 1, "bytes": 8 * 128 * 4}]
+                          "axis": "group of 1", "times": 1,
+                          "bytes": 8 * 128 * 4}]
+        axes = {dist.group.WORLD.group_name: "world"}
+        assert op_analysis.collective_schedule(rec, axes=axes)[0][
+            "axis"] == "world"
     finally:
         dist.destroy_process_group()
 

@@ -160,8 +160,14 @@ def test_dryrun_cell_reduced_train_matches_a_real_run():
     spec = sharding.param_specs(mesh, p, fsdp=cfg.fsdp)
     assert res["state_bytes_per_device"]["params"] == \
         sharding._sharded_bytes(p, spec, mesh)
-    assert res["roofline"]["collective_s"] is None
-    assert res["fits_one_card"]
+    # the per-device program on the fake 256-rank world: its collectives
+    # priced at NVLink, the bottleneck over the three terms
+    spmd, rf = res["spmd_program"], res["roofline"]
+    assert spmd["collective_bytes"] > 0 and res["collective_schedule"]
+    assert rf["collective_s"] == spmd["collective_bytes"] / dryrun.NVLINK_BW
+    assert rf["bottleneck"] == max(
+        ("compute_s", "memory_s", "collective_s"), key=rf.get)
+    assert res["fits_one_card"] and spmd["fits_per_device"]
 
     # the same step on real tensors
     params = registry.init(cfg, seed=0, device="cpu")

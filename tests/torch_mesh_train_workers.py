@@ -18,10 +18,12 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import configs, convert
+from repro_torch.analysis import trace_utils
 from repro_torch.checkpoint import ckpt
 from repro_torch.data import pipeline
 from repro_torch.launch import mesh as tmesh
-from repro_torch.launch import steps, train
+from repro_torch.launch import op_analysis, steps, train
+from repro_torch.models import registry
 from repro_torch.optim import adamw, compression
 from repro_torch.parallel import sharding
 from repro_torch.runtime import fault
@@ -81,6 +83,108 @@ def sharded_steps(spec, mesh, seq_shard):
     return dict(losses=losses, gnorms=gnorms, local=local_shapes(params),
                 batch_local=batch_shapes, m_local=local_shapes(opt.m),
                 params=host(params))
+
+
+def in_order(tree, like):
+    """`tree` (nested dicts) with its keys in `like`'s order."""
+    if not isinstance(tree, dict):
+        return tree
+    return {k: in_order(tree[k], like[k]) for k in like}
+
+
+def live_schedule(spec, mesh):
+    """One live step of the reduced cell on the (2, 2) mesh (the spec's
+    parameters placed by `param_specs(fsdp=True)`, its first batch by
+    `shard_batch`, n_micro microbatches, grad_pspec), recorded on this
+    process: its whole collective schedule by mesh axis, its collective
+    bytes by op and by axis, and its argument bytes."""
+    cfg = reduced(spec["arch"])
+    opt_cfg = adamw.AdamWConfig(moment_dtype=cfg.opt_moment_dtype)
+    # the tree in the port's own order (`registry.init`'s, the dry-run's):
+    # the order of the leaves is the order of the backward's gradient sums,
+    # whose placements DTensor takes from their first operand
+    params = in_order(convert.params_from_reference(spec["params"], CPU),
+                      registry.param_specs(cfg))
+    params, opt, p_spec = sharding.place_state(
+        mesh, params, adamw.init(opt_cfg, params), fsdp=True)
+    step = steps.make_train_step(cfg, opt_cfg, n_micro=spec["n_micro"],
+                                 grad_pspec=p_spec)
+    feed = pipeline.shard_batch(mesh, spec["batches"][0])
+    rec, _ = trace_utils.record(step, params, opt, feed, descend=False,
+                                dtensor=True)
+    axes = tmesh.mesh_axes(mesh)
+    ana = op_analysis.analyze(rec, axes)
+    return dict(schedule=op_analysis.collective_schedule(rec, 1 << 30, axes),
+                by_op=ana["collective_bytes_by_op"],
+                by_axis=ana["collective_bytes_by_axis"],
+                argument_bytes=ana["argument_bytes"])
+
+
+def one_step(cfg, batch, mesh):
+    """One step (AdamW's defaults, fsdp placements) of `cfg` from seed 0's
+    parameters on `batch`, on `mesh` (None: this process alone): the loss
+    and the gradient norm."""
+    opt_cfg = adamw.AdamWConfig()
+    params = registry.init(cfg, seed=0, device=CPU)
+    opt = adamw.init(opt_cfg, params)
+    p_spec = None
+    if mesh is not None:
+        params, opt, p_spec = sharding.place_state(mesh, params, opt,
+                                                   fsdp=True)
+    step = steps.make_train_step(cfg, opt_cfg, grad_pspec=p_spec)
+    feed = (pipeline.to_device(batch, CPU) if mesh is None
+            else pipeline.shard_batch(mesh, batch))
+    _, _, m = step(params, opt, feed)
+    return scalar(m["loss"]), scalar(m["grad_norm"])
+
+
+def whole_heads(spec):
+    """Two steps whose heads meet the mesh: mamba2's SSD on local shards
+    (`ssm._ssd_local`) on the (2, 2) mesh, and granite's 2 KV heads on a
+    (1, 4) mesh, more "model" positions than heads (`layers.split_heads`
+    gathers them); each step's (loss, gradient norm)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    wide = init_device_mesh("cpu", (1, dist.get_world_size()),
+                            mesh_dim_names=("data", "model"))
+    square = tmesh.make_host_mesh(model=2, live=True)
+    batch = spec["batches"][0]
+    return {"mamba2_130m": one_step(reduced("mamba2_130m"), batch, square),
+            "granite_3_8b": one_step(reduced(spec["arch"]), batch, wide)}
+
+
+# (arch, config overrides, batch rows, sequence, mesh): the MoE's routed
+# experts on the mesh, one case for each way `moe._routed_on_mesh` runs
+MOE_CASES = {
+    # a group of 64 tokens spans both data ranks' 32: the stream gathered
+    "groups_across_rows": ("olmoe_1b_7b", {}, 4, 16, "square"),
+    # more than moe_parallel_groups groups: the reference's group order
+    # (gathered), with the shared expert
+    "reordered_groups": ("qwen2_moe_a2_7b", {"moe_parallel_groups": 2}, 4,
+                         64, "square"),
+    # each process's rows are whole groups in place: nothing gathered
+    "rows_in_place": ("olmoe_1b_7b", {}, 4, 64, "square"),
+    # 6 experts over a 4-wide "model" axis: each expert's width split
+    "expert_width": ("olmoe_1b_7b", {"n_experts": 6}, 4, 64, "wide"),
+}
+
+
+def moe_batch(arch, over, B, S):
+    """The MoE case's batch, from seed 0."""
+    t = np.random.default_rng(0).integers(
+        0, reduced(arch, **over).vocab, (B, S)).astype(np.int32)
+    return {"tokens": t, "labels": t.copy()}
+
+
+def moe(spec):
+    """One step of each MOE_CASES case on its mesh: (loss, gradient
+    norm)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    meshes = {"square": tmesh.make_host_mesh(model=2, live=True),
+              "wide": init_device_mesh("cpu", (1, dist.get_world_size()),
+                                       mesh_dim_names=("data", "model"))}
+    return {name: one_step(reduced(arch, **over),
+                           moe_batch(arch, over, B, S), meshes[mesh])
+            for name, (arch, over, B, S, mesh) in MOE_CASES.items()}
 
 
 def psum(spec):
@@ -215,6 +319,7 @@ def staged():
     group of its own): each against what gloo's own give."""
     from repro_torch.parallel import comm
     group = dist.new_group(backend=comm.register_host_staged())
+    comm.HostStagedGroup.moved_bytes = {}
     r, n = dist.get_rank(), dist.get_world_size()
     x = torch.arange(8, dtype=torch.float32) + 10 * r
     out = {"type": type(group).__name__}
@@ -234,6 +339,7 @@ def staged():
     dist.broadcast(bc, src=1, group=group)
     out["broadcast"] = bc.tolist()
     dist.barrier(group=group)
+    out["moved_bytes"] = dict(comm.HostStagedGroup.moved_bytes)
     return out
 
 
@@ -242,7 +348,10 @@ def run_all(spec):
     mesh = tmesh.make_host_mesh(model=2, live=True)
     out = dict(rank=dist.get_rank(),
                step={ss: sharded_steps(spec, mesh, ss) for ss in (False, True)},
-               psum=psum(spec), restore=restore(spec, mesh))
+               live=live_schedule(spec, mesh), heads=whole_heads(spec),
+               moe=moe(spec),
+               psum=psum(spec),
+               restore=restore(spec, mesh))
     out["guard"] = model_axis_guard(spec, mesh)
     out["trainer"] = trainer(spec)
     out["staged"] = staged()

@@ -13,7 +13,9 @@ only read), once sound and once for each fault:
   no_data_reduction  a gradient's pending sum over the data axes is left
                      out where the port reduces it (the accumulator's add
                      and the optimizer's placement): each data position
-                     updates with its own rows' partial gradient;
+                     updates with its own rows' partial gradient (the
+                     weights replicated over "data"; an FSDP weight's
+                     gradient is reduce-scattered by `layers.at_use`);
   psum_drop_rank     `compressed_psum` leaves the first process's payload
                      out of the sum.
 
